@@ -1,0 +1,81 @@
+"""Sliding windows and the overlap merge as one matrix.
+
+Counterpart of `globalegomocap_tpu/optimize/window.py`: 10-frame windows
+at stride 8 (overlap 2); the merge averages overlapping frames and, when
+asked, folds the final Gaussian time-smoothing into the same matrix.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from globalegomocap_tpu_torch.ops.filtering import _gaussian_kernel
+
+
+def num_windows(n_frames: int, seq_len: int = 10, stride: int = 8) -> int:
+    """Windows of range(0, n - seq_len + 1, stride)."""
+    if n_frames < seq_len:
+        return 0
+    return (n_frames - seq_len) // stride + 1
+
+
+def window_indices(n_frames: int, seq_len: int = 10,
+                   stride: int = 8) -> np.ndarray:
+    """(W, T) frame-index table of the windows."""
+    w = num_windows(n_frames, seq_len, stride)
+    return (np.arange(w) * stride)[:, None] + np.arange(seq_len)[None, :]
+
+
+def slice_windows(seq: torch.Tensor, seq_len: int = 10, stride: int = 8,
+                  dim: int = 0) -> torch.Tensor:
+    """Frame axis `dim` of length N -> (..., W, T, ...) windows."""
+    idx = window_indices(seq.shape[dim], seq_len, stride)
+    out = seq.index_select(dim, torch.as_tensor(idx.reshape(-1),
+                                                device=seq.device))
+    return out.reshape(seq.shape[:dim] + idx.shape + seq.shape[dim + 1:])
+
+
+@functools.lru_cache(maxsize=None)
+def merge_matrix(w: int, t: int, stride: int = 8,
+                 smooth_sigma: float = 0.0) -> np.ndarray:
+    """The (covered_frames, W*T) matrix M with merged = M @ flat(windows):
+    a scatter-mean of the overlapping frames, times the Gaussian
+    smoothing matrix when smooth_sigma > 0 (both are linear maps along
+    time, so S @ (M @ x) = (S @ M) @ x).  Callers must not mutate the
+    cached array."""
+    n = (w - 1) * stride + t
+    idx = window_indices(n, t, stride).reshape(-1)
+    m = np.zeros((n, w * t), np.float32)
+    m[idx, np.arange(w * t)] = 1.0
+    m /= m.sum(axis=1, keepdims=True)
+    if smooth_sigma > 0.0:
+        # the smoothing filter applied to the identity, same kernel and
+        # 'symmetric' padding as gaussian_filter1d
+        k = _gaussian_kernel(smooth_sigma, 4.0)
+        r = (len(k) - 1) // 2
+        padded = np.pad(np.eye(n, dtype=np.float32), [(r, r), (0, 0)],
+                        mode="symmetric")
+        s = np.zeros((n, n), np.float32)
+        for i in range(len(k)):
+            s += k[i] * padded[i:i + n]
+        m = s @ m
+    return m
+
+
+def merge_windows_matmul(windows: torch.Tensor, stride: int = 8,
+                         smooth_sigma: float = 0.0,
+                         batch_dims: int = 0) -> torch.Tensor:
+    """(*batch, W, T, *feat) windows -> (*batch, covered, *feat) as one
+    (batched) matmul against `merge_matrix`; `batch_dims` leading axes
+    (the chunk axis of the flat path) are batched over."""
+    lead = windows.shape[:batch_dims]
+    w, t = windows.shape[batch_dims], windows.shape[batch_dims + 1]
+    feat = windows.shape[batch_dims + 2:]
+    m = torch.as_tensor(merge_matrix(w, t, stride, smooth_sigma),
+                        device=windows.device)
+    flat = windows.reshape(lead + (w * t, -1)).to(torch.float32)
+    out = torch.matmul(m, flat)
+    return out.reshape(lead + (m.shape[0],) + feat).to(windows.dtype)

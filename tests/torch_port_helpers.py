@@ -1,0 +1,73 @@
+"""Shared fixtures of the tests/test_torch_*.py files: one configuration,
+one set of prior weights and one set of chunks, built for both the JAX
+package (the reference) and the PyTorch port.  Data crosses between the
+two packages as numpy arrays."""
+
+from __future__ import annotations
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+
+from globalegomocap_tpu import config as jcfg
+from globalegomocap_tpu.data.synthetic import synthetic_chunk
+from globalegomocap_tpu_torch import config as tcfg
+from globalegomocap_tpu_torch.data.test_data import TestChunk
+from globalegomocap_tpu_torch.models.convert import params_from_flax
+
+# the tiny prior of tests/test_golden.py
+TINY_PRIOR = dict(latent_dim=32, seq_len=10, hidden_dims=(8, 8, 16, 16, 32))
+
+
+def slice_config(pkg, max_iter: int = 12, global_max_iter: int = 3,
+                 prior: dict = TINY_PRIOR, **overrides):
+    """The serve path's production stack at float32 compute, built from
+    either package's config module (`pkg` is `jcfg` or `tcfg`)."""
+    kw = dict(
+        prior=pkg.PriorConfig(**prior),
+        solver=pkg.SolverConfig(
+            method="lbfgs_fixed", max_iter=max_iter, history_size=2,
+            step_candidates=(1.0, 0.1), lr=2.0, fused_probes=True,
+            fused_energy=True, global_max_iter=global_max_iter, unroll=1),
+        energy=pkg.EnergyConfig(global_residual=True),
+        sampling_impl="dense", heatmap_dtype="bfloat16", heatmap_crop=8,
+        guard_crop=16, heatmap_crop_min_mass=0.90, robust_tier_on_guard=True,
+        fold_bn=True, dense_decoder=True, decoder_impl="conv",
+        matmul_merge=True, final_smooth=True, final_smooth_sigma=1.0,
+        camera="egosyn")
+    kw.update(overrides)
+    return pkg.OptimizeConfig(**kw)
+
+
+def jax_variables(model, seed: int):
+    """Flax ConvVAE variables from `seed`, with BatchNorm running
+    statistics drawn from numpy so that BN folding has work to do."""
+    v = model.init(jax.random.PRNGKey(seed),
+                   jnp.zeros((1, model.seq_len, model.in_channels)), False)
+    rng = np.random.default_rng(seed)
+    stats = {}
+    for name in sorted(v["batch_stats"]):
+        shape = np.shape(v["batch_stats"][name]["bn"]["mean"])
+        stats[name] = {"bn": {
+            "mean": jnp.asarray(rng.uniform(-0.1, 0.1, shape), jnp.float32),
+            "var": jnp.asarray(rng.uniform(0.8, 1.2, shape), jnp.float32)}}
+    return {"params": v["params"], "batch_stats": stats}
+
+
+def port_state(variables) -> dict:
+    """The same weights as the port's state dict."""
+    return params_from_flax(jax.tree_util.tree_map(np.asarray, variables))
+
+
+def port_chunk(chunk) -> TestChunk:
+    """A JAX-package TestChunk as the port's (same numpy arrays)."""
+    return TestChunk(*(np.asarray(x) for x in chunk))
+
+
+def chunks(n_frames: int = 26, seeds=(1, 2)):
+    """JAX-package synthetic chunks (the maps come from the JAX fisheye)."""
+    return [synthetic_chunk(n_frames, seed=s) for s in seeds]
+
+
+__all__ = ["jcfg", "tcfg", "slice_config", "jax_variables", "port_state",
+           "port_chunk", "chunks", "TINY_PRIOR"]
