@@ -5,12 +5,17 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    - nvcc builds globalegomocap_tpu_torch/csrc/fused_energy.cu for
-              sm_90a; prints what ptxas reports (registers, spills, smem).
+1. build    - nvcc builds the three sources of globalegomocap_tpu_torch/csrc/
+              for sm_90a, one process each, all started together; prints
+              what ptxas reports (registers, spills, smem).
 2. kernels  - each kernel against its plain PyTorch version on the same
-              CUDA inputs: k=8 bf16 and k=16 f32 crops, R in {1, 2, 4}, a
-              window count that is a multiple of no block size, and the
-              serve path's own shapes.
+              CUDA inputs: the fused energies at k=8 bf16 and k=16 f32
+              crops, R in {1, 2, 4}, a window count that is a multiple of
+              no block size and the serve path's own shapes; the heatmap
+              sampler forward and backward on f32 and bf16 64x64 maps,
+              points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
+              and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
+              13, 192}, d = 2048 with partly filled histories.
 3. serve    - 2 sequences x 16 chunks x 100 frames of synthetic data
               (numpy, from --seed) go through the port's `cli/serve.py`
               main at the prior's full width (latent 2048, hidden
@@ -22,8 +27,25 @@ Phases (any failure exits non-zero and prints no result line):
               plain version on its own arguments; and serve runs with the
               plain versions swapped in (metrics and merged poses at 12+3
               iterations, merged poses at 2+1).
-4. timing   - each kernel at the serve path's shapes (CUDA graph replay,
-              CUDA events) beside its bound and the plain version's time.
+3d. path A  - the per-chunk full-map path at the parity CLI's knobs (25/25
+              iterations, history 25, 4 step candidates, fused probes
+              off): 1 sequence x 4 chunks x 100 frames through the port's
+              `cli/optimize_sequence.py` with --solver lbfgs_fixed
+              --sampling pallas (the 17-metric summary), then through the
+              library `optimize_sequence_dir` with pallas_direction=True,
+              the launch counts each run predicts, no failed chunk, a
+              shadow run and a plain-version run (metrics within 1 %).
+3e. path B  - serve's full-map guard fallback: one 16-chunk sequence with
+              --sampling pallas --guard_crop 0 and a crop-mass bar no map
+              meets; full maps staged, the robust tier, the launch counts
+              and a shadow run; then a sequence of two unequal-length
+              chunks through serve's per-chunk fallback with the same
+              flags (its launch counts, no failed chunk).
+4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
+              events) beside its bound (from the bytes these inputs need:
+              the map sectors that hold an in-range tap, the valid history
+              slots), the plain version's time and, for the sampler,
+              F.grid_sample's.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs one CUDA card; exits 2
@@ -37,7 +59,6 @@ import contextlib
 import io
 import json
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -57,17 +78,36 @@ OPS_PER_CELL = 14
 OPS_PER_POINT_REPROJ = 120
 OPS_PER_POINT_POSE = 60
 
-SOURCE = "globalegomocap_tpu_torch/csrc/fused_energy.cu"
+CSRC = "globalegomocap_tpu_torch/csrc/"
+SOURCES = {"fused_stage_energy": CSRC + "fused_energy.cu",
+           "fused_stage_energy_noreproj": CSRC + "fused_energy.cu",
+           "heatmap_sample": CSRC + "heatmap_sample.cu",
+           "heatmap_sample_bwd": CSRC + "heatmap_sample.cu",
+           "lbfgs_direction": CSRC + "lbfgs_direction.cu"}
 REPLACES = {
     "fused_stage_energy":
         "globalegomocap_tpu/ops/pallas/fused_energy.py:350",
     "fused_stage_energy_noreproj":
         "globalegomocap_tpu/ops/pallas/fused_energy.py:450",
+    "heatmap_sample":
+        "globalegomocap_tpu/ops/pallas/heatmap_sample.py:97",
+    "heatmap_sample_bwd":
+        "globalegomocap_tpu/ops/pallas/heatmap_sample.py:128",
+    "lbfgs_direction":
+        "globalegomocap_tpu/ops/pallas/lbfgs_direction.py:137",
 }
+# float32 operations per sampled point, counted from
+# csrc/heatmap_sample.cu (coordinates, taps, weights, the two pairs)
+OPS_PER_SAMPLE = 30
+OPS_PER_SAMPLE_BWD = 50
 T, J = 10, 15
 L = T * J
 # the serve traffic: two requests of 16 chunks x 100 frames (192 windows)
 SEQUENCES, CHUNKS, FRAMES = 2, 16, 100
+# path A traffic: one sequence of 4 chunks x 100 frames (48 windows)
+PATH_A_CHUNKS = 4
+WINDOWS_PER_CHUNK = 12             # of a 100-frame chunk at stride 8
+LATENT = 2048
 
 
 def card_line() -> str:
@@ -247,6 +287,194 @@ def kernel_phase(torch, fe, fisheye, fails, seed, serve_b):
     return err
 
 
+def near_kink(coord, tol=1e-4):
+    """Coordinates within `tol` of an integer, where the triangle
+    kernel's a.e. derivative jumps."""
+    return (coord - coord.round()).abs() <= tol
+
+
+def sampler_inputs(r, n, dtype, gen, torch, size=64):
+    """Maps (n, size, size) in `dtype` and points (r, n, 2) uniform in
+    [-1.3, 1.3] on the card."""
+    dev = torch.device("cuda")
+    maps = torch.rand((n, size, size), generator=gen, device=dev).to(
+        dtype).contiguous()
+    pts = (torch.rand((r, n, 2), generator=gen, device=dev) * 2.6
+           - 1.3).contiguous()
+    return maps, pts
+
+
+def fwd_agreement(torch, out_k, out_p):
+    """Sampler forward against the plain version: |d| <= 1e-5 (1 + |p|).
+    Returns (ok, max |d|)."""
+    d = (out_k - out_p).abs()
+    ok = (bool(torch.isfinite(out_k).all())
+          and bool((d <= 1e-5 * (1 + out_p.abs())).all()))
+    return ok, float(d.max())
+
+
+def bwd_agreement(torch, maps, pts, d_k, d_p):
+    """Sampler backward against the plain version: |d| <= 1e-4 (1 + |p|)
+    at the points whose pixel coordinates lie more than 1e-4 from an
+    integer; the others are counted and left out.  The kernel computes
+    the coordinates with the plain version's own float32 operations (no
+    FMA contraction), so it takes the same side of every kink and the
+    count is expected to be small.  Returns (ok, max |d|, left out)."""
+    h, w = maps.shape[-2], maps.shape[-1]
+    kink = (near_kink((pts[..., 0] + 1.0) * (0.5 * (w - 1)))
+            | near_kink((pts[..., 1] + 1.0) * (0.5 * (h - 1))))
+    smooth = (~kink)[..., None].expand_as(d_k)
+    dd = (d_k - d_p).abs()[smooth]
+    ok = (bool(torch.isfinite(d_k).all())
+          and bool((dd <= 1e-4 * (1 + d_p.abs()[smooth])).all()))
+    return ok, float(dd.max()) if dd.numel() else 0.0, int(kink.sum())
+
+
+def dir_agreement(torch, out_k, out_p):
+    """Direction against the plain two-loop: |d| <= 1e-4 (1 + |p|); both
+    sum 2048-term dot products in their own order.  Returns (ok,
+    max |d|)."""
+    d = (out_k - out_p).abs()
+    ok = (bool(torch.isfinite(out_k).all())
+          and bool((d <= 1e-4 * (1 + out_p.abs())).all()))
+    return ok, float(d.max())
+
+
+def compare_sampler(torch, hs, cb, r, n, dtype, gen):
+    """The sampler's forward and backward kernels against the plain
+    version on the same CUDA inputs.  Returns (ok, message, max |error|
+    forward, backward)."""
+    maps, pts = sampler_inputs(r, n, dtype, gen, torch)
+    g = torch.randn((r, n), generator=gen, device="cuda")
+    out_k = hs.heatmap_sample_fwd(maps, pts)
+    d_k = hs.heatmap_sample_bwd(maps, pts, g)
+    with cb.plain_versions_on_cuda():
+        out_p = hs.heatmap_sample_fwd(maps, pts)
+        d_p = hs.heatmap_sample_bwd(maps, pts, g)
+    torch.cuda.synchronize()
+    ok_f, de = fwd_agreement(torch, out_k, out_p)
+    ok_b, dd, n_kink = bwd_agreement(torch, maps, pts, d_k, d_p)
+    msg = (f"heatmap_sample fwd+bwd {str(dtype).split('.')[-1]} R={r} "
+           f"N={n}: max|dout|={de:.3e} max|ddpts|={dd:.3e} "
+           f"(|dpts|~{float(d_p.abs().mean()):.3e}; {n_kink} of {r * n} "
+           f"points at a kink left out)")
+    return ok_f and ok_b, msg, de, dd
+
+
+def direction_inputs(b, m, d, gen, torch):
+    """Partly filled histories on the card: lane i holds its newest
+    fill_i pairs (lane 0 all m, the last lane none), s.y > 0; lane 1 is
+    full and its newest pair has y.y = 0 (its rho stays finite), so
+    gamma falls back to 1 there."""
+    dev = torch.device("cuda")
+    fill = torch.randint(0, m + 1, (b,), generator=gen, device=dev)
+    fill[0], fill[1], fill[-1] = m, m, 0
+    valid = (torch.arange(m, device=dev)[None, :]
+             >= (m - fill)[:, None]).contiguous()
+    mask = valid[..., None].to(torch.float32)
+    s = torch.randn((b, m, d), generator=gen, device=dev) * mask
+    y = (s * (0.5 + 1.5 * torch.rand((b, m, 1), generator=gen, device=dev))
+         + 0.1 * torch.randn((b, m, d), generator=gen, device=dev)) * mask
+    rho = torch.where(valid, 1.0 / (s * y).sum(-1).clamp_min(1e-12),
+                      torch.zeros((b, m), device=dev)).contiguous()
+    y[1, m - 1] = 0.0
+    g = torch.randn((b, d), generator=gen, device=dev)
+    return g, s.contiguous(), y.contiguous(), rho, valid
+
+
+def compare_direction(torch, ld, cb, b, m, gen):
+    args = direction_inputs(b, m, LATENT, gen, torch)
+    out_k = ld.lbfgs_direction(*args)
+    with cb.plain_versions_on_cuda():
+        out_p = ld.lbfgs_direction(*args)
+    torch.cuda.synchronize()
+    ok, err = dir_agreement(torch, out_k, out_p)
+    msg = (f"lbfgs_direction B={b} m={m} d={LATENT}: max|dd|={err:.3e} "
+           f"(|d|~{float(out_p.abs().mean()):.3e}; "
+           f"{int(args[4].sum())} of {b * m} slots valid)")
+    return ok, msg, err
+
+
+# sampled points of one chunk's windows (path A) and of one serve batch
+# (path B): windows x T x J
+PATH_A_POINTS = WINDOWS_PER_CHUNK * L
+PATH_B_POINTS = CHUNKS * WINDOWS_PER_CHUNK * L
+
+
+def new_kernel_phase(torch, hs, ld, cb, fails, seed):
+    """The sampler and direction kernels against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    err = {"heatmap_sample": 0.0, "heatmap_sample_bwd": 0.0,
+           "lbfgs_direction": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (1, 4):
+            for n in (1037, PATH_A_POINTS, PATH_B_POINTS):
+                ok, msg, de, dd = compare_sampler(torch, hs, cb, r, n, dtype,
+                                                  gen)
+                fails.check(ok, msg)
+                err["heatmap_sample"] = max(err["heatmap_sample"], de)
+                err["heatmap_sample_bwd"] = max(err["heatmap_sample_bwd"],
+                                                dd)
+    for m in (2, 10, 25):
+        for b in (12, 13, 192):
+            ok, msg, e = compare_direction(torch, ld, cb, b, m, gen)
+            fails.check(ok, msg)
+            err["lbfgs_direction"] = max(err["lbfgs_direction"], e)
+    return err
+
+
+@contextlib.contextmanager
+def shadowed_new(torch, hs, ld, cb, log):
+    """Inside the block every sampler and direction kernel call also runs
+    the plain version on the same arguments and appends (name,
+    agreement) to `log`; the kernel's outputs go on."""
+    orig = (hs.heatmap_sample_fwd, hs.heatmap_sample_bwd,
+            ld.lbfgs_direction)
+
+    def fwd(maps, pts):
+        out = orig[0](maps, pts)
+        with cb.plain_versions_on_cuda():
+            ref = orig[0](maps, pts)
+        log.append(("heatmap_sample", fwd_agreement(torch, out, ref) + (0,)))
+        return out
+
+    def bwd(maps, pts, g):
+        out = orig[1](maps, pts, g)
+        with cb.plain_versions_on_cuda():
+            ref = orig[1](maps, pts, g)
+        log.append(("heatmap_sample_bwd",
+                    bwd_agreement(torch, maps, pts, out, ref)))
+        return out
+
+    def direction(*args):
+        out = orig[2](*args)
+        with cb.plain_versions_on_cuda():
+            ref = orig[2](*args)
+        log.append(("lbfgs_direction", dir_agreement(torch, out, ref) + (0,)))
+        return out
+
+    hs.heatmap_sample_fwd, hs.heatmap_sample_bwd = fwd, bwd
+    ld.lbfgs_direction = direction
+    try:
+        yield log
+    finally:
+        hs.heatmap_sample_fwd, hs.heatmap_sample_bwd = orig[:2]
+        ld.lbfgs_direction = orig[2]
+
+
+def check_shadow(fails, log, expected, what):
+    """Each kernel's shadowed calls: as many as `expected` says, each in
+    agreement with the plain version."""
+    for name, n in expected.items():
+        rows = [a for k, a in log if k == name]
+        fails.check(
+            len(rows) == n and all(a[0] for a in rows),
+            f"{name} on {what}: {len(rows)} calls ({n} expected), each "
+            f"against the plain version on its own arguments: max|d|="
+            f"{max((a[1] for a in rows), default=0.0):.3e}, "
+            f"{sum(a[2] for a in rows)} points at a kink left out")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serve path
 # ---------------------------------------------------------------------------
@@ -293,6 +521,219 @@ def run_serve(serve, argv):
     return recs, wall
 
 
+def path_a_phase(torch, seed, dev, fails, card, work,
+                 n_chunks=PATH_A_CHUNKS, n_frames=FRAMES, iters=None,
+                 profile=False):
+    """Path A: the per-chunk full-map path at the parity CLI's knobs,
+    through the CLI and through `optimize_sequence_dir` with the
+    direction kernel, with the launch counts reset just before and read
+    just after each run; then a shadow run and a plain-version run.
+    `iters` (stage-1 iterations; the CLI default 25 when None) and the
+    chunk shape are cut only in a rehearsal on the CPU.  Returns the
+    library run's launch counts."""
+    from dataclasses import replace
+    from globalegomocap_tpu_torch.cli import optimize_sequence as cli
+    from globalegomocap_tpu_torch.cli.serve import load_state
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import METRIC_KEYS
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model, optimize_sequence_dir)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tmp, _, local_ckpt, global_ckpt = work
+    root = os.path.join(tmp, "path_a")
+    write_sequences(root, 1, n_chunks, n_frames, seed + 7)
+    seq = os.path.join(root, "seq0")
+    argv = ["--data_path", seq, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--solver", "lbfgs_fixed", "--sampling", "pallas",
+            "--device", dev]
+    if iters is not None:
+        argv += ["--max_iter", str(iters)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    it1 = cfg.solver.max_iter
+    it2 = cfg.solver.global_max_iter or it1
+    # per chunk: stage 1 evaluates value-and-grad once, then per iteration
+    # one value-only probe call (forward only) and one value-and-grad at
+    # the accepted point; the direction runs once per iteration of both
+    # stages (stage 2 has no heatmap term)
+    expect = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
+              "heatmap_sample": n_chunks * (1 + 2 * it1),
+              "heatmap_sample_bwd": n_chunks * (1 + it1),
+              "lbfgs_direction": 0}
+    print(f"  {n_chunks} chunks x {n_frames} frames, {it1}+{it2} "
+          f"iterations, history {cfg.solver.history_size}, "
+          f"{len(cfg.solver.step_candidates)} step candidates, fused "
+          f"probes {cfg.solver.fused_probes}", flush=True)
+
+    cb.reset_launches()                        # 1. the CLI
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    launches = dict(cb.LAUNCHES)
+    for line in out.splitlines()[-20:]:
+        print("  cli | " + line, flush=True)
+    fails.check(out.count("Average ") == 16 and "joints error is:" in out
+                and "total optimization time" in out,
+                f"optimize_sequence CLI printed the 17-metric summary "
+                f"({wall:.2f} s)")
+    fails.check("SKIPPED" not in out, "CLI skipped no chunk")
+    fails.check(launches == expect, f"CLI launches {launches}, expected "
+                f"{expect}")
+
+    cfg = replace(cfg, solver=replace(cfg.solver, pallas_direction=True))
+    opt = SequenceOptimizer(build_model(cfg), load_state(local_ckpt),
+                            load_state(global_ckpt), cfg, device=dev)
+    expect["lbfgs_direction"] = n_chunks * (it1 + it2)
+    cb.reset_launches()                        # 2. the library, the main run
+    _, avg, timing = optimize_sequence_dir(opt, seq, verbose=False)
+    sync()
+    launches = dict(cb.LAUNCHES)
+    print(f"  library run with pallas_direction: launches {launches}, "
+          f"{timing['per_chunk_s'] * 1e3:.3f} ms per chunk of 12 windows "
+          f"[{card}]", flush=True)
+    fails.check(timing["failed_chunks"] == [],
+                f"no failed chunk ({timing['failed_chunks']})")
+    fails.check(launches == expect, f"library launches {launches}, "
+                f"expected {expect}")
+
+    log = []                                   # 3. the shadow run
+    with shadowed_new(torch, hs, ld, cb, log):
+        _, _, t_sh = optimize_sequence_dir(opt, seq, verbose=False)
+    fails.check(t_sh["failed_chunks"] == [],
+                f"shadow run: no failed chunk ({t_sh['failed_chunks']})")
+    check_shadow(fails, log, {k: expect[k] for k in (
+        "heatmap_sample", "heatmap_sample_bwd", "lbfgs_direction")},
+        "path A")
+
+    with cb.plain_versions_on_cuda():          # 4. the plain versions
+        _, pavg, ptiming = optimize_sequence_dir(opt, seq, verbose=False)
+    fails.check(ptiming["failed_chunks"] == [], "plain run: no failed chunk")
+    worst = max(abs(float(avg[k]) - float(pavg[k])) / abs(float(pavg[k]))
+                for k in METRIC_KEYS[:17])
+    fails.check(worst <= 0.01,
+                f"path A 17 metrics with the kernels vs the plain versions: "
+                f"worst relative difference {worst:.3e} (bound 1 %); "
+                f"optimized_global_mpjpe {float(avg['optimized_global_mpjpe'])}"
+                f" vs {float(pavg['optimized_global_mpjpe'])}; "
+                f"{ptiming['per_chunk_s'] * 1e3:.3f} ms per chunk with the "
+                f"plain versions")
+    if profile:
+        print("[3d'] profile of one path A chunk", flush=True)
+        chunk = load_test_chunk(list_chunk_dirs(seq)[0])
+        profile_phase(torch, lambda: opt.optimize_chunk(chunk))
+    return launches
+
+
+def path_b_phase(torch, dev, fails, card, work,
+                 shape=(CHUNKS, FRAMES), profile=False):
+    """Path B: serve's full-map guard fallback on the first sequence of
+    the serve traffic, the guard tripped through the CLI (--guard_crop 0
+    and a crop-mass bar of 1.1, which no map meets).  Returns the launch
+    counts of the run."""
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import fused_energy as fe
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    n_chunks, n_frames = shape
+    tmp, data, local_ckpt, global_ckpt = work
+    base = ["--data_root", data, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--device", dev, "--sampling", "pallas",
+            "--guard_crop", "0", "--heatmap_crop_min_mass", "1.1",
+            "--max_batches", "1"]
+    cfg = serve.config_from_args(serve.build_parser().parse_args(base))
+    opt = SequenceOptimizer(build_model(cfg), serve.load_state(local_ckpt),
+                            serve.load_state(global_ckpt), cfg, device=dev)
+    chunks = [load_test_chunk(d) for d in list_chunk_dirs(
+        os.path.join(data, "seq0"))]
+    t0 = time.perf_counter()
+    staged = opt.stage(chunks, on_host=True)
+    t_stage = time.perf_counter() - t0
+    print(f"  path B host staging of 16 chunks of full maps (numpy guard "
+          f"pass, stack, bf16 cast, copy to the card): "
+          f"{t_stage * 1e3:.3f} ms [{card}]", flush=True)
+    eff = opt._cfg_for_coverage(staged.crop_coverage)
+    fails.check(staged.origins is None and eff.heatmap_crop == 0
+                and tuple(staged.heat.shape) == (n_chunks, n_frames, 64, 64,
+                                                 J)
+                and staged.heat.dtype == torch.bfloat16,
+                f"guard tripped at coverage {staged.crop_coverage:.4f}: full "
+                f"maps staged {tuple(staged.heat.shape)} "
+                f"{str(staged.heat.dtype).split('.')[-1]}")
+    s = eff.solver
+    fails.check((s.max_iter, s.history_size, len(s.step_candidates))
+                == (15, 10, 4), f"robust tier: {s.max_iter} iterations, "
+                f"history {s.history_size}, {len(s.step_candidates)} step "
+                f"candidates")
+    if profile:
+        print("[3e'] profile of one path B solve", flush=True)
+        profile_phase(torch, lambda: opt.optimize_chunks_batched(
+            staged, mode="flat"))
+    del staged
+    # fused probes: one value-and-grad per evaluation, 1 + iterations
+    expect = {"fused_stage_energy": 0,
+              "fused_stage_energy_noreproj": 1 + s.global_max_iter,
+              "heatmap_sample": 1 + s.max_iter,
+              "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0}
+    cb.reset_launches()
+    recs, wall = run_serve(serve, base)
+    launches = dict(cb.LAUNCHES)
+    fails.check(len(recs) == 1 and "error" not in recs[0]
+                and "windows_per_sec" in recs[0],
+                f"path B serve line emitted ({wall:.2f} s) [{card}]")
+    fails.check(launches == expect, f"path B launches {launches}, "
+                f"expected {expect}")
+    log_fe, log_new = [], []
+    with shadowed(torch, fe, log_fe), shadowed_new(torch, hs, ld, cb,
+                                                   log_new):
+        run_serve(serve, base)
+    check_shadow(fails, log_new, {"heatmap_sample": expect["heatmap_sample"],
+                                  "heatmap_sample_bwd":
+                                      expect["heatmap_sample_bwd"]},
+                 "path B")
+    rows = [a for n, _, a in log_fe if n == "fused_stage_energy_noreproj"]
+    fails.check(len(rows) == expect["fused_stage_energy_noreproj"]
+                and all(a[0] for a in rows),
+                f"fused_stage_energy_noreproj on path B: {len(rows)} calls, "
+                f"each against the plain version")
+
+    # serve's unequal-length fallback with the same flags: a sequence of
+    # an n_frames and an (n_frames - 10)-frame chunk goes chunk by chunk
+    # through optimize_sequence_dir, each chunk's guard trips on its raw
+    # maps and its full maps are solved as above; a chunk that failed
+    # (a failed launch, say) would turn the line into an error record
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
+    from globalegomocap_tpu_torch.data.test_data import save_test_chunk
+    mixed = os.path.join(tmp, "path_b_mixed")
+    start = 0
+    for c, n in enumerate((n_frames, n_frames - 10)):
+        save_test_chunk(synthetic_chunk(n, seed=9000 + c), os.path.join(
+            mixed, "seqM", f"data_start_{start}_end_{start + n}"))
+        start += n
+    expect = {k: 2 * v for k, v in expect.items()}
+    cb.reset_launches()
+    recs, wall = run_serve(serve, ["--data_root", mixed] + base[2:])
+    mixed_launches = dict(cb.LAUNCHES)
+    fails.check(len(recs) == 1 and "error" not in recs[0]
+                and recs[0].get("chunks") == 2,
+                f"path B unequal-length sequence: serve line emitted, no "
+                f"chunk failed ({wall:.2f} s) [{card}]")
+    fails.check(mixed_launches == expect, f"path B unequal-length launches "
+                f"{mixed_launches}, expected {expect}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timing
 # ---------------------------------------------------------------------------
@@ -337,6 +778,43 @@ def event_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def bound_of(nbytes, ops):
+    """(bound_ms, 'bytes' | 'operations'): the larger of the bytes over
+    the HBM rate and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sampler_map_bytes(torch, maps, pts):
+    """Bytes of map the sampler must read for these points: the distinct
+    32-byte sectors that hold at least one in-range tap (columns
+    floor(ix), floor(ix) + 1 and rows likewise, as csrc/heatmap_sample.cu
+    reads them; a tap outside the map is never read).  A sector shared by
+    several points or probe rows counts once."""
+    n, h, w = maps.shape
+    e = maps.element_size()
+    ix = ((pts[..., 0] + 1.0) * (0.5 * (w - 1))).floor().long()
+    iy = ((pts[..., 1] + 1.0) * (0.5 * (h - 1))).floor().long()
+    mapid = torch.arange(n, device=pts.device).expand_as(ix)
+    sectors = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = iy + dy, ix + dx
+            ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            sectors.append((((mapid * h + y) * w + x) * e // 32)[ok])
+    return 32 * int(torch.unique(torch.cat(sectors)).numel())
+
+
+def direction_bound(b, m, d, n_valid):
+    """The two-loop recursion's bound on these histories: the gradient in
+    and the direction out, rho and valid of every slot, and s and y of the
+    `n_valid` valid slots only (the kernel skips the others in both
+    loops); a dot product and an axpy per valid slot in each loop."""
+    nbytes = b * 2 * d * 4 + b * m * (4 + 1) + n_valid * 2 * d * 4
+    return bound_of(nbytes, 8 * n_valid * d + 3 * b * d)
+
+
 def bound(name, r, b, k, crop_bytes):
     """(bound_ms, 'bytes' | 'operations') from the call's shapes: each
     input read once, each output written once; the operations counted
@@ -348,9 +826,72 @@ def bound(name, r, b, k, crop_bytes):
     else:
         ctx = b * (3 * L * 4 + L * 4)
         ops = r * b * L * OPS_PER_POINT_POSE
-    t_bytes = (pose_io + ctx) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_of(pose_io + ctx, ops)
+
+
+def timing_new(torch, hs, ld, cb, seed, card):
+    """The sampler at the path A (R=4 probes over one chunk's 1800 f32
+    maps) and path B (R=4 over a serve batch's 28800 bf16 maps) shapes
+    beside F.grid_sample on the same points (float32 maps of shape
+    (N, 1, 64, 64), grid (N, 1, R, 2): the library yardstick, never
+    called by the port), and the direction at path A's (12 lanes, m=25)
+    and the kernel phase's B=192 shapes.  Each bound counts the bytes
+    these inputs need (`sampler_map_bytes`, `direction_bound`).  Returns
+    {name: (ms, plain_ms, bound_ms, bound_by, library_ms)} at path A's
+    shapes."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rows = {}
+    for tag, r, n, dtype in (("path A", 4, PATH_A_POINTS, torch.float32),
+                             ("path B", 4, PATH_B_POINTS, torch.bfloat16)):
+        maps, pts = sampler_inputs(r, n, dtype, gen, torch)
+        g = torch.randn((r, n), generator=gen, device="cuda")
+        inp = maps.to(torch.float32)[:, None].contiguous()
+        grid = pts.permute(1, 0, 2)[:, None].contiguous()
+        go = g.t()[:, None, None, :].contiguous()
+        map_bytes = sampler_map_bytes(torch, maps, pts)
+        calls = {
+            "heatmap_sample": (
+                lambda: hs.heatmap_sample_fwd(maps, pts),
+                lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True),
+                r * n * (8 + 4) + map_bytes, r * n * OPS_PER_SAMPLE),
+            "heatmap_sample_bwd": (
+                lambda: hs.heatmap_sample_bwd(maps, pts, g),
+                lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    go, inp, grid, 0, 0, True, [False, True]),
+                r * n * (8 + 4 + 8) + map_bytes,
+                r * n * OPS_PER_SAMPLE_BWD)}
+        print(f"  {tag}: {map_bytes} bytes of map needed by {r * n} points "
+              f"({map_bytes / (r * n):.2f} per point)", flush=True)
+        for name, (fn, lib, nbytes, ops) in calls.items():
+            ms = graph_ms(torch, fn)
+            lib_ms = graph_ms(torch, lib)
+            with cb.plain_versions_on_cuda():
+                plain = event_ms(torch, fn)
+            bms, by = bound_of(nbytes, ops)
+            print(f"  time  {name} {tag} R={r} N={n} "
+                  f"{str(dtype).split('.')[-1]} maps: kernel {ms:.6f} ms, "
+                  f"bound {bms:.6f} ms ({by}), roofline share "
+                  f"{bms / ms:.4f}, plain version {plain:.6f} ms, "
+                  f"F.grid_sample{'' if name == 'heatmap_sample' else ' backward'}"
+                  f" {lib_ms:.6f} ms [{card}]", flush=True)
+            rows.setdefault(name, (ms, plain, bms, by, lib_ms))
+    for b, m in ((WINDOWS_PER_CHUNK, 25), (192, 10), (192, 2)):
+        args = direction_inputs(b, m, LATENT, gen, torch)
+        fn = lambda: ld.lbfgs_direction(*args)  # noqa: E731
+        ms = graph_ms(torch, fn)
+        with cb.plain_versions_on_cuda():
+            plain = event_ms(torch, fn)
+        n_valid = int(args[4].sum())
+        bms, by = direction_bound(b, m, LATENT, n_valid)
+        print(f"  time  lbfgs_direction B={b} m={m} d={LATENT} ({n_valid} of "
+              f"{b * m} slots valid): kernel {ms:.6f} ms, bound {bms:.6f} ms "
+              f"({by}), roofline share {bms / ms:.4f}, plain version "
+              f"{plain:.6f} ms [{card}]", flush=True)
+        rows.setdefault("lbfgs_direction", (ms, plain, bms, by, None))
+    return rows
 
 
 def timing_phase(torch, fe, fisheye, seed, b, card):
@@ -384,16 +925,17 @@ def timing_phase(torch, fe, fisheye, seed, b, card):
     return rows
 
 
-def profile_phase(torch, opt, staged):
-    """Where one serve solve's device time goes (torch.profiler): wall
-    time, device busy time, idle share and the top kernels."""
+def profile_phase(torch, solve):
+    """Where one call of `solve` spends device time (torch.profiler): wall
+    time, device busy time, idle share and the top kernels.  A warm call
+    runs first."""
     from torch.profiler import ProfilerActivity, profile
-    opt.optimize_chunks_batched(staged, mode="flat")
+    solve()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        opt.optimize_chunks_batched(staged, mode="flat")
+        solve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side rows only (kernels, copies): the aten rows repeat them
@@ -408,13 +950,29 @@ def profile_phase(torch, opt, staged):
               f"{e.count:6d}x  {e.key[:90]}", flush=True)
 
 
-def serve_phase(torch, seed, dev, fails, card, profile=False,
+def make_work(torch, seed, tmp, shape=(SEQUENCES, CHUNKS, FRAMES)):
+    """The serve traffic (`shape` is (sequences, chunks, frames)) as chunk
+    directories and two random full-width priors under `tmp`.  Returns
+    (tmp, data root, local prior, global prior)."""
+    n_seq, n_chunks, n_frames = shape
+    data = os.path.join(tmp, "incoming")
+    t0 = time.perf_counter()
+    write_sequences(data, n_seq, n_chunks, n_frames, seed)
+    local_ckpt, global_ckpt = write_priors(tmp, seed, torch)
+    print(f"  wrote {n_seq} sequences x {n_chunks} chunks x {n_frames} "
+          f"frames and two random priors in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    return tmp, data, local_ckpt, global_ckpt
+
+
+def serve_phase(torch, seed, dev, fails, card, work, profile=False,
                 shape=(SEQUENCES, CHUNKS, FRAMES)):
     """The main path: serve over synthetic sequences at full width with
     the launch counts reset just before and read just after, the
     guard-trip path, and the serve run again with the plain versions.
-    `shape` is (sequences, chunks, frames); only a rehearsal on the CPU
-    passes a smaller one.  Returns the main run's launch counts."""
+    `work` comes from `make_work` with the same `shape`; only a rehearsal
+    on the CPU passes a smaller one.  Returns the main run's launch
+    counts."""
     import numpy as np
     from globalegomocap_tpu_torch.cli import serve
     from globalegomocap_tpu_torch.data.test_data import (
@@ -426,160 +984,152 @@ def serve_phase(torch, seed, dev, fails, card, profile=False,
     n_seq, n_chunks, n_frames = shape
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     wins = num_windows(n_frames) * n_chunks
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        data = os.path.join(tmp, "incoming")
-        t0 = time.perf_counter()
-        write_sequences(data, n_seq, n_chunks, n_frames, seed)
-        local_ckpt, global_ckpt = write_priors(tmp, seed, torch)
-        print(f"  wrote {n_seq} sequences x {n_chunks} chunks x "
-              f"{n_frames} frames and two random priors in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        base = ["--data_root", data, "--local_ckpt", local_ckpt,
-                "--global_ckpt", global_ckpt, "--device", dev,
-                "--save_pose", "true"]
-        cfg = serve.config_from_args(serve.build_parser().parse_args(base))
-        per_seq = {"fused_stage_energy": 1 + cfg.solver.max_iter,
-                   "fused_stage_energy_noreproj":
-                       1 + cfg.solver.global_max_iter}
+    tmp, data, local_ckpt, global_ckpt = work
+    base = ["--data_root", data, "--local_ckpt", local_ckpt,
+            "--global_ckpt", global_ckpt, "--device", dev,
+            "--save_pose", "true"]
+    cfg = serve.config_from_args(serve.build_parser().parse_args(base))
+    per_seq = {"fused_stage_energy": 1 + cfg.solver.max_iter,
+               "fused_stage_energy_noreproj":
+                   1 + cfg.solver.global_max_iter}
 
-        fe.reset_launches()                      # the main path's run
-        recs, wall = run_serve(serve, base + ["--out_dir",
-                                              os.path.join(tmp, "kernel")])
-        launches = dict(fe.LAUNCHES)
-        print(f"  launches {launches} in {wall:.2f} s", flush=True)
-        fails.check(len(recs) == n_seq
-                    and all("error" not in r for r in recs),
-                    f"serve answered {len(recs)} of {n_seq} sequences")
-        for name, n in per_seq.items():
-            fails.check(launches[name] == n * n_seq,
-                        f"{name}: {launches[name]} launches, "
-                        f"{n * n_seq} expected")
-        fails.check(all(r.get("windows") == wins for r in recs),
-                    f"{wins} windows per request")
-        fails.check(all(all(abs(float(r[key])) < float("inf")
-                            for key in ("optimized_global_mpjpe",
-                                        "original_global_mpjpe"))
-                        for r in recs), "serve metrics finite")
+    fe.reset_launches()                      # the main path's run
+    recs, wall = run_serve(serve, base + ["--out_dir",
+                                          os.path.join(tmp, "kernel")])
+    launches = dict(fe.LAUNCHES)
+    print(f"  launches {launches} in {wall:.2f} s", flush=True)
+    fails.check(len(recs) == n_seq
+                and all("error" not in r for r in recs),
+                f"serve answered {len(recs)} of {n_seq} sequences")
+    for name, n in per_seq.items():
+        fails.check(launches[name] == n * n_seq,
+                    f"{name}: {launches[name]} launches, "
+                    f"{n * n_seq} expected")
+    fails.check(all(r.get("windows") == wins for r in recs),
+                f"{wins} windows per request")
+    fails.check(all(all(abs(float(r[key])) < float("inf")
+                        for key in ("optimized_global_mpjpe",
+                                    "original_global_mpjpe"))
+                    for r in recs), "serve metrics finite")
 
-        # the crop-guard trip path: k=16 estimate-centred crops, robust tier
-        opt = SequenceOptimizer(build_model(cfg),
-                                serve.load_state(local_ckpt),
-                                serve.load_state(global_ckpt), cfg,
-                                device=dev)
-        chunks = [load_test_chunk(d) for d in
-                  list_chunk_dirs(os.path.join(data, "seq0"))]
-        # one warm request split into host staging and the solve
-        t0 = time.perf_counter()
-        staged_peak = opt.stage(chunks, on_host=True)
-        t_stage = time.perf_counter() - t0
-        opt.optimize_chunks_batched(staged_peak, mode="flat")
-        sync()
-        t0 = time.perf_counter()
-        opt.optimize_chunks_batched(staged_peak, mode="flat")
-        sync()
-        t_solve = time.perf_counter() - t0
-        print(f"  one warm request of {wins} windows: host staging "
-              f"{t_stage * 1e3:.3f} ms, solve {t_solve * 1e3:.3f} ms "
+    # the crop-guard trip path: k=16 estimate-centred crops, robust tier
+    opt = SequenceOptimizer(build_model(cfg),
+                            serve.load_state(local_ckpt),
+                            serve.load_state(global_ckpt), cfg,
+                            device=dev)
+    chunks = [load_test_chunk(d) for d in
+              list_chunk_dirs(os.path.join(data, "seq0"))]
+    # one warm request split into host staging and the solve
+    t0 = time.perf_counter()
+    staged_peak = opt.stage(chunks, on_host=True)
+    t_stage = time.perf_counter() - t0
+    opt.optimize_chunks_batched(staged_peak, mode="flat")
+    sync()
+    t0 = time.perf_counter()
+    opt.optimize_chunks_batched(staged_peak, mode="flat")
+    sync()
+    t_solve = time.perf_counter() - t0
+    print(f"  one warm request of {wins} windows: host staging "
+          f"{t_stage * 1e3:.3f} ms, solve {t_solve * 1e3:.3f} ms "
+          f"[{card}]", flush=True)
+
+    staged = opt.stage(chunks, on_host=True, coverage=0.1)
+    fe.reset_launches()
+    res = opt.optimize_chunks_batched(staged, mode="flat")
+    sync()
+    g_launch = dict(fe.LAUNCHES)
+    robust = opt._cfg_for_coverage(0.1).solver
+    fails.check(staged.heat.shape[-1] == 16 * 16 * J
+                and staged.heat.dtype == torch.bfloat16,
+                f"guard trip staged k=16 bf16 crops "
+                f"{tuple(staged.heat.shape)}")
+    fails.check(g_launch == {
+        "fused_stage_energy": 1 + robust.max_iter,
+        "fused_stage_energy_noreproj": 1 + robust.global_max_iter,
+        "heatmap_sample": 0, "heatmap_sample_bwd": 0,
+        "lbfgs_direction": 0},
+        f"guard trip launches {g_launch} (robust tier: "
+        f"{robust.max_iter} iterations, {len(robust.step_candidates)} "
+        f"step candidates)")
+    fails.check(all(bool(torch.isfinite(x).all()) for x in res),
+                "guard trip outputs finite")
+
+    # every kernel call of a full serve run checked against the plain
+    # version on the same arguments, along the kernels' own trajectory
+    log = []
+    with shadowed(torch, fe, log):
+        run_serve(serve, base + ["--out_dir", os.path.join(tmp, "sh")])
+    for name in per_seq:
+        rows = [a for n, _, a in log if n == name]
+        fails.check(
+            len(rows) == per_seq[name] * n_seq
+            and all(a[0] for a in rows),
+            f"{name} on the serve path: {len(rows)} calls, each "
+            f"against the plain version on its own arguments: "
+            f"max|de|={max(a[1] for a in rows):.3e} "
+            f"max|dg|={max(a[2] for a in rows):.3e} "
+            f"max|dg|/(1+|g|)={max(a[3] for a in rows):.3e}, "
+            f"{sum(a[4] for a in rows)} points at a kink left out")
+
+    # the same serve run with the plain versions swapped in.  With a
+    # random prior the first steps (scaled by 1/|g|_1) barely move the
+    # energy, so the line search's Armijo test decides some windows on
+    # float32 rounding, and the two runs branch there (the CPU tests
+    # see the same between the JAX package and the port).  The shadow
+    # run above holds every kernel call tightly; here the full run is
+    # held by its metrics (1 %) and by the share of frames within
+    # 1 cm, and a 2+1-iteration run, where few windows have branched,
+    # by the share within 1e-5 m and its worst frame.
+    with fe.plain_versions_on_cuda():
+        precs, pwall = run_serve(serve, base + [
+            "--out_dir", os.path.join(tmp, "plain")])
+    print(f"  plain-version serve run in {pwall:.2f} s", flush=True)
+    for r, p in zip(recs, precs):
+        a, b = r["optimized_global_mpjpe"], p["optimized_global_mpjpe"]
+        fails.check(abs(a - b) <= 0.01 * abs(b),
+                    f"{r['sequence']} optimized_global_mpjpe {a} with "
+                    f"the kernels, {b} with the plain versions (1 %)")
+        print(f"  serve {r['sequence']}: latency {r['latency_ms']} ms, "
+              f"{r['windows_per_sec']} windows/s (plain versions: "
+              f"{p['latency_ms']} ms, {p['windows_per_sec']} windows/s) "
               f"[{card}]", flush=True)
-
-        staged = opt.stage(chunks, on_host=True, coverage=0.1)
-        fe.reset_launches()
-        res = opt.optimize_chunks_batched(staged, mode="flat")
-        sync()
-        g_launch = dict(fe.LAUNCHES)
-        robust = opt._cfg_for_coverage(0.1).solver
-        fails.check(staged.heat.shape[-1] == 16 * 16 * J
-                    and staged.heat.dtype == torch.bfloat16,
-                    f"guard trip staged k=16 bf16 crops "
-                    f"{tuple(staged.heat.shape)}")
-        fails.check(g_launch == {
-            "fused_stage_energy": 1 + robust.max_iter,
-            "fused_stage_energy_noreproj": 1 + robust.global_max_iter},
-            f"guard trip launches {g_launch} (robust tier: "
-            f"{robust.max_iter} iterations, {len(robust.step_candidates)} "
-            f"step candidates)")
-        fails.check(all(bool(torch.isfinite(x).all()) for x in res),
-                    "guard trip outputs finite")
-
-        # every kernel call of a full serve run checked against the plain
-        # version on the same arguments, along the kernels' own trajectory
-        log = []
-        with shadowed(torch, fe, log):
-            run_serve(serve, base + ["--out_dir", os.path.join(tmp, "sh")])
-        for name in per_seq:
-            rows = [a for n, _, a in log if n == name]
-            fails.check(
-                len(rows) == per_seq[name] * n_seq
-                and all(a[0] for a in rows),
-                f"{name} on the serve path: {len(rows)} calls, each "
-                f"against the plain version on its own arguments: "
-                f"max|de|={max(a[1] for a in rows):.3e} "
-                f"max|dg|={max(a[2] for a in rows):.3e} "
-                f"max|dg|/(1+|g|)={max(a[3] for a in rows):.3e}, "
-                f"{sum(a[4] for a in rows)} points at a kink left out")
-
-        # the same serve run with the plain versions swapped in.  With a
-        # random prior the first steps (scaled by 1/|g|_1) barely move the
-        # energy, so the line search's Armijo test decides some windows on
-        # float32 rounding, and the two runs branch there (the CPU tests
-        # see the same between the JAX package and the port).  The shadow
-        # run above holds every kernel call tightly; here the full run is
-        # held by its metrics (1 %) and by the share of frames within
-        # 1 cm, and a 2+1-iteration run, where few windows have branched,
-        # by the share within 1e-5 m and its worst frame.
-        with fe.plain_versions_on_cuda():
-            precs, pwall = run_serve(serve, base + [
-                "--out_dir", os.path.join(tmp, "plain")])
-        print(f"  plain-version serve run in {pwall:.2f} s", flush=True)
-        for r, p in zip(recs, precs):
-            a, b = r["optimized_global_mpjpe"], p["optimized_global_mpjpe"]
-            fails.check(abs(a - b) <= 0.01 * abs(b),
-                        f"{r['sequence']} optimized_global_mpjpe {a} with "
-                        f"the kernels, {b} with the plain versions (1 %)")
-            print(f"  serve {r['sequence']}: latency {r['latency_ms']} ms, "
-                  f"{r['windows_per_sec']} windows/s (plain versions: "
-                  f"{p['latency_ms']} ms, {p['windows_per_sec']} windows/s) "
-                  f"[{card}]", flush=True)
-        covered = (num_windows(n_frames) - 1) * 8 + 10
-        short = ["--max_iter", "2", "--global_max_iter", "1"]
+    covered = (num_windows(n_frames) - 1) * 8 + 10
+    short = ["--max_iter", "2", "--global_max_iter", "1"]
+    run_serve(serve, base + short + ["--out_dir",
+                                     os.path.join(tmp, "kernel2")])
+    with fe.plain_versions_on_cuda():
         run_serve(serve, base + short + ["--out_dir",
-                                         os.path.join(tmp, "kernel2")])
-        with fe.plain_versions_on_cuda():
-            run_serve(serve, base + short + ["--out_dir",
-                                             os.path.join(tmp, "plain2")])
-        for s in range(n_seq):
-            for tag, run, ref in (("12+3", "kernel", "plain"),
-                                  ("2+1", "kernel2", "plain2")):
-                a = np.load(os.path.join(tmp, run, f"seq{s}",
-                                         "optimized.npy"))
-                b = np.load(os.path.join(tmp, ref, f"seq{s}",
-                                         "optimized.npy"))
-                fails.check(a.shape == (n_chunks, covered, J, 3)
-                            and bool(np.isfinite(a).all()),
-                            f"seq{s} {tag} optimized {a.shape} finite")
-                d = np.abs(a - b).max(axis=(-2, -1))   # worst joint/frame
-                within = [float((d <= t).mean())
-                          for t in (1e-5, 1e-4, 1e-3, 1e-2)]
-                line = (f"seq{s} {tag} iterations, optimized poses with the "
-                        f"kernels vs the plain versions: share of frames "
-                        f"within 1e-5/1e-4/1e-3/1e-2 m "
-                        + "/".join(f"{v:.4f}" for v in within)
-                        + f", max {float(d.max()):.3e} m")
-                if tag == "2+1":
-                    fails.check(within[0] >= 0.85 and float(d.max()) <= 0.02,
-                                line + " (bound: 0.85 within 1e-5 m, all "
-                                "within 0.02 m)")
-                else:
-                    fails.check(within[3] >= 0.95,
-                                line + " (bound: 0.95 within 1e-2 m)")
+                                         os.path.join(tmp, "plain2")])
+    for s in range(n_seq):
+        for tag, run, ref in (("12+3", "kernel", "plain"),
+                              ("2+1", "kernel2", "plain2")):
+            a = np.load(os.path.join(tmp, run, f"seq{s}",
+                                     "optimized.npy"))
+            b = np.load(os.path.join(tmp, ref, f"seq{s}",
+                                     "optimized.npy"))
+            fails.check(a.shape == (n_chunks, covered, J, 3)
+                        and bool(np.isfinite(a).all()),
+                        f"seq{s} {tag} optimized {a.shape} finite")
+            d = np.abs(a - b).max(axis=(-2, -1))   # worst joint/frame
+            within = [float((d <= t).mean())
+                      for t in (1e-5, 1e-4, 1e-3, 1e-2)]
+            line = (f"seq{s} {tag} iterations, optimized poses with the "
+                    f"kernels vs the plain versions: share of frames "
+                    f"within 1e-5/1e-4/1e-3/1e-2 m "
+                    + "/".join(f"{v:.4f}" for v in within)
+                    + f", max {float(d.max()):.3e} m")
+            if tag == "2+1":
+                fails.check(within[0] >= 0.85 and float(d.max()) <= 0.02,
+                            line + " (bound: 0.85 within 1e-5 m, all "
+                            "within 0.02 m)")
+            else:
+                fails.check(within[3] >= 0.95,
+                            line + " (bound: 0.95 within 1e-2 m)")
 
-        if profile:
-            print("[3b] profile of one serve solve", flush=True)
-            profile_phase(torch, opt, staged_peak)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-
+    if profile:
+        print("[3b] profile of one serve solve", flush=True)
+        profile_phase(torch, lambda: opt.optimize_chunks_batched(
+            staged_peak, mode="flat"))
     return launches
 
 
@@ -587,7 +1137,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one serve solve (torch.profiler)")
+                    help="also profile one serve solve, one path A chunk "
+                         "and one path B solve (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "globalegomocap_tpu_torch")):
@@ -601,8 +1152,11 @@ def main(argv=None) -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
     from globalegomocap_tpu_torch.ops import fisheye
     from globalegomocap_tpu_torch.ops import fused_energy as fe
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
     card = card_line()
@@ -612,39 +1166,75 @@ def main(argv=None) -> int:
           flush=True)
     fails = Failures()
     t_start = time.perf_counter()
+    seconds = {}
+
+    def phase_done(name, t0):
+        seconds[name] = time.perf_counter() - t0
+        print(f"  ({name}: {seconds[name]:.1f} s)", flush=True)
 
     # ---- 1. build ---------------------------------------------------------
     print("[1] build", flush=True)
     t0 = time.perf_counter()
-    so = fe.build_library()
-    fe._library()
-    print(f"  built {os.path.relpath(so, HERE)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in fe.BUILD_LOG.splitlines():
-        if "ptxas" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+    sources = ("fused_energy", "heatmap_sample", "lbfgs_direction")
+    built = cb.build_all(sources)
+    fe._library(), hs._library(), ld._library()
+    for name in sources:
+        print(f"  built {os.path.relpath(built[name], HERE)}", flush=True)
+        for line in cb.BUILD_LOG.get(name, "").splitlines():
+            if "ptxas" in line or "spill" in line:
+                print("    " + line.strip(), flush=True)
+    phase_done("build", t0)
 
     # ---- 2. kernels against their plain versions ----------------------------
     wins = num_windows(FRAMES) * CHUNKS               # one serve batch
     print("[2] kernels against their plain versions", flush=True)
+    t0 = time.perf_counter()
     max_err = kernel_phase(torch, fe, fisheye, fails, args.seed, wins)
+    max_err.update(new_kernel_phase(torch, hs, ld, cb, fails, args.seed))
+    phase_done("kernels", t0)
 
-    # ---- 3. serve -----------------------------------------------------------
-    print("[3] serve path at full width", flush=True)
-    launches = serve_phase(torch, args.seed, "cuda", fails, card,
-                           profile=args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # ---- 3. serve -------------------------------------------------------
+        print("[3] serve path at full width", flush=True)
+        t0 = time.perf_counter()
+        work = make_work(torch, args.seed, tmp)
+        launches = serve_phase(torch, args.seed, "cuda", fails, card, work,
+                               profile=args.profile)
+        phase_done("serve", t0)
+        # ---- 3d. path A -----------------------------------------------------
+        print("[3d] path A: per-chunk full-map path (optimize_sequence)",
+              flush=True)
+        t0 = time.perf_counter()
+        launches.update({k: v for k, v in path_a_phase(
+            torch, args.seed, "cuda", fails, card, work,
+            profile=args.profile).items()
+            if k in ("heatmap_sample", "heatmap_sample_bwd",
+                     "lbfgs_direction")})
+        phase_done("path A", t0)
+        # ---- 3e. path B -----------------------------------------------------
+        print("[3e] path B: serve's full-map guard fallback", flush=True)
+        t0 = time.perf_counter()
+        path_b_phase(torch, "cuda", fails, card, work, profile=args.profile)
+        phase_done("path B", t0)
+
     # ---- 4. timing ----------------------------------------------------------
-    print("[4] timing at the serve shapes", flush=True)
+    print("[4] timing at the paths' shapes", flush=True)
+    t0 = time.perf_counter()
     rows = timing_phase(torch, fe, fisheye, args.seed, wins, card)
+    rows = {name: row[:4] + (None,) for name, row in rows.items()}
+    rows.update(timing_new(torch, hs, ld, cb, args.seed, card))
+    phase_done("timing", t0)
     kernels = []
-    for name in ("fused_stage_energy", "fused_stage_energy_noreproj"):
-        ms, plain, bms, by, _ = rows[name]
+    for name in SOURCES:
+        ms, plain, bms, by, lib = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None})
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+            "bound_ms": bms, "bound_by": by, "library_ms": lib})
+    print(f"total {time.perf_counter() - t_start:.1f} s; by phase "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()),
+          flush=True)
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed:",
               file=sys.stderr)

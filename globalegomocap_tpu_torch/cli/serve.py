@@ -7,10 +7,18 @@ solver stack (lbfgs_fixed with fused probes and the fused energy kernels,
 3 iterations, k=8 peak crops staged on the host as bf16, k=16
 estimate-centred crops and the robust tier when the crop-mass guard
 trips, folded BN, conv decoder, Gaussian final smoothing in the merge)
-at float32 compute.  Each record carries the JAX serve's keys:
+at float32 compute.  With --guard_crop 0 a tripped guard falls back to
+the full maps, sampled as --sampling says (pallas: the heatmap_sample
+CUDA kernel).  A sequence whose chunks differ in length goes through the
+per-chunk `optimize_sequence_dir`.  Each record carries the JAX serve's
+keys:
 
   {"sequence", "chunks", "windows", "latency_ms", "windows_per_sec",
    "optimized_global_mpjpe", "original_global_mpjpe"}
+
+A sequence that fails to load, or one of whose chunks fails to solve in
+the per-chunk fallback, gets {"sequence", "error"} instead (the latter
+also with "failed_chunks").
 
     python -m globalegomocap_tpu_torch.cli.serve --data_root incoming \\
         --local_ckpt local.pth.tar --global_ckpt global.pth.tar
@@ -66,7 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--step_candidates", default="1.0,0.1")
     p.add_argument("--global_max_iter", default=3, type=int)
     p.add_argument("--heatmap_crop", default=8, type=int)
-    p.add_argument("--guard_crop", default=16, type=int)
+    p.add_argument("--sampling", default="dense",
+                   choices=["gather", "dense", "pallas"],
+                   help="full-map sampling (the guard_crop 0 fallback)")
+    p.add_argument("--guard_crop", default=16, type=int,
+                   help="k of the estimate-centred crops of a tripped "
+                        "guard; 0 = the full-map fallback")
     p.add_argument("--heatmap_crop_min_mass", default=0.90, type=float)
     p.add_argument("--heatmap_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
@@ -107,7 +120,7 @@ def config_from_args(args) -> OptimizeConfig:
                                 args.step_candidates.split(",")),
                             fused_probes=True, fused_energy=True,
                             global_max_iter=args.global_max_iter),
-        sampling_impl="dense", heatmap_dtype=args.heatmap_dtype,
+        sampling_impl=args.sampling, heatmap_dtype=args.heatmap_dtype,
         heatmap_crop=args.heatmap_crop, guard_crop=args.guard_crop,
         heatmap_crop_min_mass=args.heatmap_crop_min_mass,
         fold_bn=args.fold_bn, dense_decoder=True, decoder_impl="conv",
@@ -138,7 +151,7 @@ def main(argv=None) -> int:
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
     from globalegomocap_tpu_torch.optimize.driver import (
-        SequenceOptimizer, build_model)
+        SequenceOptimizer, build_model, optimize_sequence_dir)
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
     cfg = config_from_args(args)
@@ -167,9 +180,24 @@ def main(argv=None) -> int:
             emitted += 1
             continue
         if len({c.n_frames for c in chunks}) != 1:
-            raise NotImplementedError(
-                f"sequence {name}: unequal chunk lengths (the serial "
-                "per-chunk fallback is not ported yet)")
+            # unequal chunk lengths: the per-chunk fallback
+            t0 = time.perf_counter()
+            _, avg, timing = optimize_sequence_dir(opt, seq_dir,
+                                                   verbose=False)
+            failed = timing["failed_chunks"]
+            if failed:
+                # a metric over the chunks that survived would hide them
+                rec = {"sequence": name, "error": failed[0][1],
+                       "failed_chunks": [d for d, _ in failed]}
+            else:
+                rec = {"sequence": name, "chunks": len(chunks),
+                       "latency_ms": round(
+                           1e3 * (time.perf_counter() - t0), 1),
+                       "optimized_global_mpjpe": round(float(
+                           avg["optimized_global_mpjpe"]), 5)}
+            print(json.dumps(rec), flush=True)
+            emitted += 1
+            continue
         t0 = time.perf_counter()
         staged = opt.stage(chunks, on_host=True)
         res = opt.optimize_chunks_batched(staged, mode="flat")

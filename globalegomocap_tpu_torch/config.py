@@ -43,7 +43,7 @@ class SolverConfig:
     pallas_direction: bool = False
     remat: bool = False
     # one fused kernel per objective eval (ops/fused_energy.py) under the
-    # explicitly batched solver: the only solve path of this slice
+    # explicitly batched solver
     fused_energy: bool = False
     batched_solver: bool = False
     fused_decode: bool = False

@@ -15,11 +15,10 @@ ct[..., None, None] * g, the JAX custom VJP (the TPU kernel has no
 backward kernel either).
 
 Dispatch: a CUDA tensor launches the hand-written kernel
-(`csrc/fused_energy.cu`, built with nvcc for sm_90a at first use into
-build/kernels/ and bound with ctypes) or raises; a CPU tensor runs the
-plain PyTorch version below, which mirrors `_energy_core` term by term
-with the same hand-written gradient.  `LAUNCHES` counts kernel launches
-per wrapper.
+(`csrc/fused_energy.cu`, built and bound by `ops/cuda_build.py`) or
+raises; a CPU tensor runs the plain PyTorch version below, which mirrors
+`_energy_core` term by term with the same hand-written gradient.
+`cuda_build.LAUNCHES` counts kernel launches per wrapper.
 
 Bound on the H100 (computed from the shapes, not measured): per stage-1
 call with bf16 crops at k=8 the kernel must move about
@@ -33,133 +32,36 @@ bytes-bound.  chip_smoke.py measures the times; PERF.md records them.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from globalegomocap_tpu_torch.ops import cuda_build
+from globalegomocap_tpu_torch.ops.cuda_build import (  # noqa: F401
+    LAUNCHES, expect as _expect, plain_versions_on_cuda, reset_launches,
+    use_plain as _use_plain)
 from globalegomocap_tpu_torch.ops.skeleton import KINEMATIC_PARENTS
 
 _EPS = 1e-9          # fisheye ||xy|| guard
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_energy.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-
-# kernel launches per wrapper (chip_smoke.py resets and reads them)
-LAUNCHES = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-_plain_on_cuda = False
-
-
-@contextlib.contextmanager
-def plain_versions_on_cuda():
-    """Test-only switch: inside the block, CUDA tensors run the plain
-    PyTorch version instead of the kernel (chip_smoke.py compares a whole
-    serve run both ways).  Never on by default."""
-    global _plain_on_cuda
-    prev, _plain_on_cuda = _plain_on_cuda, True
-    try:
-        yield
-    finally:
-        _plain_on_cuda = prev
-
-
-# ---------------------------------------------------------------------------
-# build and binding
-# ---------------------------------------------------------------------------
-
-_lib = None
-_lib_lock = threading.Lock()
-BUILD_LOG = ""   # nvcc/ptxas output of the build this process ran
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build with "
-                           "the CUDA toolkit on the machine with the card")
-    return path
-
-
-def build_library() -> Path:
-    """Compile csrc/fused_energy.cu for sm_90a into build/kernels/ (keyed
-    by the source's hash, so an edited source rebuilds) and return the
-    shared library's path.  nvcc runs with -Xptxas -v; its report lands
-    in BUILD_LOG."""
-    global BUILD_LOG
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    so = _BUILD_DIR / f"libfused_energy_{tag}.so"
-    if so.exists():
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, so)
-    return so
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fused_stage_energy_launch": (
+        [_VP, _VP, _VP, _CI, _VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP,
+         _CI, _CI, _CI, _CI, _CF, _CF, _CF, _VP], _CI),
+    "fused_stage_energy_noreproj_launch": (
+        [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
+}
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.fused_stage_energy_launch.argtypes = [
-                vp, vp, vp, ci, vp, vp, vp, vp, vp, ci, vp, vp,
-                ci, ci, ci, ci, cf, cf, cf, vp]
-            lib.fused_stage_energy_launch.restype = ci
-            lib.fused_stage_energy_noreproj_launch.argtypes = [
-                vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-            lib.fused_stage_energy_noreproj_launch.restype = ci
-            _lib = lib
-    return _lib
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    """csrc/fused_energy.cu, built and loaded at first use."""
+    return cuda_build.library("fused_energy", _SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
 # argument checks
 # ---------------------------------------------------------------------------
-
-def _expect(x: torch.Tensor, name: str, shape, dtypes, dev) -> None:
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if x.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected one of {dtypes}")
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, pose is on {dev}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
 
 def _check_common(pose_rt, anchor_t, bone, wvec, t, j):
     if pose_rt.dim() != 4 or pose_rt.shape[2] != 3:
@@ -181,10 +83,6 @@ def _check_common(pose_rt, anchor_t, bone, wvec, t, j):
     _expect(bone, "bone", (b, L), f32, dev)
     _expect(wvec, "wvec", (1, 8), f32, dev)
     return r, b, L, dev
-
-
-def _use_plain(dev: torch.device) -> bool:
-    return dev.type == "cpu" or _plain_on_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -354,15 +252,13 @@ def stage_energy_and_grad(pose_rt, anchor_t, crops, ox, oy, bone, wvec,
                                      crop_offset)
     e = torch.empty((r, b), dtype=torch.float32, device=dev)
     g = torch.empty_like(pose_rt)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().fused_stage_energy_launch(
         pose_rt.data_ptr(), anchor_t.data_ptr(), crops.data_ptr(),
         int(crops.dtype == torch.bfloat16), ox.data_ptr(), oy.data_ptr(),
         bone.data_ptr(), wvec.data_ptr(), poly.data_ptr(), poly.shape[1],
         e.data_ptr(), g.data_ptr(), r, b, L, k, sx, sy, float(crop_offset),
-        stream)
-    _check_launch("fused_stage_energy", err)
-    LAUNCHES["fused_stage_energy"] += 1
+        cuda_build.stream_of(dev))
+    cuda_build.launched("fused_stage_energy", err)
     return e, g
 
 
@@ -375,12 +271,11 @@ def stage_energy_and_grad_noreproj(pose_rt, anchor_t, bone, wvec, t, j):
                                      0.0, with_reproj=False)
     e = torch.empty((r, b), dtype=torch.float32, device=dev)
     g = torch.empty_like(pose_rt)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().fused_stage_energy_noreproj_launch(
         pose_rt.data_ptr(), anchor_t.data_ptr(), bone.data_ptr(),
-        wvec.data_ptr(), e.data_ptr(), g.data_ptr(), r, b, L, stream)
-    _check_launch("fused_stage_energy_noreproj", err)
-    LAUNCHES["fused_stage_energy_noreproj"] += 1
+        wvec.data_ptr(), e.data_ptr(), g.data_ptr(), r, b, L,
+        cuda_build.stream_of(dev))
+    cuda_build.launched("fused_stage_energy_noreproj", err)
     return e, g
 
 

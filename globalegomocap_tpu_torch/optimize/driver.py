@@ -1,17 +1,21 @@
-"""Per-sequence optimisation driver: the two priors, host staging with
-the crop-mass guard, and the flat batched solve.
+"""Per-sequence optimisation driver: the two priors, the crop-mass
+guard, host staging, the flat batched solve and the per-chunk solve.
 
-Counterpart of the slice's subset of `globalegomocap_tpu/optimize/
-driver.py`: `SequenceOptimizer` (BN folding at construction,
-`stage(on_host=True)`, `_cfg_for_coverage`,
-`optimize_chunks_batched(mode="flat")`, `run`).  Every derived
-configuration is built from the full resolved config, so nothing keys a
-cache on a partial view of it.
+Counterpart of `globalegomocap_tpu/optimize/driver.py`:
+`SequenceOptimizer` (BN folding at construction, the guard on raw maps
+`_crop_coverage`/`_effective_cfg`, `_cfg_for_coverage` with its
+`guard_crop` = 0 full-map fallback, `stage(on_host=True)`,
+`optimize_chunks_batched(mode="flat")`, `optimize_chunk`, `run`), and
+`optimize_sequence_dir` (its per-chunk loop, with the per-chunk fault
+isolation; the batched variant waits for the port of `evaluate_all`) and
+`print_summary`.  Every derived configuration is built from the full
+resolved config, so nothing keys a cache on a partial view of it.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -19,7 +23,8 @@ import numpy as np
 import torch
 
 from globalegomocap_tpu_torch.config import OptimizeConfig, with_overrides
-from globalegomocap_tpu_torch.data.test_data import TestChunk
+from globalegomocap_tpu_torch.data.test_data import (
+    TestChunk, list_chunk_dirs, load_test_chunk)
 from globalegomocap_tpu_torch.device import resolve_device
 from globalegomocap_tpu_torch.energy.terms import (
     crop_coverage_np, crop_heatmaps_at_centers_channels_last_np,
@@ -28,8 +33,8 @@ from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.models.fold_bn import fold_batchnorm
 from globalegomocap_tpu_torch.ops import fisheye
-from globalegomocap_tpu_torch.optimize.pipeline import (
-    ChunkResult, optimize_chunks_flat)
+from globalegomocap_tpu_torch.optimize import pipeline
+from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
 
 
 def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
@@ -51,11 +56,12 @@ def build_model(cfg: OptimizeConfig, use_bn: bool = True) -> ConvVAE:
 @dataclass(frozen=True)
 class StagedBatch:
     """Equal-length chunks staged for the solve: tensors on the solve
-    device, heat as FLAT (C, F, k*k*J) peak crops, the crop-guard
-    coverage resolved on the host."""
+    device, heat as FLAT (C, F, k*k*J) peak crops (or the full maps
+    (C, F, H, W, J) when no crops are used), the crop-guard coverage
+    resolved on the host."""
     est: Any              # (C, F, 15, 3)
     cams: Any             # (C, F, 4, 4)
-    heat: Any             # (C, F, k*k*J) crops (float32 or bfloat16)
+    heat: Any             # crops or maps (float32 or bfloat16)
     gt: Any               # (C, F, 15, 3)
     n_chunks: int
     crop_coverage: float | None
@@ -93,18 +99,18 @@ class SequenceOptimizer:
 
     def _cfg_for_coverage(self, cov: float | None) -> OptimizeConfig:
         """The crop-mass guard: below heatmap_crop_min_mass the crops are
-        redone at guard_crop around the projected estimate and, with
-        robust_tier_on_guard, the solver switches to its robust tier
+        redone at guard_crop around the projected estimate, or with
+        guard_crop = 0 the solve falls back to the full maps; with
+        robust_tier_on_guard the solver also switches to its robust tier
         (>= 15 iterations, history >= 10, 4 step candidates)."""
         cfg = self.cfg
         if cov is None or cov >= cfg.heatmap_crop_min_mass:
             return cfg
-        if cfg.guard_crop <= 0:
-            raise NotImplementedError(
-                "guard_crop=0 (the full-map fallback of a tripped crop "
-                "guard) is not ported yet")
-        cfg = with_overrides(cfg, heatmap_crop=cfg.guard_crop,
-                             crop_center="estimate")
+        if cfg.guard_crop > 0:
+            cfg = with_overrides(cfg, heatmap_crop=cfg.guard_crop,
+                                 crop_center="estimate")
+        else:
+            cfg = with_overrides(cfg, heatmap_crop=0)
         if cfg.robust_tier_on_guard and cfg.solver.method == "lbfgs_fixed":
             cfg = replace(cfg, solver=replace(
                 cfg.solver, history_size=max(cfg.solver.history_size, 10),
@@ -112,35 +118,57 @@ class SequenceOptimizer:
                 step_candidates=(1.0, 0.5, 0.1, 0.02)))
         return cfg
 
+    def _guard_on(self) -> bool:
+        cfg = self.cfg
+        return (cfg.heatmap_crop > 0 and cfg.heatmap_crop_min_mass > 0
+                and cfg.energy.reproj != 0.0)
+
+    def _crop_coverage(self, heatmaps) -> float | None:
+        """The guard statistic on raw maps (N, H, W, J): the mean share of
+        non-negative map mass the k x k peak crops keep (numpy, the same
+        statistic as the staging pass).  None where the guard does not
+        apply."""
+        if not self._guard_on():
+            return None
+        _, _, _, box, total = crop_heatmaps_channels_last_np(
+            np.asarray(heatmaps), self.cfg.heatmap_crop)
+        return float(crop_coverage_np(box, total))
+
+    def _effective_cfg(self, heatmaps) -> OptimizeConfig:
+        """The guard measured on raw maps and applied in one step."""
+        return self._cfg_for_coverage(self._crop_coverage(heatmaps))
+
     def stage(self, chunks: list[TestChunk], coverage: float | None = None,
               on_host: bool = True) -> StagedBatch:
         """Crop the maps in numpy (argmax on the float32 maps), resolve
         the crop-mass guard from the same pass (or take `coverage`), cast
-        the crops to bf16 when cfg.heatmap_dtype asks, and move the
-        stacked fields to the solve device once."""
+        the staged heat to bf16 when cfg.heatmap_dtype asks, and move the
+        stacked fields to the solve device once.  Without crops
+        (heatmap_crop = 0, reproj = 0, or a tripped guard with
+        guard_crop = 0) the full maps are staged."""
         if not on_host:
             raise NotImplementedError(
                 "stage(on_host=False) (device staging) is not ported yet")
         if not chunks:
             raise ValueError("stage() needs at least one chunk")
         if len({c.n_frames for c in chunks}) != 1:
-            raise ValueError("stage() requires equal-length chunks")
+            raise ValueError("stage() requires equal-length chunks; use "
+                             "optimize_chunk per chunk or "
+                             "optimize_sequence_dir for mixed lengths")
         cfg = self.cfg
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
-        if not (kk > 0 and use_reproj):
-            raise NotImplementedError(
-                "staging without peak crops (heatmap_crop=0 or reproj=0) "
-                "is not ported yet")
-        guard_on = cfg.heatmap_crop_min_mass > 0
+        guard_on = self._guard_on()
         crops_l, orgs_l, ratios = [], [], []
-        for c in chunks:       # per chunk: bounds host temp memory
-            cr, org, full_hw, box, total = crop_heatmaps_channels_last_np(
-                np.asarray(c.heatmaps), kk)
-            crops_l.append(cr.reshape(cr.shape[0], -1))   # flat contract
-            orgs_l.append(org)
-            if guard_on and coverage is None:
-                ratios.append(crop_coverage_np(box, total))
+        full_hw = None
+        if kk > 0 and use_reproj:
+            for c in chunks:   # per chunk: bounds host temp memory
+                cr, org, full_hw, box, total = \
+                    crop_heatmaps_channels_last_np(np.asarray(c.heatmaps), kk)
+                crops_l.append(cr.reshape(cr.shape[0], -1))  # flat contract
+                orgs_l.append(org)
+                if guard_on and coverage is None:
+                    ratios.append(crop_coverage_np(box, total))
         if coverage is not None:
             cov = coverage
         elif guard_on:
@@ -148,8 +176,8 @@ class SequenceOptimizer:
         else:
             cov = None
         eff = self._cfg_for_coverage(cov)
-        k = eff.heatmap_crop
-        if k != kk or eff.crop_center != "peak":
+        k = eff.heatmap_crop if use_reproj else 0
+        if k > 0 and (k != kk or eff.crop_center != "peak"):
             # guard-trip path: re-crop at the projected-estimate centres
             hh, ww = np.asarray(chunks[0].heatmaps).shape[-3:-1]
             crops_l, orgs_l = [], []
@@ -161,7 +189,14 @@ class SequenceOptimizer:
                     np.asarray(c.heatmaps), k, cen)
                 crops_l.append(cr.reshape(cr.shape[0], -1))
                 orgs_l.append(org)
-        heat = torch.from_numpy(np.stack(crops_l))
+        if k > 0:
+            heat = torch.from_numpy(np.stack(crops_l))
+            origins = torch.from_numpy(np.stack(orgs_l))
+            full_hw = tuple(int(x) for x in full_hw)
+        else:        # no crops, or a tripped guard with guard_crop = 0
+            heat = torch.from_numpy(np.stack(
+                [np.asarray(c.heatmaps, dtype=np.float32) for c in chunks]))
+            origins, full_hw = None, None
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
         stack = lambda name: torch.from_numpy(np.stack(  # noqa: E731
@@ -174,8 +209,8 @@ class SequenceOptimizer:
             heat=heat.to(dev),
             gt=stack("gt_global").to(dev),
             n_chunks=len(chunks), crop_coverage=cov,
-            origins=torch.from_numpy(np.stack(orgs_l)).to(dev),
-            full_hw=tuple(int(x) for x in full_hw))
+            origins=None if origins is None else origins.to(dev),
+            full_hw=full_hw)
 
     def optimize_chunks_batched(self, chunks, mode: str = "flat"
                                 ) -> ChunkResult:
@@ -189,17 +224,34 @@ class SequenceOptimizer:
             else self.stage(chunks)
         cfg = self._cfg_for_coverage(staged.crop_coverage)
         with torch.no_grad():
-            return optimize_chunks_flat(
+            return pipeline.optimize_chunks_flat(
                 self.local_model, self.global_model, staged.est,
                 staged.cams, staged.heat, staged.gt,
                 self._camera.to(self.device), cfg, origins=staged.origins,
                 full_hw=staged.full_hw)
 
+    def optimize_chunk(self, chunk: TestChunk,
+                       cfg: OptimizeConfig | None = None) -> ChunkResult:
+        """Optimise one chunk with per-window solves: the crop guard runs
+        on its raw maps (unless `cfg`, an already resolved config, is
+        given) and the crops are cut on the device inside the solve."""
+        if cfg is None:
+            cfg = self._effective_cfg(chunk.heatmaps)
+        dev = self.device
+        f32 = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, dtype=np.float32), device=dev)
+        with torch.no_grad():
+            return pipeline.optimize_chunk(
+                self.local_model, self.global_model,
+                f32(chunk.estimated_local), f32(chunk.camera_poses),
+                f32(chunk.heatmaps), f32(chunk.gt_global),
+                self._camera.to(dev), cfg)
+
     def run(self, chunk: TestChunk, with_metrics: bool = True):
-        """Optimise one chunk and (optionally) evaluate it.  Returns
-        (errors | None, estimated, mid_local, optimized, gt) as numpy."""
-        res = self.optimize_chunks_batched([chunk])
-        res = ChunkResult(*(x[0] for x in res))
+        """Optimise one chunk (`optimize_chunk`) and optionally evaluate
+        it.  Returns (errors | None, estimated, mid_local, optimized, gt)
+        as numpy, the tuple of the reference's `optimizer.main`."""
+        res = self.optimize_chunk(chunk)
         errors = None
         if with_metrics:
             errors = {k: v.cpu().numpy() for k, v in calculate_errors(
@@ -207,3 +259,77 @@ class SequenceOptimizer:
         return (errors, res.estimated.cpu().numpy(),
                 res.mid_local.cpu().numpy(), res.optimized.cpu().numpy(),
                 res.gt.cpu().numpy())
+
+
+def _regression_tripwire(errors: dict) -> None:
+    """The reference driver prints a chunk whose bone-length-aligned
+    error got worse in stage 2."""
+    if errors["bone_length_aligned_optimized_mpjpe"] > \
+            errors["bone_length_aligned_mid_optimized_mpjpe"]:
+        print(errors)
+
+
+def optimize_sequence_dir(opt: SequenceOptimizer, data_dir: str,
+                          verbose: bool = True):
+    """Optimise every chunk directory of a sequence, one chunk at a time,
+    and average the metrics.  A chunk that fails to load or solve is
+    skipped and listed in timing["failed_chunks"], so one bad chunk does
+    not end the sequence.  Returns (per_chunk_errors, averages,
+    timing)."""
+    all_errors, timings, failures = [], [], []
+    for chunk_dir in list_chunk_dirs(data_dir):
+        try:
+            chunk = load_test_chunk(chunk_dir)
+            t0 = time.perf_counter()
+            errors, *_ = opt.run(chunk)         # numpy: already synced
+            dt = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - isolate a failing chunk
+            failures.append((chunk_dir, repr(e)))
+            if verbose:
+                print(f"SKIPPED corrupt chunk {chunk_dir}: {e!r}")
+            continue
+        timings.append(dt)
+        all_errors.append(errors)
+        if verbose:
+            print(f"running data: {chunk_dir}")
+            _regression_tripwire(errors)
+
+    averages = {}
+    if all_errors:
+        for k in all_errors[0]:
+            averages[k] = np.mean([e[k] for e in all_errors], axis=0)
+    timing = {"total_s": float(np.sum(timings)),
+              "per_chunk_s": float(np.mean(timings)) if timings else 0.0,
+              "failed_chunks": failures}
+    if verbose and averages:
+        print_summary(averages)
+        print(f"total optimization time: {timing['total_s']:.2f}s")
+    return all_errors, averages, timing
+
+
+def print_summary(avg: dict):
+    """The reference driver's summary block, same quantities."""
+    sep = "-----------------------------------------"
+    print(f"Average original global pose mpjpe: {avg['original_global_mpjpe']}")
+    print(f"Average mid global pose mpjpe: {avg['mid_global_mpjpe']}")
+    print(f"Average optimized global pose mpjpe: {avg['optimized_global_mpjpe']}")
+    print(sep)
+    print(f"Average original cam pose error: {avg['original_camera_pos_error']}")
+    print(f"Average optimized cam pose error: {avg['optimized_camera_pos_error']}")
+    print(sep)
+    print(f"Average original aligned cam pose error: {avg['original_aligned_camera_pos_error']}")
+    print(f"Average optimized aligned cam pose error: {avg['optimized_aligned_camera_pos_error']}")
+    print(sep)
+    print(f"Average original_aligned_global_mpjpe: {avg['original_aligned_global_mpjpe']}")
+    print(f"Average aligned_mid_seq_mpjpe: {avg['aligned_mid_seq_mpjpe']}")
+    print(f"Average optimized_aligned_global_mpjpe: {avg['optimized_aligned_global_mpjpe']}")
+    print(sep)
+    print(f"Average aligned original global pose mpjpe: {avg['aligned_original_mpjpe']}")
+    print(f"Average aligned mid local pose mpjpe: {avg['aligned_mid_optimized_mpjpe']}")
+    print(f"Average aligned optimized global pose mpjpe: {avg['aligned_optimized_mpjpe']}")
+    print(sep)
+    print(f"Average bone length aligned original global pose mpjpe: {avg['bone_length_aligned_original_mpjpe']}")
+    print(f"Average bone length aligned mid local pose mpjpe: {avg['bone_length_aligned_mid_optimized_mpjpe']}")
+    print(f"Average bone length aligned optimized global pose mpjpe: {avg['bone_length_aligned_optimized_mpjpe']}")
+    print(sep)
+    print(f"joints error is: {avg['joints_error']}")

@@ -1,17 +1,27 @@
-"""The two-stage latent optimization over a flat batch of windows.
+"""The two-stage latent optimization over a batch of windows.
 
-Counterpart of the slice's subset of `globalegomocap_tpu/optimize/
-pipeline.py`: stage 1 optimises the local pose in the local prior's
-latent space with the heatmap reprojection term (the fused stage-1
-kernel); the result is lifted through the SLAM cameras; stage 2 runs the
-residual global stage (p(z) = mid + decode(z) - decode(z0)) over the
-no-reproj kernel; overlapping windows merge with one matrix that also
-applies the final Gaussian smoothing.
+Counterpart of `globalegomocap_tpu/optimize/pipeline.py`: stage 1
+optimises the local pose in the local prior's latent space with the
+heatmap reprojection term; the result is lifted through the SLAM cameras;
+stage 2 optimises the global pose (reprojection off, optionally the
+residual p(z) = mid + decode(z) - decode(z0)); overlapping windows merge
+with one matrix that also applies the final Gaussian smoothing.
 
-Each objective eval decodes all (probe, window) latents in one batch,
-runs one kernel for the energy and its pose-gradient, and takes
-dE/dz with `torch.autograd.grad` of the summed energies through the
-decoder (the JAX `jax.vjp(batch_energy)` with a ones cotangent).
+Two entry points, as in the JAX package:
+
+- `optimize_chunk`: one chunk, per-window solves (`lbfgs_minimize_fixed`
+  with the window axis written out), k x k crops cut on the device before
+  windowing when `heatmap_crop` > 0, else full maps;
+- `optimize_chunks_flat`: many equal-length chunks with all windows in
+  one flat batch (`lbfgs_minimize_fixed_batched`), on staged crops or on
+  full maps (the guard-trip fallback with `guard_crop` = 0).
+
+`optimize_stage` picks the energy as the JAX one does: the fused stage-1
+kernel on staged crops, the fused no-reproj kernel for stage 2, else the
+plain PyTorch energy (`energy/terms.py`), whose full-map sampling runs
+the `heatmap_sample` kernel with `sampling_impl="pallas"`.  Each
+objective eval decodes all (probe, window) latents in one batch and takes
+dE/dz with autograd through the decoder.
 """
 
 from __future__ import annotations
@@ -22,7 +32,10 @@ from typing import NamedTuple
 import torch
 
 from globalegomocap_tpu_torch.config import OptimizeConfig
-from globalegomocap_tpu_torch.energy.terms import EnergyWeights
+from globalegomocap_tpu_torch.energy.terms import (
+    EnergyWeights, crop_heatmaps_at_centers_channels_last,
+    crop_heatmaps_channels_last, projected_estimate_centers,
+    total_energy_from_pose)
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.ops import fisheye
 from globalegomocap_tpu_torch.ops.fused_energy import (
@@ -31,7 +44,7 @@ from globalegomocap_tpu_torch.ops.skeleton import mean_bone_lengths
 from globalegomocap_tpu_torch.ops.transforms import (
     relative_global_pose, relative_to_global_pose, transform_pose)
 from globalegomocap_tpu_torch.optimize.lbfgs import (
-    lbfgs_minimize_fixed_batched)
+    lbfgs_minimize_fixed, lbfgs_minimize_fixed_batched)
 from globalegomocap_tpu_torch.optimize.window import (
     merge_windows_matmul, slice_windows)
 
@@ -41,7 +54,7 @@ J = 15
 class ChunkResult(NamedTuple):
     """Merged per-chunk sequences (covered frames only), world frame
     except mid_local.  Flat-path fields carry a leading chunk axis."""
-    estimated: torch.Tensor   # (C, N, 15, 3) raw input lifted to world
+    estimated: torch.Tensor   # (N, 15, 3) raw input lifted to world
     mid: torch.Tensor         # after stage 1, world frame
     mid_local: torch.Tensor   # after stage 1, camera frame
     optimized: torch.Tensor   # after stage 2, world frame
@@ -49,14 +62,16 @@ class ChunkResult(NamedTuple):
 
 
 def check_supported(cfg: OptimizeConfig) -> None:
-    """Raise, naming the option, for configurations this slice of the
-    port does not run (they wait for later slices)."""
+    """Raise, naming the option, for configurations this port does not
+    run yet (they wait for later slices)."""
     s, e = cfg.solver, cfg.energy
     impl = cfg.decoder_impl or ("dense" if cfg.dense_decoder else "conv")
     unsupported = [
-        (s.method != "lbfgs_fixed", f"solver.method={s.method!r}"),
-        (not s.fused_energy, "solver.fused_energy=False"),
+        (s.method != "lbfgs_fixed",
+         f"solver.method={s.method!r} (strong-Wolfe lbfgs, adam)"),
         (s.fused_decode, "solver.fused_decode=True"),
+        (s.compact_direction, "solver.compact_direction=True"),
+        (s.circular_history, "solver.circular_history=True"),
         (s.remat, "solver.remat=True"),
         (s.init != "mu", f"solver.init={s.init!r}"),
         (cfg.compute_dtype != "float32",
@@ -64,8 +79,8 @@ def check_supported(cfg: OptimizeConfig) -> None:
         (impl != "conv", f"decoder_impl={impl!r} (dense/shift decoders)"),
         (cfg.decoder_dtype != "float32",
          f"decoder_dtype={cfg.decoder_dtype!r}"),
-        (e.reproj != 0.0 and cfg.heatmap_crop <= 0,
-         "heatmap_crop=0 (full-map sampling)"),
+        (cfg.sampling_impl not in ("gather", "dense", "pallas"),
+         f"sampling_impl={cfg.sampling_impl!r}"),
         (e.soft_smooth != 0.0, "energy.soft_smooth"),
         (e.overlap_consistency != 0.0, "energy.overlap_consistency"),
         (e.gmm != 0.0, "energy.gmm"),
@@ -117,83 +132,241 @@ def _wvec(weights: EnergyWeights, center, device) -> torch.Tensor:
     return row[None].to(device)
 
 
+def _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
+                  use_reproj, cfg, origins, full_hw):
+    """The fused kernels' energy of (R, W, 3, L) poses, with its
+    loop-invariant context built once."""
+    w, t = init_pose.shape[0], init_pose.shape[1]
+    L = t * J
+    dev = init_pose.device
+    anchor_t = init_pose.reshape(w, L, 3).permute(0, 2, 1).contiguous()
+    bone_t = mean_bl.repeat(1, t).contiguous()                # (W, L)
+    if not use_reproj:
+        wvec = _wvec(weights, None, dev)
+        return lambda pose_rt: fused_stage_energy_noreproj(
+            pose_rt, anchor_t, bone_t, wvec, t, J)
+    kk = heatmaps.shape[-1]
+    crops_cm = heatmaps.reshape(w, L, kk * kk).transpose(1, 2).contiguous()
+    f_ox = origins[..., 1].reshape(w, L).contiguous()
+    f_oy = origins[..., 0].reshape(w, L).contiguous()
+    ctx = (_wvec(weights, camera.center, dev),
+           camera.poly_w2c[None].to(dev, torch.float32).contiguous())
+    hg = cfg.heatmap
+    return lambda pose_rt: fused_stage_energy(
+        pose_rt, anchor_t, crops_cm, f_ox, f_oy, bone_t, ctx, t, J, kk,
+        full_hw, hg.crop_offset, hg.half_extent)
+
+
 def optimize_stage(model: ConvVAE, init_pose, heatmaps, mean_bl,
                    camera: fisheye.FisheyeParams, weights: EnergyWeights,
                    use_reproj: bool, cfg: OptimizeConfig, origins=None,
                    full_hw=None, residual: bool = False) -> torch.Tensor:
     """One optimisation stage over a batch of windows.
 
-    init_pose: (W, T, 15, 3) anchor/init poses.  heatmaps: (W, T, 15, k, k)
-    staged peak crops with origins (W, T, 15, 2) as (oy, ox) and the full
-    map extent full_hw (stage 1), or None (stage 2).  mean_bl: (W, 15).
-    Returns the decoded optimised poses (W, T, 15, 3)."""
+    init_pose: (W, T, 15, 3) anchor/init poses.  heatmaps: (W, T, 15, h, w)
+    full maps, or k x k crops with origins (W, T, 15, 2) as (oy, ox) and
+    the full map extent full_hw; None when use_reproj is False.  mean_bl:
+    (W, 15).  Returns the decoded optimised poses (W, T, 15, 3)."""
     w, t = init_pose.shape[0], init_pose.shape[1]
     L = t * J
     s = cfg.solver
+    if use_reproj and origins is None and cfg.heatmap_crop > 0:
+        raise ValueError("optimize_stage takes crops with their origins; "
+                         "the callers crop before windowing")
+    if use_reproj:
+        if cfg.heatmap_dtype == "bfloat16":
+            heatmaps = heatmaps.to(torch.bfloat16)
+        heatmaps = heatmaps.contiguous()   # once per stage, not per eval
     with torch.no_grad():
         mu, _ = model.encode(init_pose.reshape(w, t, 3 * J))
         offset = (init_pose - model.decode_to_bodypose(mu)) if residual \
             else None
     latent = mu.shape[-1]
-    dev = init_pose.device
-    anchor_t = init_pose.reshape(w, L, 3).permute(0, 2, 1).contiguous()
-    bone_t = mean_bl.repeat(1, t).contiguous()                # (W, L)
 
-    if use_reproj:
-        kk = heatmaps.shape[-1]
-        crops_cm = heatmaps.reshape(w, L, kk * kk).transpose(1, 2)
-        if cfg.heatmap_dtype == "bfloat16":
-            crops_cm = crops_cm.to(torch.bfloat16)
-        crops_cm = crops_cm.contiguous()
-        f_ox = origins[..., 1].reshape(w, L).contiguous()
-        f_oy = origins[..., 0].reshape(w, L).contiguous()
-        ctx = (_wvec(weights, camera.center, dev),
-               camera.poly_w2c[None].to(dev, torch.float32).contiguous())
-        hg = cfg.heatmap
+    def decode(z):
+        """(..., W, latent) -> (..., W, T, 15, 3), plus the offset."""
+        lead = z.shape[:-1]
+        pose = model.decode_to_bodypose(z.reshape(-1, latent)).reshape(
+            lead + (t, J, 3))
+        return pose if offset is None else pose + offset
 
-        def energy(pose_rt):
-            return fused_stage_energy(pose_rt, anchor_t, crops_cm, f_ox,
-                                      f_oy, bone_t, ctx, t, J, kk, full_hw,
-                                      hg.crop_offset, hg.half_extent)
-    else:
-        wvec = _wvec(weights, None, dev)
+    use_batched = (s.method == "lbfgs_fixed"
+                   and (s.fused_energy or s.batched_solver))
+    fused = use_batched and s.fused_energy and (
+        not use_reproj or origins is not None)
+    if fused:
+        energy = _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
+                               use_reproj, cfg, origins, full_hw)
 
-        def energy(pose_rt):
-            return fused_stage_energy_noreproj(pose_rt, anchor_t, bone_t,
-                                               wvec, t, J)
-
-    def vg_batch(z3):
-        rr, bb = z3.shape[0], z3.shape[1]
-        with torch.enable_grad():
-            z = z3.detach().requires_grad_(True)
-            pose = model.decode_to_bodypose(z.reshape(rr * bb, latent))
-            if offset is not None:
-                pose = (pose.reshape((rr, bb) + pose.shape[1:])
-                        + offset[None]).reshape(pose.shape)
-            pose_rt = pose.reshape(rr * bb, L, 3).permute(0, 2, 1) \
+        def batch_energy(z3):
+            rr, bb = z3.shape[0], z3.shape[1]
+            pose_rt = decode(z3).reshape(rr * bb, L, 3).permute(0, 2, 1) \
                 .reshape(rr, bb, 3, L).contiguous()
-            vals = energy(pose_rt)
-            (gz,) = torch.autograd.grad(vals.sum(), z)
-        return vals.detach(), gz
+            return energy(pose_rt)
+    else:
+        def batch_energy(z):
+            return total_energy_from_pose(
+                decode(z), init_pose, mean_bl, heatmaps, camera, weights,
+                use_reproj, sampling_impl=cfg.sampling_impl,
+                origins=origins, full_hw=full_hw)
 
     with torch.no_grad():
-        res = lbfgs_minimize_fixed_batched(
-            vg_batch, mu, max_iter=s.max_iter, history_size=s.history_size,
-            lr=s.lr, step_candidates=tuple(s.step_candidates),
-            unroll=s.unroll)
-        out = model.decode_to_bodypose(res.x)
-        return out if offset is None else out + offset
+        if use_batched:
+            def vg_batch(z3):
+                with torch.enable_grad():
+                    z = z3.detach().requires_grad_(True)
+                    vals = batch_energy(z)
+                    (gz,) = torch.autograd.grad(vals.sum(), z)
+                return vals.detach(), gz
+
+            res = lbfgs_minimize_fixed_batched(
+                vg_batch, mu, max_iter=s.max_iter,
+                history_size=s.history_size, lr=s.lr,
+                step_candidates=tuple(s.step_candidates), unroll=s.unroll)
+        else:
+            res = lbfgs_minimize_fixed(
+                batch_energy, mu, max_iter=s.max_iter,
+                history_size=s.history_size, lr=s.lr,
+                step_candidates=tuple(s.step_candidates),
+                fused_probes=s.fused_probes,
+                compact_direction=s.compact_direction,
+                circular_history=s.circular_history,
+                pallas_direction=s.pallas_direction, unroll=s.unroll)
+        return decode(res.x)
 
 
 def _unflatten_staged_crops(heatmap_seq, origins, cfg: OptimizeConfig):
     """Undo the flat staged-crop layout (..., k*k*J) -> (..., k, k, J).
-    No-op for already 5-D crops (crops are origins.ndim + 1 dims, flat
-    crops origins.ndim - 1)."""
+    No-op for full maps or already 5-D crops (crops are origins.ndim + 1
+    dims, flat crops origins.ndim - 1)."""
     if origins is None or heatmap_seq.dim() != origins.dim() - 1:
         return heatmap_seq
     k = cfg.heatmap_crop
     j = heatmap_seq.shape[-1] // (k * k)
     return heatmap_seq.reshape(heatmap_seq.shape[:-1] + (k, k, j))
+
+
+def _crop_before_windowing(estimated_local, heatmap_seq,
+                           camera: fisheye.FisheyeParams,
+                           cfg: OptimizeConfig):
+    """k x k crops of the raw per-frame maps (..., H, W, J) on the device:
+    at the projected estimate after a guard trip (crop_center
+    'estimate'), else at each map's peak.  A frame's crop is the same in
+    every window that holds it, so cropping comes before windowing.
+    -> (crops (..., k, k, J), origins (..., J, 2), full_hw)."""
+    if cfg.crop_center == "estimate":
+        cen = projected_estimate_centers(
+            estimated_local, camera, heatmap_seq.shape[-3],
+            heatmap_seq.shape[-2])
+        return crop_heatmaps_at_centers_channels_last(
+            heatmap_seq, cfg.heatmap_crop, cen)
+    return crop_heatmaps_channels_last(heatmap_seq, cfg.heatmap_crop)
+
+
+def window_chunk_inputs(estimated_local, camera_seq, heatmap_seq, gt_seq,
+                        camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
+                        origins=None, full_hw=None):
+    """Window (and crop before windowing) one chunk's inputs.
+
+    heatmap_seq: (N, H, W, J) raw maps, or (N, k, k, J) / flat (N, k*k*J)
+    staged crops with origins (N, J, 2) and full_hw.  Returns (win_local,
+    win_cam, win_heat (W, T, J, h, w), win_gt, win_bl, win_org, full_hw),
+    all with a leading window axis."""
+    seq_len, stride = cfg.window.seq_len, cfg.window.stride
+    win_local = slice_windows(estimated_local, seq_len, stride)
+    win_cam = slice_windows(camera_seq, seq_len, stride)
+    win_gt = slice_windows(gt_seq, seq_len, stride)
+
+    use_reproj = cfg.energy.reproj != 0.0
+    win_org = None
+    if origins is not None:
+        heatmap_seq = _unflatten_staged_crops(heatmap_seq, origins, cfg)
+    elif use_reproj and cfg.heatmap_crop > 0:
+        heatmap_seq, origins, full_hw = _crop_before_windowing(
+            estimated_local, heatmap_seq, camera, cfg)
+    if origins is not None:
+        win_org = slice_windows(origins, seq_len, stride)     # (W,T,J,2)
+    win_heat = slice_windows(heatmap_seq, seq_len, stride).movedim(-1, 2)
+
+    # per-window mean bone length: the chunk-wide mean of the raw estimate
+    chunk_bl = mean_bone_lengths(estimated_local)             # (15,)
+    win_bl = chunk_bl.expand(win_local.shape[0], J)
+    return (win_local, win_cam, win_heat, win_gt, win_bl, win_org,
+            full_hw)
+
+
+class WindowFields(NamedTuple):
+    """Per-window solved fields, pre-merge (all (W, T, 15, 3))."""
+    est_world: torch.Tensor
+    mid_world: torch.Tensor
+    mid_local: torch.Tensor
+    opt_world: torch.Tensor
+    gt: torch.Tensor
+
+
+def solve_windows(local_model: ConvVAE, global_model: ConvVAE, win_local,
+                  win_cam, win_heat, win_gt, win_bl,
+                  camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
+                  win_org=None, full_hw=None) -> WindowFields:
+    """Both stages and the coordinate lifts over a batch of windows (no
+    cross-window coupling)."""
+    local_w, global_w = stage_weights(cfg)
+    use_reproj = cfg.energy.reproj != 0.0
+    mid_local = optimize_stage(local_model, win_local, win_heat, win_bl,
+                               camera, local_w, use_reproj, cfg,
+                               origins=win_org, full_hw=full_hw)
+    # world lifts go straight through the per-frame cameras
+    # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs the
+    # relative hop
+    mid_rel = relative_global_pose(mid_local, win_cam)
+    cam0 = win_cam[:, 0]
+    est_world = transform_pose(win_local, win_cam)
+    mid_world = transform_pose(mid_local, win_cam)
+    opt_rel = optimize_stage(global_model, mid_rel, None, win_bl, camera,
+                             global_w, False, _stage2_cfg(cfg),
+                             residual=cfg.energy.global_residual)
+    opt_world = relative_to_global_pose(opt_rel, cam0)
+    return WindowFields(est_world, mid_world, mid_local, opt_world, win_gt)
+
+
+def _final_sigma(cfg: OptimizeConfig) -> float:
+    """The Gaussian smoothing folded into the optimized field's merge."""
+    return cfg.final_smooth_sigma if cfg.final_smooth else 0.0
+
+
+def merge_window_fields(fields: WindowFields,
+                        cfg: OptimizeConfig) -> ChunkResult:
+    """Overlap-merge the solved window fields of one chunk into per-frame
+    sequences, the final smoothing folded into the optimized field's
+    merge matrix."""
+    stride = cfg.window.stride
+    return ChunkResult(
+        estimated=merge_windows_matmul(fields.est_world, stride),
+        mid=merge_windows_matmul(fields.mid_world, stride),
+        mid_local=merge_windows_matmul(fields.mid_local, stride),
+        optimized=merge_windows_matmul(fields.opt_world, stride,
+                                       _final_sigma(cfg)),
+        gt=merge_windows_matmul(fields.gt, stride))
+
+
+def optimize_chunk(local_model: ConvVAE, global_model: ConvVAE,
+                   estimated_local, camera_seq, heatmap_seq, gt_seq,
+                   camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
+                   origins=None, full_hw=None) -> ChunkResult:
+    """Both stages over one chunk with per-window solves.
+
+    estimated_local (N, 15, 3), camera_seq (N, 4, 4) cam->world,
+    heatmap_seq (N, H, W, 15) raw maps (or staged crops with origins
+    (N, 15, 2) and full_hw), gt_seq (N, 15, 3)."""
+    check_supported(cfg)
+    (win_local, win_cam, win_heat, win_gt, win_bl, win_org,
+     full_hw) = window_chunk_inputs(estimated_local, camera_seq,
+                                    heatmap_seq, gt_seq, camera, cfg,
+                                    origins, full_hw)
+    fields = solve_windows(local_model, global_model, win_local, win_cam,
+                           win_heat, win_gt, win_bl, camera, cfg,
+                           win_org=win_org, full_hw=full_hw)
+    return merge_window_fields(fields, cfg)
 
 
 def optimize_chunks_flat(local_model: ConvVAE, global_model: ConvVAE,
@@ -202,20 +375,15 @@ def optimize_chunks_flat(local_model: ConvVAE, global_model: ConvVAE,
                          origins=None, full_hw=None) -> ChunkResult:
     """Optimise many equal-length chunks with the windows of all chunks
     concatenated into one flat solver batch.  All inputs carry a leading
-    chunk axis (C, N, ...); heatmap_seq is the staged crops (flat
-    (C, N, k*k*J) or (C, N, k, k, J)) with origins (C, N, J, 2) and
-    full_hw.  Returns (C, covered, 15, 3) fields."""
+    chunk axis (C, N, ...); heatmap_seq is the raw maps (C, N, H, W, J),
+    or staged crops (flat (C, N, k*k*J) or (C, N, k, k, J)) with origins
+    (C, N, J, 2) and full_hw.  Returns (C, covered, 15, 3) fields."""
     check_supported(cfg)
     if (origins is None) != (full_hw is None):
         raise ValueError("origins and full_hw must be supplied together")
     use_reproj = cfg.energy.reproj != 0.0
-    if use_reproj and origins is None:
-        raise NotImplementedError(
-            "stage 1 takes staged crops (stage(on_host=True)); "
-            "in-solve cropping of full maps is not ported")
     c = estimated_local.shape[0]
     seq_len, stride = cfg.window.seq_len, cfg.window.stride
-    local_w, global_w = stage_weights(cfg)
 
     def windows_of(x):
         return slice_windows(x, seq_len, stride, dim=1)
@@ -230,32 +398,19 @@ def optimize_chunks_flat(local_model: ConvVAE, global_model: ConvVAE,
 
     f_heat = f_org = None
     if use_reproj:
+        if origins is None and cfg.heatmap_crop > 0:
+            heatmap_seq, origins, full_hw = _crop_before_windowing(
+                estimated_local, heatmap_seq, camera, cfg)
         heat = _unflatten_staged_crops(heatmap_seq, origins, cfg)
-        f_heat = flat(windows_of(heat).movedim(-1, 3))    # (CW,T,J,k,k)
-        f_org = flat(windows_of(origins))                  # (CW,T,J,2)
+        f_heat = flat(windows_of(heat).movedim(-1, 3))    # (CW,T,J,h,w)
+        if origins is not None:
+            f_org = flat(windows_of(origins))              # (CW,T,J,2)
 
     bl = mean_bone_lengths(estimated_local)               # (C, 15)
     bl_flat = bl.repeat_interleave(w_per, dim=0)          # (C*W, 15)
-    f_local, f_cam = flat(win_local), flat(win_cam)
-
-    mid_local = optimize_stage(local_model, f_local, f_heat, bl_flat,
-                               camera, local_w, use_reproj, cfg,
-                               origins=f_org, full_hw=full_hw)
-
-    # world lifts go straight through the per-frame cameras
-    # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs the
-    # relative hop
-    mid_rel = relative_global_pose(mid_local, f_cam)
-    cam0 = f_cam[:, 0]
-    est_world = transform_pose(f_local, f_cam)
-    mid_world = transform_pose(mid_local, f_cam)
-
-    opt_rel = optimize_stage(global_model, mid_rel, None, bl_flat, camera,
-                             global_w, False, _stage2_cfg(cfg),
-                             residual=cfg.energy.global_residual)
-    opt_world = relative_to_global_pose(opt_rel, cam0)
-
-    sigma = cfg.final_smooth_sigma if cfg.final_smooth else 0.0
+    fields = solve_windows(local_model, global_model, flat(win_local),
+                           flat(win_cam), f_heat, flat(win_gt), bl_flat,
+                           camera, cfg, win_org=f_org, full_hw=full_hw)
 
     def unflat_merge(x, smooth=0.0):
         per_chunk = x.reshape((c, w_per) + x.shape[1:])
@@ -263,9 +418,9 @@ def optimize_chunks_flat(local_model: ConvVAE, global_model: ConvVAE,
                                     batch_dims=1)
 
     return ChunkResult(
-        estimated=unflat_merge(est_world),
-        mid=unflat_merge(mid_world),
-        mid_local=unflat_merge(mid_local),
-        optimized=unflat_merge(opt_world, sigma),
-        gt=unflat_merge(flat(win_gt)),
+        estimated=unflat_merge(fields.est_world),
+        mid=unflat_merge(fields.mid_world),
+        mid_local=unflat_merge(fields.mid_local),
+        optimized=unflat_merge(fields.opt_world, _final_sigma(cfg)),
+        gt=unflat_merge(fields.gt),
     )

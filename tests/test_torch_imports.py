@@ -36,13 +36,16 @@ def test_port_imports_no_jax():
                          check=True)
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["bad"] == []
-    for mod in ("cli.serve", "ops.fused_energy", "optimize.driver",
-                "optimize.pipeline", "models.convert", "data.synthetic"):
+    for mod in ("cli.serve", "cli.optimize_sequence", "ops.cuda_build",
+                "ops.fused_energy", "ops.heatmap_sample",
+                "ops.lbfgs_direction", "ops.sampling", "optimize.driver",
+                "optimize.pipeline", "optimize.lbfgs", "models.convert",
+                "data.synthetic"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
-    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli import optimize_sequence, serve
     from globalegomocap_tpu_torch.optimize import driver
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -64,6 +67,12 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
         serve.main(["--data_root", str(tmp_path / "data"), "--local_ckpt",
                     str(ckpt), "--global_ckpt", str(ckpt),
                     "--latent_dim", "32", "--hidden_dims", "8,8,16,16,32"])
+    with pytest.raises(RuntimeError):
+        optimize_sequence.main([
+            "--data_path", str(tmp_path / "data"), "--local_ckpt",
+            str(ckpt), "--global_ckpt", str(ckpt), "--solver",
+            "lbfgs_fixed", "--latent_dim", "32", "--hidden_dims",
+            "8,8,16,16,32"])
 
 
 def test_device_module_pins_float32():
