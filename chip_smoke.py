@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    - nvcc builds the three sources of globalegomocap_tpu_torch/csrc/
+1. build    - nvcc builds the four sources of globalegomocap_tpu_torch/csrc/
               for sm_90a, one process each, all started together; prints
               what ptxas reports (registers, spills, smem).
 2. kernels  - each kernel against its plain PyTorch version on the same
@@ -15,10 +15,17 @@ Phases (any failure exits non-zero and prints no result line):
               sampler forward and backward on f32 and bf16 64x64 maps,
               points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
               and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
-              13, 192}, d = 2048 with partly filled histories.
+              13, 192}, d = 2048 with partly filled histories; the decoder
+              energy (kernel 5) with the production prior's conv chain
+              (random folded weights), R in {1, 2, 4}, B in {192, 37},
+              k=8 bf16 and k=16 f32 crops, and R=4, B=300 (1,200 rows):
+              the decoded pose, e, dE/dpose
+              (kink points left out and counted, as for kernel 1) and
+              dE/dh0 against the plain chain's backward of the kernel's
+              own dE/dpose.
 3. serve    - 2 sequences x 16 chunks x 100 frames of synthetic data
               (numpy, from --seed) go through the port's `cli/serve.py`
-              main at the prior's full width (latent 2048, hidden
+              main at --compute_dtype float32 and the prior's full width (latent 2048, hidden
               64,64,128,256,512) with random priors from a seeded
               torch.Generator.  The kernels' launch counts are reset just
               before and read just after.  Then: one sequence through the
@@ -41,11 +48,23 @@ Phases (any failure exits non-zero and prints no result line):
               and a shadow run; then a sequence of two unequal-length
               chunks through serve's per-chunk fallback with the same
               flags (its launch counts, no failed chunk).
+3f. path C  - serve's flat solve at the JAX serve's default tier,
+              bfloat16_delta: the serve CLI at its default (launch
+              counts); the library flat path with serve's config and
+              SolverConfig.fused_decode (kernel 5 for stage 1) at
+              bfloat16_delta (the main run) and float32, 13 kernel-5 and 0
+              kernel-1 launches per request; a k=16 guard trip (16
+              kernel-5 launches); a shadow run of every kernel-5 call; a
+              plain-version run (17 metrics within 1 %); one request
+              timed in turns with kernel 5, without it, and on
+              serve-f32-full's float32 stack.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map sectors that hold an in-range tap, the valid history
               slots), the plain version's time and, for the sampler,
-              F.grid_sample's.
+              F.grid_sample's; kernel 5 beside the fused and the unfused
+              (cuDNN/cuBLAS decode + kernel 1) stage-1 eval, and at
+              1,200 rows.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs one CUDA card; exits 2
@@ -83,7 +102,8 @@ SOURCES = {"fused_stage_energy": CSRC + "fused_energy.cu",
            "fused_stage_energy_noreproj": CSRC + "fused_energy.cu",
            "heatmap_sample": CSRC + "heatmap_sample.cu",
            "heatmap_sample_bwd": CSRC + "heatmap_sample.cu",
-           "lbfgs_direction": CSRC + "lbfgs_direction.cu"}
+           "lbfgs_direction": CSRC + "lbfgs_direction.cu",
+           "fused_decode_stage_energy": CSRC + "fused_decode_energy.cu"}
 REPLACES = {
     "fused_stage_energy":
         "globalegomocap_tpu/ops/pallas/fused_energy.py:350",
@@ -95,7 +115,17 @@ REPLACES = {
         "globalegomocap_tpu/ops/pallas/heatmap_sample.py:128",
     "lbfgs_direction":
         "globalegomocap_tpu/ops/pallas/lbfgs_direction.py:137",
+    "fused_decode_stage_energy":
+        "globalegomocap_tpu/ops/pallas/fused_decode_energy.py:244",
 }
+# the production prior's decoder conv chain (hidden 64,64,128,256,512):
+# kernel 5's channels, and its float32 operations per (probe, window):
+# a k=3 SAME conv over T frames multiplies 3T - 2 taps per (Cin, Cout)
+# pair (the edge frames have no outer neighbour), 2 (3T - 2) sum(Cin Cout)
+# forward and as much for the input transposes
+DEC_DIMS = (512, 256, 128, 64, 64, 64, 45)
+DEC_OPS_PER_ROW = 2 * 2 * (3 * 10 - 2) * sum(
+    a * b for a, b in zip(DEC_DIMS[:-1], DEC_DIMS[1:]))
 # float32 operations per sampled point, counted from
 # csrc/heatmap_sample.cu (coordinates, taps, weights, the two pairs)
 OPS_PER_SAMPLE = 30
@@ -178,7 +208,7 @@ def stage2_inputs(r, b, gen, torch):
     return pose, anchor, bone, wvec, T, J
 
 
-def agreement(fe, torch, name, args, e_k, g_k, e_p, g_p):
+def agreement(fe, torch, name, args, e_k, g_k, e_p, g_p, axis_tol=0.0):
     """Kernel outputs (e_k, g_k) against the plain version's (e_p, g_p) on
     the same arguments `args` of `name`.  Returns (ok, max|de|,
     max|dg| over the checked points, max |dg|/(1+|g|), points left out).
@@ -192,7 +222,12 @@ def agreement(fe, torch, name, args, e_k, g_k, e_p, g_p):
     crop coordinate lies within 1e-4 cell of an integer are left out of
     the g check and counted: there the triangle kernel's a.e. derivative
     jumps (by 2 at a cell centre, by 1 at a cell edge), and one ulp of
-    difference in the projection picks the other side of the jump."""
+    difference in the projection picks the other side of the jump.
+    With `axis_tol` > 0, points within `axis_tol` m of the camera's axis
+    (|xy| <= axis_tol) are left out too: the partials grow as rho/|xy|
+    and cancel, and the float32 rounding of g grows with them (a random
+    prior decodes some joints that close to the axis).  Kernel 5's checks
+    pass 1e-4 (`decode_check`)."""
     smooth = torch.ones_like(g_k, dtype=torch.bool)
     if name == "fused_stage_energy":
         pose, _, _, ox, oy, _, wvec, poly = args[:8]
@@ -203,6 +238,8 @@ def agreement(fe, torch, name, args, e_k, g_k, e_p, g_p):
         ix, iy = ix - ox, iy - oy
         kink = torch.minimum((ix - ix.round()).abs(),
                              (iy - iy.round()).abs()) <= 1e-4
+        if axis_tol > 0:
+            kink |= torch.hypot(pose[:, :, 0], pose[:, :, 1]) <= axis_tol
         smooth = (~kink)[:, :, None, :].expand_as(g_k)
     dgs = (g_k - g_p).abs()[smooth]
     gs = g_p.abs()[smooth]
@@ -423,6 +460,169 @@ def new_kernel_phase(torch, hs, ld, cb, fails, seed):
     return err
 
 
+def decode_inputs(r, b, k, crop_dtype, gen, torch, fe, fde, fisheye):
+    """Kernel 5's arguments on the card: the production prior's conv chain
+    with random folded weights (unit-gain layers, the last scaled by 0.1
+    around the synthetic skeleton), h0 (R, B, T, 512) probes around one
+    centre per window, and `stage1_inputs`' context placed around the
+    centre's decoded pose."""
+    from globalegomocap_tpu_torch.ops.skeleton import MEAN3D_MM
+    dev = torch.device("cuda")
+    noise = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa
+    layers = []
+    for i, (cin, cout) in enumerate(zip(DEC_DIMS[:-1], DEC_DIMS[1:])):
+        last = i == len(DEC_DIMS) - 2
+        kern = noise(3, cin, cout) * (3 * cin) ** -0.5 * (0.1 if last
+                                                          else 1.0)
+        bias = (torch.as_tensor(MEAN3D_MM.T.reshape(-1) / 1000.0,
+                                dtype=torch.float32, device=dev)
+                if last else 0.1 * noise(cout))
+        layers.append((kern, bias))
+    dl = fde.pack_layers(layers)
+    centre = noise(b, T, DEC_DIMS[0])
+    h0 = (centre[None] + 0.1 * noise(r, b, T, DEC_DIMS[0])).contiguous()
+    p0 = fde.plain_decode_pose(centre[None], dl.layers)[0]     # (B, 3, L)
+    anchor = (p0 + 0.02 * noise(b, 3, L)).contiguous()
+    cam = fisheye.default_camera("egosyn").to(dev)
+    wvec = torch.tensor([[1e-6, 1e-5, 0.01, 0.0, 0.01, 0.0, 0.0, 0.0]],
+                        device=dev)
+    wvec[0, 5:7] = cam.center
+    poly = cam.poly_w2c[None].contiguous()
+    s = 63.0 / 1024.0
+    ix0, iy0, _ = fe.crop_coordinates(p0[:, 0], p0[:, 1], p0[:, 2], wvec,
+                                      poly, s, s, 128.0)
+    jitter = lambda: torch.randint(-1, 2, (b, L), generator=gen,  # noqa
+                                   device=dev).float()
+    ox = (torch.floor(ix0) - k // 2 + jitter()).contiguous()
+    oy = (torch.floor(iy0) - k // 2 + jitter()).contiguous()
+    crops = torch.rand((b, k * k, L), generator=gen, device=dev).to(
+        crop_dtype).contiguous()
+    bone = (0.1 + 0.4 * torch.rand((b, J), generator=gen, device=dev)
+            ).repeat(1, T).contiguous()
+    return (h0, dl, anchor, crops, ox, oy, bone, wvec, poly, T, J, k,
+            (64, 64), 128.0, 512.0)
+
+
+def decode_check(torch, fe, fde, args, out_k):
+    """Kernel 5's outputs (e, dE/dh0, pose, dE/dpose) against the plain
+    versions on the same arguments, in three parts:
+
+    - the forward chain: the decoded pose, |dp| <= 1e-5 (1 + |p|) (the
+      chain sums up to 1536 products per output in another order than
+      cuBLAS), and e, |de| <= 1e-5 + 1e-4 |e|;
+    - the energy core at the kernel's own pose: `agreement` of kernel 1
+      (points within 1e-4 cell of an integer or within 1e-4 m of the
+      camera's axis left out of dE/dpose and counted);
+    - the backward chain: dE/dh0 against the plain chain's vector-Jacobian
+      product with the kernel's own dE/dpose, per row
+      |d| / |g| <= 1e-4 (2-norms), so a kink point cannot move it.  The
+      LeakyReLU's derivative jumps at 0 too: a row with a hidden
+      pre-activation within 1e-5 of its layer's RMS of 0, where the two
+      forwards (about 1e-6 of it apart) may take opposite slopes, is left
+      out of this part and counted.
+
+    Returns (ok, max |de|, max |d dE/dh0|, worst row, kink points, rows
+    left out, the names of the parts that failed)."""
+    e_k, gh_k, p_k, g_k = out_k
+    h0, dl = args[0], fde.pack_layers(args[1])
+    with fde.cuda_build.plain_versions_on_cuda(), torch.enable_grad():
+        h = h0.detach().requires_grad_(True)
+        pose = fde.plain_decode_pose(h, dl.layers)
+        (gh_ref,) = torch.autograd.grad(pose, h, grad_outputs=g_k)
+        e_p, _ = fe.stage_energy_and_grad(pose.detach(), *args[2:])
+        e_c, g_c = fe.stage_energy_and_grad(p_k, *args[2:])
+    pose = pose.detach()
+    core = agreement(fe, torch, "fused_stage_energy", (p_k,) + args[2:],
+                     e_k, g_k, e_c, g_c, axis_tol=1e-4)
+    de = (e_k - e_p).abs()
+    rows = ~relu_kink_rows(torch, fde, h0, dl.layers)
+    dgh = (gh_k - gh_ref).flatten(2)[rows]
+    rel = dgh.norm(dim=-1) / gh_ref.flatten(2)[rows].norm(
+        dim=-1).clamp_min(1e-30)
+    dp = float(((p_k - pose).abs() / (1 + pose.abs())).max())
+    parts = {
+        f"energy core (max|de| {core[1]:.3e}, max|dg|/(1+|g|) "
+        f"{core[3]:.3e})": core[0],
+        "dE/dh0 finite": bool(torch.isfinite(gh_k).all()),
+        f"pose (max|dp|/(1+|p|) {dp:.3e})": dp <= 1e-5,
+        "e": bool((de <= 1e-5 + 1e-4 * e_p.abs()).all()),
+        "dE/dh0": bool((rel <= 1e-4).all())}
+    failed = [name for name, good in parts.items() if not good]
+    worst = float(rel.max()) if rel.numel() else 0.0
+    dmax = float(dgh.abs().max()) if dgh.numel() else 0.0
+    return (not failed, float(de.max()), dmax, worst, core[4],
+            int((~rows).sum()), failed)
+
+
+def relu_kink_rows(torch, fde, h0, layers, tol=1e-5):
+    """(R, B) rows of h0 with a hidden pre-activation of the plain chain
+    within `tol` times its layer's RMS of 0."""
+    r, b, t, c0 = h0.shape
+    h = h0.reshape(r * b, t, c0)
+    near = torch.zeros(r * b, dtype=torch.bool, device=h0.device)
+    for kern, bias in layers[:-1]:
+        h = fde.conv3(h, kern, bias)
+        near |= (h.abs() <= tol * h.square().mean().sqrt()).flatten(
+            1).any(1)
+        h = h * torch.where(h >= 0.0, 1.0, 0.01)
+    return near.reshape(r, b)
+
+
+def compare_decode(torch, fe, fde, fisheye, r, b, k, crop_dtype, gen):
+    args = decode_inputs(r, b, k, crop_dtype, gen, torch, fe, fde, fisheye)
+    out_k = fde.decode_energy_and_grad(*args, with_pose=True)
+    torch.cuda.synchronize()
+    ok, de, dgh, rel, n_kink, n_rows, failed = decode_check(
+        torch, fe, fde, args, out_k)
+    msg = (f"fused_decode_stage_energy k={k} "
+           f"{str(crop_dtype).split('.')[-1]} R={r} B={b}: max|de|={de:.3e} "
+           f"max|d dE/dh0|={dgh:.3e} worst row |d|/|g|={rel:.3e} "
+           f"(|e|~{float(out_k[0].abs().mean()):.3e}, "
+           f"|dE/dh0|~{float(out_k[1].abs().mean()):.3e}; {n_kink} of "
+           f"{r * b * L} points at a kink or the camera axis left out of "
+           f"dE/dpose, {n_rows} of "
+           f"{r * b} rows at a LeakyReLU kink left out of dE/dh0)"
+           + (f"; failed: {', '.join(failed)}" if failed else ""))
+    return ok, msg, max(de, dgh)
+
+
+def decode_kernel_phase(torch, fe, fde, fisheye, fails, seed, serve_b):
+    """Kernel 5 against its plain version: R in {1, 2, 4}, the serve
+    batch and B=37, k=8 bf16 and k=16 f32 crops, and R=4, B=300 at k=8
+    bf16 (1,200 rows: more blocks than the card holds at once)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    err = 0.0
+    cases = [(r, b, k, dtype) for b in (serve_b, 37) for r in (1, 2, 4)
+             for k, dtype in ((8, torch.bfloat16), (16, torch.float32))]
+    cases.append((4, 300, 8, torch.bfloat16))
+    for r, b, k, dtype in cases:
+        ok, msg, e = compare_decode(torch, fe, fde, fisheye, r, b, k, dtype,
+                                    gen)
+        fails.check(ok, msg)
+        err = max(err, e)
+    return err
+
+
+@contextlib.contextmanager
+def shadowed_decode(torch, fe, fde, log):
+    """Inside the block every kernel-5 call also runs `decode_check` on
+    its own arguments and appends (name, R, B, check) to `log`; the
+    kernel's outputs go on."""
+    orig = fde.decode_energy_and_grad
+
+    def call(*args, with_pose=False):
+        out = orig(*args, with_pose=True)
+        log.append(("fused_decode_stage_energy", tuple(out[0].shape),
+                    decode_check(torch, fe, fde, args, out)))
+        return out if with_pose else out[:2]
+
+    fde.decode_energy_and_grad = call
+    try:
+        yield log
+    finally:
+        fde.decode_energy_and_grad = orig
+
+
 @contextlib.contextmanager
 def shadowed_new(torch, hs, ld, cb, log):
     """Inside the block every sampler and direction kernel call also runs
@@ -562,7 +762,7 @@ def path_a_phase(torch, seed, dev, fails, card, work,
     expect = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
               "heatmap_sample": n_chunks * (1 + 2 * it1),
               "heatmap_sample_bwd": n_chunks * (1 + it1),
-              "lbfgs_direction": 0}
+              "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
     print(f"  {n_chunks} chunks x {n_frames} frames, {it1}+{it2} "
           f"iterations, history {cfg.solver.history_size}, "
           f"{len(cfg.solver.step_candidates)} step candidates, fused "
@@ -649,9 +849,9 @@ def path_b_phase(torch, dev, fails, card, work,
     n_chunks, n_frames = shape
     tmp, data, local_ckpt, global_ckpt = work
     base = ["--data_root", data, "--local_ckpt", local_ckpt, "--global_ckpt",
-            global_ckpt, "--device", dev, "--sampling", "pallas",
-            "--guard_crop", "0", "--heatmap_crop_min_mass", "1.1",
-            "--max_batches", "1"]
+            global_ckpt, "--device", dev, "--compute_dtype", "float32",
+            "--sampling", "pallas", "--guard_crop", "0",
+            "--heatmap_crop_min_mass", "1.1", "--max_batches", "1"]
     cfg = serve.config_from_args(serve.build_parser().parse_args(base))
     opt = SequenceOptimizer(build_model(cfg), serve.load_state(local_ckpt),
                             serve.load_state(global_ckpt), cfg, device=dev)
@@ -685,7 +885,8 @@ def path_b_phase(torch, dev, fails, card, work,
     expect = {"fused_stage_energy": 0,
               "fused_stage_energy_noreproj": 1 + s.global_max_iter,
               "heatmap_sample": 1 + s.max_iter,
-              "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0}
+              "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0,
+              "fused_decode_stage_energy": 0}
     cb.reset_launches()
     recs, wall = run_serve(serve, base)
     launches = dict(cb.LAUNCHES)
@@ -732,6 +933,164 @@ def path_b_phase(torch, dev, fails, card, work,
     fails.check(mixed_launches == expect, f"path B unequal-length launches "
                 f"{mixed_launches}, expected {expect}")
     return launches
+
+
+def mean_metrics(results, calculate_errors, keys):
+    """The 17 metrics averaged over every chunk of `results` (ChunkResults
+    with a leading chunk axis)."""
+    per = [calculate_errors(r.estimated, r.mid, r.optimized, r.gt)
+           for r in results]
+    return {k: float(sum(float(p[k].sum()) for p in per)
+                     / sum(p[k].numel() for p in per)) for k in keys}
+
+
+def path_c_phase(torch, dev, fails, card, work,
+                 shape=(SEQUENCES, CHUNKS, FRAMES), profile=False):
+    """Path C: serve's flat solve at the JAX serve's default tier
+    (bfloat16_delta), stage 1 through kernel 5 (SolverConfig.fused_decode,
+    which no CLI flag sets: the library path, as scripts/fused_ab.py
+    reaches it).  The launch counts are reset just before and read just
+    after each run.  Returns the main run's launch counts (the library
+    path at bfloat16_delta over the serve traffic)."""
+    from dataclasses import replace
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import (
+        METRIC_KEYS, calculate_errors)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import fused_energy as fe
+    from globalegomocap_tpu_torch.ops import fused_decode_energy as fde
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    n_seq = shape[0]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tmp, data, local_ckpt, global_ckpt = work
+    base = ["--data_root", data, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--device", dev]
+    cfg = serve.config_from_args(serve.build_parser().parse_args(base))
+    it1, it2 = cfg.solver.max_iter, cfg.solver.global_max_iter
+    zero = {name: 0 for name in cb.LAUNCHES}
+
+    cb.reset_launches()                        # 1. the serve CLI's default
+    recs, wall = run_serve(serve, base)
+    launches = dict(cb.LAUNCHES)
+    fails.check(cfg.compute_dtype == "bfloat16_delta" and len(recs) == n_seq
+                and all("error" not in r for r in recs),
+                f"serve at its default tier {cfg.compute_dtype}: {len(recs)}"
+                f" of {n_seq} sequences answered ({wall:.2f} s) [{card}]")
+    expect = dict(zero, fused_stage_energy=n_seq * (1 + it1),
+                  fused_stage_energy_noreproj=n_seq * (1 + it2))
+    fails.check(launches == expect, f"serve default-tier launches "
+                f"{launches}, expected {expect}")
+
+    def optimizer(tier, fused_decode=True):
+        c = replace(cfg, compute_dtype=tier, solver=replace(
+            cfg.solver, fused_decode=fused_decode))
+        return SequenceOptimizer(build_model(c), serve.load_state(local_ckpt),
+                                 serve.load_state(global_ckpt), c,
+                                 device=dev)
+
+    opt = optimizer("bfloat16_delta")
+    seqs = [os.path.join(data, n) for n in sorted(os.listdir(data))]
+    requests = [[load_test_chunk(d) for d in list_chunk_dirs(q)]
+                for q in seqs]
+    staged = [opt.stage(chunks, on_host=True) for chunks in requests]
+
+    def solve(o, batches=staged):
+        t0 = time.perf_counter()
+        out = [o.optimize_chunks_batched(b, mode="flat") for b in batches]
+        sync()
+        return out, time.perf_counter() - t0
+
+    per_req = dict(zero, fused_decode_stage_energy=1 + it1,
+                   fused_stage_energy_noreproj=1 + it2)
+    expect = {k: n_seq * v for k, v in per_req.items()}
+    cb.reset_launches()                        # 2. the main run
+    res_main, t_main = solve(opt)
+    main_launches = dict(cb.LAUNCHES)
+    fails.check(main_launches == expect,
+                f"path C bfloat16_delta launches {main_launches}, expected "
+                f"{expect} ({t_main * 1e3:.3f} ms for {n_seq} requests) "
+                f"[{card}]")
+    fails.check(all(bool(torch.isfinite(x).all()) and x.dtype ==
+                    torch.float32 for r in res_main for x in r),
+                "path C bfloat16_delta outputs finite float32")
+    opt32 = optimizer("float32")
+    cb.reset_launches()
+    res32, t32 = solve(opt32)
+    fails.check(dict(cb.LAUNCHES) == expect,
+                f"path C float32 launches {dict(cb.LAUNCHES)}, expected "
+                f"{expect} ({t32 * 1e3:.3f} ms) [{card}]")
+
+    guard = opt.stage(requests[0], on_host=True, coverage=0.1)  # 3. guard
+    robust = opt._cfg_for_coverage(0.1).solver
+    cb.reset_launches()
+    res_g = opt.optimize_chunks_batched(guard, mode="flat")
+    sync()
+    g_expect = dict(zero, fused_decode_stage_energy=1 + robust.max_iter,
+                    fused_stage_energy_noreproj=1 + robust.global_max_iter)
+    fails.check(guard.heat.shape[-1] == 16 * 16 * J
+                and dict(cb.LAUNCHES) == g_expect
+                and all(bool(torch.isfinite(x).all()) for x in res_g),
+                f"path C guard trip (k=16 crops, robust tier): launches "
+                f"{dict(cb.LAUNCHES)}, expected {g_expect}; outputs finite")
+    del guard
+
+    log = []                                   # 4. the shadow run
+    with shadowed_decode(torch, fe, fde, log):
+        solve(opt)
+    rows = [a for _, _, a in log]
+    fails.check(len(rows) == expect["fused_decode_stage_energy"]
+                and all(a[0] for a in rows),
+                f"fused_decode_stage_energy on path C: {len(rows)} calls "
+                f"({expect['fused_decode_stage_energy']} expected), each "
+                f"against the plain versions on its own arguments: "
+                f"max|de|={max((a[1] for a in rows), default=0.0):.3e} "
+                f"max|d dE/dh0|={max((a[2] for a in rows), default=0.0):.3e}"
+                f" worst row {max((a[3] for a in rows), default=0.0):.3e}, "
+                f"{sum(a[4] for a in rows)} points at a kink or the camera "
+                f"axis left out of dE/dpose, {sum(a[5] for a in rows)} rows "
+                f"at a LeakyReLU kink left out of dE/dh0"
+                + "".join(f"; call {i} failed: {', '.join(a[6])}"
+                          for i, a in enumerate(rows) if a[6]))
+
+    with cb.plain_versions_on_cuda():          # 5. the plain versions
+        res_plain, t_plain = solve(opt)
+    keys = METRIC_KEYS[:17]
+    m_k = mean_metrics(res_main, calculate_errors, keys)
+    m_p = mean_metrics(res_plain, calculate_errors, keys)
+    worst = max((abs(m_k[k] - m_p[k]) / abs(m_p[k]), k) for k in keys)
+    fails.check(worst[0] <= 0.01,
+                f"path C 17 metrics (mean over {n_seq * shape[1]} chunks) "
+                f"with the kernels vs the plain versions: worst relative "
+                f"difference {worst[0]:.3e} ({worst[1]}; bound 1 %); "
+                f"optimized_global_mpjpe {m_k['optimized_global_mpjpe']} vs "
+                f"{m_p['optimized_global_mpjpe']}; plain versions "
+                f"{t_plain * 1e3:.3f} ms")
+
+    # 6. in turns: with kernel 5, without it (bf16 cuDNN/cuBLAS decode +
+    # kernel 1), and serve-f32-full's float32 stack on the same request
+    ways = {"with kernel 5": opt,
+            "without (bf16 cuDNN/cuBLAS decode + kernel 1)":
+                optimizer("bfloat16_delta", fused_decode=False),
+            "float32 without": optimizer("float32", fused_decode=False)}
+    one = staged[:1]
+    times = {name: [] for name in ways}
+    for turn in (0, 1, 2, 2, 1, 0, 0, 1, 2):
+        name = list(ways)[turn]
+        times[name].append(solve(ways[name], one)[1] * 1e3)
+    print(f"  path C one warm request of {staged[0].est.shape[0]} chunks, "
+          f"solve ms in turns: bfloat16_delta "
+          + "; ".join(f"{name} " + "/".join(f"{t:.3f}" for t in ts)
+                      for name, ts in times.items())
+          + f" [{card}]", flush=True)
+    if profile:
+        for name, o in ways.items():
+            print(f"[3f'] profile of one path C solve, {name}", flush=True)
+            profile_phase(torch, lambda: o.optimize_chunks_batched(
+                staged[0], mode="flat"))
+    return main_launches
 
 
 # ---------------------------------------------------------------------------
@@ -925,10 +1284,90 @@ def timing_phase(torch, fe, fisheye, seed, b, card):
     return rows
 
 
+def decode_bound(r, b, k, crop_bytes):
+    """Kernel 5's bound: the chain's forward and input-transpose
+    operations plus kernel 1's per point, over the float32 peak, against
+    h0 in, dE/dh0 and e out, the context and the weights read once."""
+    rows = r * b
+    weights = sum((3 * a + 1) * c for a, c in zip(DEC_DIMS[:-1],
+                                                  DEC_DIMS[1:])) * 4
+    nbytes = (rows * (T * DEC_DIMS[0] * 4 * 2 + 4) + weights
+              + b * (3 * L * 4 + k * k * L * crop_bytes + 3 * L * 4))
+    ops = rows * (DEC_OPS_PER_ROW
+                  + L * (OPS_PER_CELL * k * k + OPS_PER_POINT_REPROJ))
+    return bound_of(nbytes, ops)
+
+
+def timing_decode(torch, fe, fde, fisheye, seed, b, card):
+    """Kernel 5 at path C's shapes (R=2 probes, R=1, and the guard trip's
+    R=4 with k=16 crops; bf16 crops) beside its bound and its plain
+    version, and one stage-1 eval both ways at the same shapes: the first
+    dense layer, kernel 5 and dz (fused), against the cuDNN/cuBLAS decode
+    forward and backward around kernel 1 (unfused), on one random prior
+    (events, host launch cost included).  Returns the R=2 row."""
+    import torch.nn.functional as F
+    from globalegomocap_tpu_torch.models.conv_vae import ConvVAE, init_random
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    model = init_random(ConvVAE(use_bn=False),
+                        torch.Generator().manual_seed(seed + 19))
+    model = model.cuda().eval().requires_grad_(False)
+    fw, fb, dl = fde.decoder_layers(model)
+    row = None
+    for r, k in ((2, 8), (1, 8), (4, 16)):
+        args = decode_inputs(r, b, k, torch.bfloat16, gen, torch, fe, fde,
+                             fisheye)
+        fn = lambda: fde.decode_energy_and_grad(*args)  # noqa: E731
+        ms = graph_ms(torch, fn)
+        with cb.plain_versions_on_cuda():
+            plain = event_ms(torch, fn, reps=5)
+        bms, by = decode_bound(r, b, k, 2)
+        ctx = args[2:7] + ((args[7], args[8]),) + args[9:]
+        z = torch.randn((r, b, LATENT), generator=gen, device="cuda")
+
+        def fused_eval():
+            with torch.enable_grad():
+                zz = z.detach().requires_grad_(True)
+                h0 = F.linear(zz, fw, fb).reshape(r, b, T, DEC_DIMS[0])
+                e = fde.fused_decode_stage_energy(h0, dl, *ctx)
+                return torch.autograd.grad(e.sum(), zz)[0]
+
+        def unfused_eval():
+            with torch.enable_grad():
+                zz = z.detach().requires_grad_(True)
+                pose = model.decode_to_bodypose(zz.reshape(r * b, LATENT))
+                pose_rt = pose.reshape(r, b, L, 3).permute(0, 1, 3, 2) \
+                    .contiguous()
+                e = fe.fused_stage_energy(pose_rt, *ctx)
+                return torch.autograd.grad(e.sum(), zz)[0]
+
+        t_f = event_ms(torch, fused_eval)
+        t_u = event_ms(torch, unfused_eval)
+        print(f"  time  fused_decode_stage_energy R={r} B={b} k={k} bf16 "
+              f"crops: kernel {ms:.6f} ms, bound {bms:.6f} ms ({by}), "
+              f"roofline share {bms / ms:.4f}, plain version {plain:.6f} ms "
+              f"(no single library call computes it) [{card}]", flush=True)
+        print(f"  time  stage-1 eval R={r} B={b} k={k} (value and dE/dz): "
+              f"first dense + kernel 5 + dz {t_f:.6f} ms; cuDNN/cuBLAS "
+              f"decode fwd+bwd + kernel 1 {t_u:.6f} ms [{card}]",
+              flush=True)
+        if row is None:
+            row = (ms, plain, bms, by, None)
+    args = decode_inputs(4, 300, 8, torch.bfloat16, gen, torch, fe, fde,
+                         fisheye)
+    ms = graph_ms(torch, lambda: fde.decode_energy_and_grad(*args))
+    bms, by = decode_bound(4, 300, 8, 2)
+    print(f"  time  fused_decode_stage_energy R=4 B=300 k=8 bf16 crops (1200 "
+          f"rows): kernel {ms:.6f} ms, bound {bms:.6f} ms ({by}), roofline "
+          f"share {bms / ms:.4f} [{card}]", flush=True)
+    return row
+
+
 def profile_phase(torch, solve):
-    """Where one call of `solve` spends device time (torch.profiler): wall
-    time, device busy time, idle share and the top kernels.  A warm call
-    runs first."""
+    """Where one call of `solve` spends time (torch.profiler): wall time,
+    device busy time, idle share and the top kernels; then the host's
+    operators by self time (the profiler's own cost included, so read them
+    as shares and counts).  A warm call runs first."""
     from torch.profiler import ProfilerActivity, profile
     solve()
     torch.cuda.synchronize()
@@ -948,6 +1387,15 @@ def profile_phase(torch, solve):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  profile   {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}", flush=True)
+    host = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CPU")
+            and e.self_cpu_time_total > 0]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    print(f"  profile: host self time {host_ms:.3f} ms over "
+          f"{sum(e.count for e in host)} operator calls", flush=True)
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  profile   host {e.self_cpu_time_total / 1e3:10.3f} ms "
+              f"{e.count:6d}x  {e.key[:80]}", flush=True)
 
 
 def make_work(torch, seed, tmp, shape=(SEQUENCES, CHUNKS, FRAMES)):
@@ -987,7 +1435,7 @@ def serve_phase(torch, seed, dev, fails, card, work, profile=False,
     tmp, data, local_ckpt, global_ckpt = work
     base = ["--data_root", data, "--local_ckpt", local_ckpt,
             "--global_ckpt", global_ckpt, "--device", dev,
-            "--save_pose", "true"]
+            "--compute_dtype", "float32", "--save_pose", "true"]
     cfg = serve.config_from_args(serve.build_parser().parse_args(base))
     per_seq = {"fused_stage_energy": 1 + cfg.solver.max_iter,
                "fused_stage_energy_noreproj":
@@ -1047,7 +1495,7 @@ def serve_phase(torch, seed, dev, fails, card, work, profile=False,
         "fused_stage_energy": 1 + robust.max_iter,
         "fused_stage_energy_noreproj": 1 + robust.global_max_iter,
         "heatmap_sample": 0, "heatmap_sample_bwd": 0,
-        "lbfgs_direction": 0},
+        "lbfgs_direction": 0, "fused_decode_stage_energy": 0},
         f"guard trip launches {g_launch} (robust tier: "
         f"{robust.max_iter} iterations, {len(robust.step_candidates)} "
         f"step candidates)")
@@ -1137,8 +1585,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one serve solve, one path A chunk "
-                         "and one path B solve (torch.profiler)")
+                    help="also profile one serve solve, one path A chunk, "
+                         "one path B solve and one path C solve with and "
+                         "without kernel 5 and at float32 (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "globalegomocap_tpu_torch")):
@@ -1154,6 +1603,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from globalegomocap_tpu_torch.ops import cuda_build as cb
     from globalegomocap_tpu_torch.ops import fisheye
+    from globalegomocap_tpu_torch.ops import fused_decode_energy as fde
     from globalegomocap_tpu_torch.ops import fused_energy as fe
     from globalegomocap_tpu_torch.ops import heatmap_sample as hs
     from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
@@ -1175,9 +1625,10 @@ def main(argv=None) -> int:
     # ---- 1. build ---------------------------------------------------------
     print("[1] build", flush=True)
     t0 = time.perf_counter()
-    sources = ("fused_energy", "heatmap_sample", "lbfgs_direction")
+    sources = ("fused_energy", "heatmap_sample", "lbfgs_direction",
+               "fused_decode_energy")
     built = cb.build_all(sources)
-    fe._library(), hs._library(), ld._library()
+    fe._library(), hs._library(), ld._library(), fde._library()
     for name in sources:
         print(f"  built {os.path.relpath(built[name], HERE)}", flush=True)
         for line in cb.BUILD_LOG.get(name, "").splitlines():
@@ -1191,6 +1642,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     max_err = kernel_phase(torch, fe, fisheye, fails, args.seed, wins)
     max_err.update(new_kernel_phase(torch, hs, ld, cb, fails, args.seed))
+    max_err["fused_decode_stage_energy"] = decode_kernel_phase(
+        torch, fe, fde, fisheye, fails, args.seed, wins)
     phase_done("kernels", t0)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1216,6 +1669,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         path_b_phase(torch, "cuda", fails, card, work, profile=args.profile)
         phase_done("path B", t0)
+        # ---- 3f. path C -----------------------------------------------------
+        print("[3f] path C: serve's flat solve at bfloat16_delta with "
+              "kernel 5", flush=True)
+        t0 = time.perf_counter()
+        launches["fused_decode_stage_energy"] = path_c_phase(
+            torch, "cuda", fails, card, work, profile=args.profile)[
+            "fused_decode_stage_energy"]
+        phase_done("path C", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)
@@ -1223,6 +1684,8 @@ def main(argv=None) -> int:
     rows = timing_phase(torch, fe, fisheye, args.seed, wins, card)
     rows = {name: row[:4] + (None,) for name, row in rows.items()}
     rows.update(timing_new(torch, hs, ld, cb, args.seed, card))
+    rows["fused_decode_stage_energy"] = timing_decode(
+        torch, fe, fde, fisheye, args.seed, wins, card)
     phase_done("timing", t0)
     kernels = []
     for name in SOURCES:

@@ -7,7 +7,8 @@ solver stack (lbfgs_fixed with fused probes and the fused energy kernels,
 3 iterations, k=8 peak crops staged on the host as bf16, k=16
 estimate-centred crops and the robust tier when the crop-mass guard
 trips, folded BN, conv decoder, Gaussian final smoothing in the merge)
-at float32 compute.  With --guard_crop 0 a tripped guard falls back to
+at the JAX serve's default compute tier, bfloat16_delta (--compute_dtype
+takes the JAX tiers).  With --guard_crop 0 a tripped guard falls back to
 the full maps, sampled as --sampling says (pallas: the heatmap_sample
 CUDA kernel).  A sequence whose chunks differ in length goes through the
 per-chunk `optimize_sequence_dir`.  Each record carries the JAX serve's
@@ -83,9 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--heatmap_crop_min_mass", default=0.90, type=float)
     p.add_argument("--heatmap_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--compute_dtype", default="float32",
-                   help="float32 only in this port so far; the bf16 solve "
-                        "tiers raise")
+    p.add_argument("--compute_dtype", default="bfloat16_delta",
+                   choices=["float32", "bfloat16", "bfloat16_f32enc",
+                            "bfloat16_f32head", "bfloat16_delta",
+                            "bfloat16_pure"],
+                   help="the solve's compute tier, as the JAX serve's "
+                        "(weights stay float32): bfloat16_delta runs bf16 "
+                        "decoder evals and iterates the solver state in "
+                        "bf16 around the float32-exact encoder mean, with a "
+                        "float32 encode and output decode")
     p.add_argument("--fold_bn", default=True, type=str2bool)
     p.add_argument("--final_smooth", default=True, type=str2bool)
     p.add_argument("--stage_on_host", default=True, type=str2bool)

@@ -2,7 +2,8 @@
 
 Each kernel source `csrc/<name>.cu` has a plain C interface.  At first use
 nvcc compiles it for sm_90a into `build/kernels/lib<name>_<hash>.so` (the
-hash of the source, so an edited source rebuilds) and ctypes loads it.
+hash of the source and of every `csrc/` header it includes, so an edited
+source or shared header rebuilds) and ctypes loads it.
 `build_all` starts one nvcc per source at once, which is how
 chip_smoke.py builds them.
 
@@ -18,6 +19,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # kernel launches per wrapper (chip_smoke.py resets and reads them)
 LAUNCHES = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
             "heatmap_sample": 0, "heatmap_sample_bwd": 0,
-            "lbfgs_direction": 0}
+            "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
 # nvcc/ptxas output of the builds this process ran, by source name
 BUILD_LOG: dict[str, str] = {}
 
@@ -84,9 +86,26 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources_of(name: str) -> list[Path]:
+    """csrc/<name>.cu and the csrc/ headers it includes, transitively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _target(name: str) -> Path:
-    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    digest = hashlib.sha256()
+    for path in sorted(sources_of(name)):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str, so: Path):

@@ -33,15 +33,22 @@ def _library():
     return cuda_build.library("lbfgs_direction", _SIGNATURES)
 
 
+def _dot(a, b):
+    """Row-wise dot product in float32, rounded once to the inputs' dtype:
+    `jnp.dot`'s bf16 semantics (exact products, a float32 sum)."""
+    return (a.to(torch.float32) * b.to(torch.float32)).sum(-1).to(a.dtype)
+
+
 def two_loop_direction(grad, s_hist, y_hist, rho_hist, valid):
     """Batched two-loop recursion: grad (B, d), s/y (B, m, d) ordered
-    oldest..newest, rho/valid (B, m).  Returns the direction -H g."""
+    oldest..newest, rho/valid (B, m), float32 or bf16 (the state's dtype
+    throughout).  Returns the direction -H g."""
     m = s_hist.shape[1]
     q = grad
     alphas = [None] * m
     for i in range(m):
         idx = m - 1 - i                                  # newest first
-        a = rho_hist[:, idx] * (s_hist[:, idx] * q).sum(-1)
+        a = rho_hist[:, idx] * _dot(s_hist[:, idx], q)
         a = torch.where(valid[:, idx], a, torch.zeros_like(a))
         q = q - a[:, None] * y_hist[:, idx]
         alphas[idx] = a
@@ -52,7 +59,7 @@ def two_loop_direction(grad, s_hist, y_hist, rho_hist, valid):
                         torch.ones_like(sy))
     r = gamma[:, None] * q
     for i in range(m):
-        b = rho_hist[:, i] * (y_hist[:, i] * r).sum(-1)
+        b = rho_hist[:, i] * _dot(y_hist[:, i], r)
         upd = s_hist[:, i] * (alphas[i] - b)[:, None]
         r = r + torch.where(valid[:, i, None], upd, torch.zeros_like(upd))
     return -r

@@ -11,10 +11,13 @@ import torch
 
 def transform_pose(pose: torch.Tensor, matrix: torch.Tensor):
     """p' = R p + t.  pose (..., J, 3); matrix (..., 4, 4) broadcastable
-    against pose's leading axes."""
-    rot = matrix[..., :3, :3]
-    trans = matrix[..., :3, 3]
-    return torch.matmul(pose, rot.transpose(-1, -2)) + trans[..., None, :]
+    against pose's leading axes.  Mixed dtypes promote (a bf16 pose and a
+    float32 matrix give float32)."""
+    dt = torch.promote_types(pose.dtype, matrix.dtype)   # as jnp.einsum
+    rot = matrix[..., :3, :3].to(dt)
+    trans = matrix[..., :3, 3].to(dt)
+    return torch.matmul(pose.to(dt), rot.transpose(-1, -2)) \
+        + trans[..., None, :]
 
 
 def invert_se3(matrix: torch.Tensor) -> torch.Tensor:

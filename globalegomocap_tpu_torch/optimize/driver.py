@@ -47,10 +47,15 @@ def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
 
 
 def build_model(cfg: OptimizeConfig, use_bn: bool = True) -> ConvVAE:
+    """The prior's architecture; its compute dtype is bf16 for every bf16
+    tier of cfg.compute_dtype (the weights stay float32)."""
     p = cfg.prior
+    dtype = torch.bfloat16 if cfg.compute_dtype.startswith("bfloat16") \
+        else torch.float32
     return ConvVAE(in_channels=p.in_channels, out_channels=p.in_channels,
                    latent_dim=p.latent_dim, seq_len=p.seq_len,
-                   hidden_dims=tuple(p.hidden_dims), use_bn=use_bn)
+                   hidden_dims=tuple(p.hidden_dims), use_bn=use_bn,
+                   dtype=dtype)
 
 
 @dataclass(frozen=True)
@@ -74,7 +79,9 @@ class SequenceOptimizer:
 
     model: a ConvVAE giving the architecture; local_state / global_state:
     its state dicts for the two priors.  With cfg.fold_bn the BatchNorms
-    fold into the convs here, once.  Runs on `device` (CUDA unless the
+    fold into the convs here, once, and the priors are cast for
+    cfg.compute_dtype here, once (`pipeline.stage_models`): their weights
+    are constants of the optimizer.  Runs on `device` (CUDA unless the
     caller passes "cpu")."""
 
     def __init__(self, model: ConvVAE, local_state: dict,
@@ -89,11 +96,19 @@ class SequenceOptimizer:
             use_bn = False
         self.local_model = self._make(model, local_state, use_bn)
         self.global_model = self._make(model, global_state, use_bn)
+        # the priors at cfg.compute_dtype, cast (and, for fused_decode,
+        # folded into kernel 5's layout) once here, not once per stage
+        tier = cfg.compute_dtype
+        self._stages = (
+            pipeline.stage_models(self.local_model, tier,
+                                  cfg.solver.fused_decode),
+            pipeline.stage_models(self.global_model, tier))
 
     def _make(self, model: ConvVAE, state: dict, use_bn: bool) -> ConvVAE:
         m = ConvVAE(model.in_channels, model.out_channels,
                     model.latent_dim, model.seq_len, model.hidden_dims,
-                    use_bn=use_bn)
+                    use_bn=use_bn, dtype=model.dtype,
+                    head_dtype=model.head_dtype)
         m.load_state_dict(copy.deepcopy(state))
         return m.to(self.device).eval().requires_grad_(False)
 
@@ -225,7 +240,7 @@ class SequenceOptimizer:
         cfg = self._cfg_for_coverage(staged.crop_coverage)
         with torch.no_grad():
             return pipeline.optimize_chunks_flat(
-                self.local_model, self.global_model, staged.est,
+                *self._stages, staged.est,
                 staged.cams, staged.heat, staged.gt,
                 self._camera.to(self.device), cfg, origins=staged.origins,
                 full_hw=staged.full_hw)
@@ -242,9 +257,9 @@ class SequenceOptimizer:
             np.asarray(x, dtype=np.float32), device=dev)
         with torch.no_grad():
             return pipeline.optimize_chunk(
-                self.local_model, self.global_model,
-                f32(chunk.estimated_local), f32(chunk.camera_poses),
-                f32(chunk.heatmaps), f32(chunk.gt_global),
+                *self._stages, f32(chunk.estimated_local),
+                f32(chunk.camera_poses), f32(chunk.heatmaps),
+                f32(chunk.gt_global),
                 self._camera.to(dev), cfg)
 
     def run(self, chunk: TestChunk, with_metrics: bool = True):

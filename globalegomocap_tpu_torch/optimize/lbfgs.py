@@ -13,6 +13,8 @@ y.s > 1e-10.  Both solvers run one loop (`_fixed_loop`).
 axis written out, where the JAX pipeline `vmap`s it: x (B, d) and a loss
 (..., B, d) -> (..., B).  `lbfgs_minimize_fixed_batched` is the solver of
 the fused energy kernels, with fused probes and a value-and-grad callback.
+A bf16 x0 (the bfloat16_delta and bfloat16_pure tiers) keeps the whole
+state in bf16, as JAX's weak typing does; the energies stay float32.
 
 The JAX `lax.scan` over iterations is a Python loop here; its `unroll`
 factor has no meaning in eager PyTorch and is ignored by design.
@@ -55,8 +57,9 @@ def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
 
     f0, g0 = value_and_grad(x0[None])
     x, f, g = x0, f0[0], g0[0]
-    first_scale = torch.minimum(torch.ones_like(f),
-                                1.0 / g.abs().sum(-1))
+    # in the state's dtype, as JAX's weakly typed minimum(1.0, ...) keeps
+    # it: a float32 scale would promote every probe and the whole state
+    first_scale = (1.0 / g.abs().sum(-1)).clamp(max=1.0).to(dtype)
 
     s_hist = torch.zeros((b, history_size, dim), dtype=dtype, device=dev)
     y_hist = torch.zeros_like(s_hist)

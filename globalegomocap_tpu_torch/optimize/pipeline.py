@@ -17,11 +17,15 @@ Two entry points, as in the JAX package:
   full maps (the guard-trip fallback with `guard_crop` = 0).
 
 `optimize_stage` picks the energy as the JAX one does: the fused stage-1
-kernel on staged crops, the fused no-reproj kernel for stage 2, else the
-plain PyTorch energy (`energy/terms.py`), whose full-map sampling runs
-the `heatmap_sample` kernel with `sampling_impl="pallas"`.  Each
-objective eval decodes all (probe, window) latents in one batch and takes
-dE/dz with autograd through the decoder.
+kernel on staged crops (or, with `solver.fused_decode`, kernel 5, which
+runs the decoder's conv chain too), the fused no-reproj kernel for stage
+2, else the plain PyTorch energy (`energy/terms.py`), whose full-map
+sampling runs the `heatmap_sample` kernel with `sampling_impl="pallas"`.
+Each objective eval decodes all (probe, window) latents in one batch and
+takes dE/dz with autograd through the decoder.  `cfg.compute_dtype`
+selects the JAX package's bf16 solve tiers: the priors come in as
+`StageModels`, cast for the tier once (`stage_models`), or as plain
+ConvVAEs, converted per stage.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from dataclasses import replace
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from globalegomocap_tpu_torch.config import OptimizeConfig
 from globalegomocap_tpu_torch.energy.terms import (
@@ -38,6 +43,8 @@ from globalegomocap_tpu_torch.energy.terms import (
     total_energy_from_pose)
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.ops import fisheye
+from globalegomocap_tpu_torch.ops.fused_decode_energy import (
+    decoder_layers, fused_decode_stage_energy)
 from globalegomocap_tpu_torch.ops.fused_energy import (
     fused_stage_energy, fused_stage_energy_noreproj)
 from globalegomocap_tpu_torch.ops.skeleton import mean_bone_lengths
@@ -49,6 +56,8 @@ from globalegomocap_tpu_torch.optimize.window import (
     merge_windows_matmul, slice_windows)
 
 J = 15
+COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32enc",
+                  "bfloat16_f32head", "bfloat16_delta", "bfloat16_pure")
 
 
 class ChunkResult(NamedTuple):
@@ -69,13 +78,12 @@ def check_supported(cfg: OptimizeConfig) -> None:
     unsupported = [
         (s.method != "lbfgs_fixed",
          f"solver.method={s.method!r} (strong-Wolfe lbfgs, adam)"),
-        (s.fused_decode, "solver.fused_decode=True"),
         (s.compact_direction, "solver.compact_direction=True"),
         (s.circular_history, "solver.circular_history=True"),
         (s.remat, "solver.remat=True"),
         (s.init != "mu", f"solver.init={s.init!r}"),
-        (cfg.compute_dtype != "float32",
-         f"compute_dtype={cfg.compute_dtype!r} (bf16 solve tiers)"),
+        (cfg.compute_dtype not in COMPUTE_DTYPES,
+         f"compute_dtype={cfg.compute_dtype!r}"),
         (impl != "conv", f"decoder_impl={impl!r} (dense/shift decoders)"),
         (cfg.decoder_dtype != "float32",
          f"decoder_dtype={cfg.decoder_dtype!r}"),
@@ -133,9 +141,11 @@ def _wvec(weights: EnergyWeights, center, device) -> torch.Tensor:
 
 
 def _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
-                  use_reproj, cfg, origins, full_hw):
-    """The fused kernels' energy of (R, W, 3, L) poses, with its
-    loop-invariant context built once."""
+                  use_reproj, cfg, origins, full_hw, decoder=None):
+    """The fused kernels' energy with its loop-invariant context built
+    once: of (R, W, 3, L) poses, or, with `decoder` = (first_w, first_b,
+    DecoderLayers) from `decoder_layers`, of (R, W, latent) float32
+    latents through the first dense layer and kernel 5."""
     w, t = init_pose.shape[0], init_pose.shape[1]
     L = t * J
     dev = init_pose.device
@@ -152,21 +162,88 @@ def _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
     ctx = (_wvec(weights, camera.center, dev),
            camera.poly_w2c[None].to(dev, torch.float32).contiguous())
     hg = cfg.heatmap
-    return lambda pose_rt: fused_stage_energy(
-        pose_rt, anchor_t, crops_cm, f_ox, f_oy, bone_t, ctx, t, J, kk,
-        full_hw, hg.crop_offset, hg.half_extent)
+    if decoder is None:
+        return lambda pose_rt: fused_stage_energy(
+            pose_rt, anchor_t, crops_cm, f_ox, f_oy, bone_t, ctx, t, J, kk,
+            full_hw, hg.crop_offset, hg.half_extent)
+    first_w, first_b, layers = decoder
+
+    def energy(z3):
+        rr, bb = z3.shape[0], z3.shape[1]
+        h0 = F.linear(z3, first_w, first_b).reshape(rr, bb, t, -1)
+        return fused_decode_stage_energy(
+            h0, layers, anchor_t, crops_cm, f_ox, f_oy, bone_t, ctx, t, J,
+            kk, full_hw, hg.crop_offset, hg.half_extent)
+    return energy
 
 
-def optimize_stage(model: ConvVAE, init_pose, heatmaps, mean_bl,
-                   camera: fisheye.FisheyeParams, weights: EnergyWeights,
-                   use_reproj: bool, cfg: OptimizeConfig, origins=None,
-                   full_hw=None, residual: bool = False) -> torch.Tensor:
+class StageModels(NamedTuple):
+    """One prior as the stages of a compute tier use it (`stage_models`):
+    the encode, eval and output models, each holding its weights in its
+    compute dtypes, and, for solver.fused_decode, kernel 5's float32
+    decoder (`decoder_layers`)."""
+    tier: str
+    enc: ConvVAE
+    evals: ConvVAE
+    out: ConvVAE
+    decoder: tuple | None
+
+
+def stage_models(model: ConvVAE, tier: str,
+                 fused_decode: bool = False) -> StageModels:
+    """`model`'s weights cast and converted for the stages of `tier`.
+    `model` carries float32 weights and the tier's dtype
+    (`driver.build_model`); the weights are constants from here on, and
+    `SequenceOptimizer` builds these once per prior.
+
+    float32: all float32.  bfloat16 (the mixed tier) and bfloat16_delta:
+    float32 encode and output decode, bf16 evals.  bfloat16_f32enc: float32
+    encode, bf16 evals and output.  bfloat16_f32head: bf16 encoder with a
+    float32 fc_mu, bf16 evals and output.  bfloat16_pure: all bf16."""
+    def at(dtype, head_dtype=None):
+        """`model` at these compute dtypes, its weights stored in them."""
+        stored = (model.dtype, model.head_dtype,
+                  model.decoder_input.weight.dtype, model.fc_mu.weight.dtype)
+        if stored == (dtype, head_dtype, dtype, head_dtype or dtype):
+            return model
+        return model.clone(dtype=dtype, head_dtype=head_dtype)
+
+    f32 = at(torch.float32)
+    evals = f32 if tier == "float32" else at(torch.bfloat16)
+    if tier == "bfloat16_f32head":
+        enc = at(torch.bfloat16, torch.float32)
+    elif tier == "bfloat16_pure":
+        enc = evals
+    else:
+        enc = f32
+    out = f32 if tier in ("float32", "bfloat16", "bfloat16_delta") else evals
+    return StageModels(tier, enc, evals, out,
+                       decoder_layers(model) if fused_decode else None)
+
+
+def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
+                   mean_bl, camera: fisheye.FisheyeParams,
+                   weights: EnergyWeights, use_reproj: bool,
+                   cfg: OptimizeConfig, origins=None, full_hw=None,
+                   residual: bool = False) -> torch.Tensor:
     """One optimisation stage over a batch of windows.
 
+    model: the prior, as `stage_models` built it for cfg.compute_dtype (a
+    ConvVAE is converted here, for this stage only).
     init_pose: (W, T, 15, 3) anchor/init poses.  heatmaps: (W, T, 15, h, w)
     full maps, or k x k crops with origins (W, T, 15, 2) as (oy, ox) and
     the full map extent full_hw; None when use_reproj is False.  mean_bl:
-    (W, 15).  Returns the decoded optimised poses (W, T, 15, 3)."""
+    (W, 15).  Returns the decoded optimised poses (W, T, 15, 3): bf16 for
+    the tiers whose output decode is bf16 and no residual offset, as in
+    the JAX package.
+
+    cfg.compute_dtype picks the tier (`stage_models`).  bfloat16_delta on
+    the batched solver iterates dz = z - mu in bf16 from 0 (exact at the
+    init); every eval and the output decode see mu + dz in float32.  The
+    per-window solver runs that tier with the mixed tier's semantics, as
+    the JAX one does.  With solver.fused_decode, stage 1 on crops without
+    a residual offset runs kernel 5 (`ops/fused_decode_energy.py`) on the
+    float32 weights of the decoder at every tier."""
     w, t = init_pose.shape[0], init_pose.shape[1]
     L = t * J
     s = cfg.solver
@@ -177,38 +254,65 @@ def optimize_stage(model: ConvVAE, init_pose, heatmaps, mean_bl,
         if cfg.heatmap_dtype == "bfloat16":
             heatmaps = heatmaps.to(torch.bfloat16)
         heatmaps = heatmaps.contiguous()   # once per stage, not per eval
+    sm = model if isinstance(model, StageModels) else stage_models(
+        model, cfg.compute_dtype, s.fused_decode and use_reproj)
+    if sm.tier != cfg.compute_dtype:
+        raise ValueError(f"stage models built for {sm.tier!r}, the config "
+                         f"asks for {cfg.compute_dtype!r}")
+    enc_model, eval_model, out_model = sm.enc, sm.evals, sm.out
     with torch.no_grad():
-        mu, _ = model.encode(init_pose.reshape(w, t, 3 * J))
-        offset = (init_pose - model.decode_to_bodypose(mu)) if residual \
+        mu, _ = enc_model.encode(init_pose.reshape(w, t, 3 * J))
+        offset = (init_pose - out_model.decode_to_bodypose(mu)) if residual \
             else None
     latent = mu.shape[-1]
 
-    def decode(z):
+    def decode(mdl, z):
         """(..., W, latent) -> (..., W, T, 15, 3), plus the offset."""
         lead = z.shape[:-1]
-        pose = model.decode_to_bodypose(z.reshape(-1, latent)).reshape(
+        pose = mdl.decode_to_bodypose(z.reshape(-1, latent)).reshape(
             lead + (t, J, 3))
         return pose if offset is None else pose + offset
 
     use_batched = (s.method == "lbfgs_fixed"
                    and (s.fused_energy or s.batched_solver))
+    # the delta state: the solver iterates dz from 0 in bf16 around the
+    # float32 mu; z_eff recentres every probe batch before the decode
+    z_init, delta = mu, None
+    if cfg.compute_dtype == "bfloat16_delta" and use_batched:
+        delta = mu.to(torch.float32)
+        z_init = torch.zeros_like(mu, dtype=torch.bfloat16)
+
+    def z_eff(z):
+        return z if delta is None else z.to(torch.float32) + delta
+
     fused = use_batched and s.fused_energy and (
         not use_reproj or origins is not None)
-    if fused:
+    if fused and use_reproj and s.fused_decode and offset is None:
+        if sm.decoder is None:
+            raise ValueError("solver.fused_decode needs stage models built "
+                             "with fused_decode=True")
+        energy = _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
+                               True, cfg, origins, full_hw,
+                               decoder=sm.decoder)
+
+        def batch_energy(z3):
+            return energy(z_eff(z3).to(torch.float32))
+    elif fused:
         energy = _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
                                use_reproj, cfg, origins, full_hw)
 
         def batch_energy(z3):
             rr, bb = z3.shape[0], z3.shape[1]
-            pose_rt = decode(z3).reshape(rr * bb, L, 3).permute(0, 2, 1) \
-                .reshape(rr, bb, 3, L).contiguous()
-            return energy(pose_rt)
+            pose = decode(eval_model, z_eff(z3)).to(torch.float32)
+            return energy(pose.reshape(rr * bb, L, 3).permute(0, 2, 1)
+                          .reshape(rr, bb, 3, L).contiguous())
     else:
         def batch_energy(z):
             return total_energy_from_pose(
-                decode(z), init_pose, mean_bl, heatmaps, camera, weights,
-                use_reproj, sampling_impl=cfg.sampling_impl,
-                origins=origins, full_hw=full_hw)
+                decode(eval_model, z_eff(z)).to(torch.float32), init_pose,
+                mean_bl, heatmaps, camera, weights, use_reproj,
+                sampling_impl=cfg.sampling_impl, origins=origins,
+                full_hw=full_hw)
 
     with torch.no_grad():
         if use_batched:
@@ -220,7 +324,7 @@ def optimize_stage(model: ConvVAE, init_pose, heatmaps, mean_bl,
                 return vals.detach(), gz
 
             res = lbfgs_minimize_fixed_batched(
-                vg_batch, mu, max_iter=s.max_iter,
+                vg_batch, z_init, max_iter=s.max_iter,
                 history_size=s.history_size, lr=s.lr,
                 step_candidates=tuple(s.step_candidates), unroll=s.unroll)
         else:
@@ -232,7 +336,7 @@ def optimize_stage(model: ConvVAE, init_pose, heatmaps, mean_bl,
                 compact_direction=s.compact_direction,
                 circular_history=s.circular_history,
                 pallas_direction=s.pallas_direction, unroll=s.unroll)
-        return decode(res.x)
+        return decode(out_model, z_eff(res.x))
 
 
 def _unflatten_staged_crops(heatmap_seq, origins, cfg: OptimizeConfig):
@@ -304,7 +408,8 @@ class WindowFields(NamedTuple):
     gt: torch.Tensor
 
 
-def solve_windows(local_model: ConvVAE, global_model: ConvVAE, win_local,
+def solve_windows(local_model: ConvVAE | StageModels,
+                  global_model: ConvVAE | StageModels, win_local,
                   win_cam, win_heat, win_gt, win_bl,
                   camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
                   win_org=None, full_hw=None) -> WindowFields:
@@ -349,7 +454,8 @@ def merge_window_fields(fields: WindowFields,
         gt=merge_windows_matmul(fields.gt, stride))
 
 
-def optimize_chunk(local_model: ConvVAE, global_model: ConvVAE,
+def optimize_chunk(local_model: ConvVAE | StageModels,
+                   global_model: ConvVAE | StageModels,
                    estimated_local, camera_seq, heatmap_seq, gt_seq,
                    camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
                    origins=None, full_hw=None) -> ChunkResult:
@@ -369,7 +475,8 @@ def optimize_chunk(local_model: ConvVAE, global_model: ConvVAE,
     return merge_window_fields(fields, cfg)
 
 
-def optimize_chunks_flat(local_model: ConvVAE, global_model: ConvVAE,
+def optimize_chunks_flat(local_model: ConvVAE | StageModels,
+                         global_model: ConvVAE | StageModels,
                          estimated_local, camera_seq, heatmap_seq, gt_seq,
                          camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
                          origins=None, full_hw=None) -> ChunkResult:

@@ -22,6 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 from globalegomocap_tpu_torch.ops import cuda_build as cb  # noqa: E402
 from globalegomocap_tpu_torch.ops import fisheye  # noqa: E402
+from globalegomocap_tpu_torch.ops import fused_decode_energy as fde  # noqa
 from globalegomocap_tpu_torch.ops import fused_energy as fe  # noqa: E402
 from globalegomocap_tpu_torch.ops import heatmap_sample as hs  # noqa: E402
 from globalegomocap_tpu_torch.ops import lbfgs_direction as ld  # noqa: E402
@@ -59,7 +60,8 @@ def test_launch_counter_and_backward(gen):
     assert fe.LAUNCHES == {"fused_stage_energy": 1,
                            "fused_stage_energy_noreproj": 0,
                            "heatmap_sample": 0, "heatmap_sample_bwd": 0,
-                           "lbfgs_direction": 0}
+                           "lbfgs_direction": 0,
+                           "fused_decode_stage_energy": 0}
     ct = torch.randn(e.shape, generator=gen, device="cuda")
     (g_pose,) = torch.autograd.grad(e, pose, grad_outputs=ct)
     _, g = fe.stage_energy_and_grad(*args)
@@ -137,3 +139,32 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
     bad[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ld.lbfgs_direction(*bad)
+
+
+@pytest.mark.parametrize("r,b,k,dtype", [(2, 192, 8, torch.bfloat16),
+                                         (4, 37, 16, torch.float32),
+                                         (4, 300, 8, torch.bfloat16)])
+def test_decode_energy_matches_plain_version(gen, r, b, k, dtype):
+    """Kernel 5 against its plain version (chip_smoke.decode_check), up to
+    1,200 rows (more blocks than the card holds at once)."""
+    ok, msg, _ = chip_smoke.compare_decode(torch, fe, fde, fisheye, r, b, k,
+                                           dtype, gen)
+    assert ok, msg
+
+
+def test_decode_energy_counter_and_backward(gen):
+    """One launch through autograd; the backward is ct * dE/dh0."""
+    args = chip_smoke.decode_inputs(2, 5, 8, torch.bfloat16, gen, torch, fe,
+                                    fde, fisheye)
+    h0 = args[0].clone().requires_grad_(True)
+    cb.reset_launches()
+    e = fde.fused_decode_stage_energy(h0, args[1], *args[2:7],
+                                      (args[7], args[8]), *args[9:])
+    ct = torch.randn(e.shape, generator=gen, device="cuda")
+    (g,) = torch.autograd.grad(e, h0, grad_outputs=ct)
+    assert cb.LAUNCHES["fused_decode_stage_energy"] == 1
+    _, gh0 = fde.decode_energy_and_grad(*args)
+    torch.testing.assert_close(g, ct[:, :, None, None] * gh0, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fde.decode_energy_and_grad(args[0].transpose(2, 3).contiguous()
+                                   .transpose(2, 3), *args[1:])

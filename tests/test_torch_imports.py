@@ -37,7 +37,8 @@ def test_port_imports_no_jax():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["bad"] == []
     for mod in ("cli.serve", "cli.optimize_sequence", "ops.cuda_build",
-                "ops.fused_energy", "ops.heatmap_sample",
+                "ops.fused_energy", "ops.fused_decode_energy",
+                "ops.heatmap_sample",
                 "ops.lbfgs_direction", "ops.sampling", "optimize.driver",
                 "optimize.pipeline", "optimize.lbfgs", "models.convert",
                 "data.synthetic"):

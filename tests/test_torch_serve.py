@@ -1,7 +1,8 @@
 """The port's serve CLI in one-shot mode on a temporary data root with
 --device cpu: one JSON line per sequence with the JAX serve's keys, and
-the same answers as the JAX serve at float32 compute on the same priors
-(metrics within 5 %, the precedent of test_fused_energy.py:297-308)."""
+the same answers as the JAX serve on the same priors at float32 compute
+and at both serves' default tier, bfloat16_delta (metrics within 5 %, the
+precedent of test_fused_energy.py:297-308)."""
 
 import json
 
@@ -47,6 +48,7 @@ def test_serve_matches_jax_serve(served, capsys):
     ck = str(tmp / "prior.pt")
     n = tserve.main(["--data_root", str(root), "--local_ckpt", ck,
                      "--global_ckpt", ck, "--device", "cpu",
+                     "--compute_dtype", "float32",
                      "--save_pose", "true", "--out_dir",
                      str(tmp / "out")] + PRIOR)
     port = {r["sequence"]: r for r in _lines(capsys)}
@@ -71,8 +73,28 @@ def test_serve_matches_jax_serve(served, capsys):
             assert abs(rec[key] - ref[name][key]) <= 0.05 * ref[name][key]
 
 
+def test_serve_default_tier_matches_jax_serve_default(served, capsys):
+    """Both serves at their default compute tier, bfloat16_delta."""
+    root, tmp = served
+    ck = str(tmp / "prior.pt")
+    assert tserve.build_parser().get_default("compute_dtype") == \
+        "bfloat16_delta"
+    tserve.main(["--data_root", str(root), "--local_ckpt", ck,
+                 "--global_ckpt", ck, "--device", "cpu"] + PRIOR)
+    port = {r["sequence"]: r for r in _lines(capsys)}
+    jck = str(tmp / "prior.msgpack")
+    jserve.main(["--data_root", str(root), "--local_ckpt", jck,
+                 "--global_ckpt", jck, "--unroll", "1", "--prefetch_depth",
+                 "0"] + PRIOR)
+    ref = {r["sequence"]: r for r in _lines(capsys)}
+    assert set(port) == set(ref) == {"seqA", "seqB"}
+    for name, rec in port.items():
+        assert set(rec) == JAX_KEYS
+        for key in ("optimized_global_mpjpe", "original_global_mpjpe"):
+            assert abs(rec[key] - ref[name][key]) <= 0.05 * ref[name][key]
+
+
 @pytest.mark.parametrize("flag,value,name", [
-    ("--compute_dtype", "bfloat16_delta", "compute_dtype"),
     ("--watch_interval", "2.0", "watch_interval"),
     ("--prefetch_depth", "2", "prefetch_depth"),
     ("--stage_on_host", "false", "stage_on_host")])
