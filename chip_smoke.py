@@ -15,7 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
               sampler forward and backward on f32 and bf16 64x64 maps,
               points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
               and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
-              13, 192}, d = 2048 with partly filled histories; the decoder
+              13, 192}, d = 2048 with partly filled histories, float32
+              and bf16 (the solver's bf16 state); the decoder
               energy (kernel 5) with the production prior's conv chain
               (random folded weights), R in {1, 2, 4}, B in {192, 37},
               k=8 bf16 and k=16 f32 crops, and R=4, B=300 (1,200 rows):
@@ -41,7 +42,9 @@ Phases (any failure exits non-zero and prints no result line):
               --sampling pallas (the 17-metric summary), then through the
               library `optimize_sequence_dir` with pallas_direction=True,
               the launch counts each run predicts, no failed chunk, a
-              shadow run and a plain-version run (metrics within 1 %).
+              shadow run and a plain-version run (metrics within 1 %),
+              and the library run at bfloat16_pure (bf16 solver state
+              into the direction kernel: its launches, finite metrics).
 3e. path B  - serve's full-map guard fallback: one 16-chunk sequence with
               --sampling pallas --guard_crop 0 and a crop-mass bar no map
               meets; full maps staged, the robust tier, the launch counts
@@ -64,7 +67,8 @@ Phases (any failure exits non-zero and prints no result line):
               slots), the plain version's time and, for the sampler,
               F.grid_sample's; kernel 5 beside the fused and the unfused
               (cuDNN/cuBLAS decode + kernel 1) stage-1 eval, and at
-              1,200 rows.
+              1,200 rows; the direction's cluster size C beside each of
+              its times, and each C with either partial-sum exchange.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs one CUDA card; exits 2
@@ -368,12 +372,20 @@ def bwd_agreement(torch, maps, pts, d_k, d_p):
 
 
 def dir_agreement(torch, out_k, out_p):
-    """Direction against the plain two-loop: |d| <= 1e-4 (1 + |p|); both
-    sum 2048-term dot products in their own order.  Returns (ok,
+    """Direction against the plain two-loop, both in the inputs' dtype:
+    float32 |d| <= 1e-4 (1 + |p|), both summing 2048-term dot products in
+    their own order; bf16 |d| <= 2e-2 (1 + max|p| of the lane), since a
+    different sum can move a rounded dot by one of bf16's 8 significand
+    bits and that carries through the later steps.  Returns (ok,
     max |d|)."""
-    d = (out_k - out_p).abs()
-    ok = (bool(torch.isfinite(out_k).all())
-          and bool((d <= 1e-4 * (1 + out_p.abs())).all()))
+    k, p = out_k.float(), out_p.float()
+    d = (k - p).abs()
+    if out_p.dtype == torch.bfloat16:
+        tol = 2e-2 * (1 + p.abs().amax(-1, keepdim=True))
+    else:
+        tol = 1e-4 * (1 + p.abs())
+    ok = (out_k.dtype == out_p.dtype and bool(torch.isfinite(k).all())
+          and bool((d <= tol).all()))
     return ok, float(d.max())
 
 
@@ -398,11 +410,13 @@ def compare_sampler(torch, hs, cb, r, n, dtype, gen):
     return ok_f and ok_b, msg, de, dd
 
 
-def direction_inputs(b, m, d, gen, torch):
+def direction_inputs(b, m, d, gen, torch, dtype=None):
     """Partly filled histories on the card: lane i holds its newest
     fill_i pairs (lane 0 all m, the last lane none), s.y > 0; lane 1 is
     full and its newest pair has y.y = 0 (its rho stays finite), so
-    gamma falls back to 1 there."""
+    gamma falls back to 1 there.  Made in float32, then cast to `dtype`
+    (float32 by default; bf16 as the solver's bf16 state hands them
+    over)."""
     dev = torch.device("cuda")
     fill = torch.randint(0, m + 1, (b,), generator=gen, device=dev)
     fill[0], fill[1], fill[-1] = m, m, 0
@@ -416,18 +430,23 @@ def direction_inputs(b, m, d, gen, torch):
                       torch.zeros((b, m), device=dev)).contiguous()
     y[1, m - 1] = 0.0
     g = torch.randn((b, d), generator=gen, device=dev)
-    return g, s.contiguous(), y.contiguous(), rho, valid
+    dtype = dtype or torch.float32
+    return (g.to(dtype), s.to(dtype).contiguous(), y.to(dtype).contiguous(),
+            rho.to(dtype), valid)
 
 
-def compare_direction(torch, ld, cb, b, m, gen):
-    args = direction_inputs(b, m, LATENT, gen, torch)
+def compare_direction(torch, ld, cb, b, m, gen, dtype=None):
+    args = direction_inputs(b, m, LATENT, gen, torch, dtype)
+    p = ld.launch_plan(b, m, LATENT, args[0].dtype, args[0].device)
     out_k = ld.lbfgs_direction(*args)
     with cb.plain_versions_on_cuda():
         out_p = ld.lbfgs_direction(*args)
     torch.cuda.synchronize()
     ok, err = dir_agreement(torch, out_k, out_p)
-    msg = (f"lbfgs_direction B={b} m={m} d={LATENT}: max|dd|={err:.3e} "
-           f"(|d|~{float(out_p.abs().mean()):.3e}; "
+    msg = (f"lbfgs_direction {str(args[0].dtype).split('.')[-1]} B={b} "
+           f"m={m} d={LATENT} (C={p.cluster}, {p.threads} threads, "
+           f"{p.smem} B shared memory a CTA): max|dd|={err:.3e} "
+           f"(|d|~{float(out_p.float().abs().mean()):.3e}; "
            f"{int(args[4].sum())} of {b * m} slots valid)")
     return ok, msg, err
 
@@ -452,11 +471,13 @@ def new_kernel_phase(torch, hs, ld, cb, fails, seed):
                 err["heatmap_sample"] = max(err["heatmap_sample"], de)
                 err["heatmap_sample_bwd"] = max(err["heatmap_sample_bwd"],
                                                 dd)
-    for m in (2, 10, 25):
-        for b in (12, 13, 192):
-            ok, msg, e = compare_direction(torch, ld, cb, b, m, gen)
-            fails.check(ok, msg)
-            err["lbfgs_direction"] = max(err["lbfgs_direction"], e)
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (2, 10, 25):
+            for b in (12, 13, 192):
+                ok, msg, e = compare_direction(torch, ld, cb, b, m, gen,
+                                               dtype)
+                fails.check(ok, msg)
+                err["lbfgs_direction"] = max(err["lbfgs_direction"], e)
     return err
 
 
@@ -727,7 +748,8 @@ def path_a_phase(torch, seed, dev, fails, card, work,
     """Path A: the per-chunk full-map path at the parity CLI's knobs,
     through the CLI and through `optimize_sequence_dir` with the
     direction kernel, with the launch counts reset just before and read
-    just after each run; then a shadow run and a plain-version run.
+    just after each run; then a shadow run, a plain-version run and a
+    library run at bfloat16_pure (bf16 solver state into the kernel).
     `iters` (stage-1 iterations; the CLI default 25 when None) and the
     chunk shape are cut only in a rehearsal on the CPU.  Returns the
     library run's launch counts."""
@@ -824,6 +846,29 @@ def path_a_phase(torch, seed, dev, fails, card, work,
                 f" vs {float(pavg['optimized_global_mpjpe'])}; "
                 f"{ptiming['per_chunk_s'] * 1e3:.3f} ms per chunk with the "
                 f"plain versions")
+
+    # 5. bfloat16_pure: the solver state, and so the direction kernel's
+    # inputs, in bf16
+    cfg16 = replace(cfg, compute_dtype="bfloat16_pure")
+    opt16 = SequenceOptimizer(build_model(cfg16), load_state(local_ckpt),
+                              load_state(global_ckpt), cfg16, device=dev)
+    cb.reset_launches()
+    _, avg16, t16 = optimize_sequence_dir(opt16, seq, verbose=False)
+    sync()
+    l16 = dict(cb.LAUNCHES)
+    print(f"  library run at bfloat16_pure with pallas_direction: launches "
+          f"{l16}, {t16['per_chunk_s'] * 1e3:.3f} ms per chunk [{card}]",
+          flush=True)
+    fails.check(t16["failed_chunks"] == [],
+                f"bfloat16_pure: no failed chunk ({t16['failed_chunks']})")
+    fails.check(l16["lbfgs_direction"] == expect["lbfgs_direction"],
+                f"bfloat16_pure: {l16['lbfgs_direction']} direction "
+                f"launches, {expect['lbfgs_direction']} expected")
+    fails.check(all(abs(float(avg16[k])) < float("inf")
+                    for k in METRIC_KEYS[:17]),
+                f"bfloat16_pure: the 17 metrics finite "
+                f"(optimized_global_mpjpe "
+                f"{float(avg16['optimized_global_mpjpe'])})")
     if profile:
         print("[3d'] profile of one path A chunk", flush=True)
         chunk = load_test_chunk(list_chunk_dirs(seq)[0])
@@ -1165,12 +1210,14 @@ def sampler_map_bytes(torch, maps, pts):
     return 32 * int(torch.unique(torch.cat(sectors)).numel())
 
 
-def direction_bound(b, m, d, n_valid):
-    """The two-loop recursion's bound on these histories: the gradient in
-    and the direction out, rho and valid of every slot, and s and y of the
-    `n_valid` valid slots only (the kernel skips the others in both
-    loops); a dot product and an axpy per valid slot in each loop."""
-    nbytes = b * 2 * d * 4 + b * m * (4 + 1) + n_valid * 2 * d * 4
+def direction_bound(b, m, d, n_valid, elem=4):
+    """The two-loop recursion's bound on these histories of `elem`-byte
+    elements: the gradient in and the direction out, rho and valid of
+    every slot, and s and y of the `n_valid` valid slots only (the kernel
+    skips the others in both loops); a dot product and an axpy per valid
+    slot in each loop."""
+    nbytes = (b * 2 * d * elem + b * m * (elem + 1)
+              + n_valid * 2 * d * elem)
     return bound_of(nbytes, 8 * n_valid * d + 3 * b * d)
 
 
@@ -1193,11 +1240,12 @@ def timing_new(torch, hs, ld, cb, seed, card):
     maps) and path B (R=4 over a serve batch's 28800 bf16 maps) shapes
     beside F.grid_sample on the same points (float32 maps of shape
     (N, 1, 64, 64), grid (N, 1, R, 2): the library yardstick, never
-    called by the port), and the direction at path A's (12 lanes, m=25)
-    and the kernel phase's B=192 shapes.  Each bound counts the bytes
-    these inputs need (`sampler_map_bytes`, `direction_bound`).  Returns
-    {name: (ms, plain_ms, bound_ms, bound_by, library_ms)} at path A's
-    shapes."""
+    called by the port), and the direction at path A's (12 lanes, m=25,
+    float32 and bf16) and the kernel phase's B=192 shapes, then at each
+    cluster size the kernel takes at path A's and the B=192, m=10
+    shapes.  Each bound counts the bytes these inputs need
+    (`sampler_map_bytes`, `direction_bound`).  Returns {name: (ms,
+    plain_ms, bound_ms, bound_by, library_ms)} at path A's shapes."""
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     rows = {}
@@ -1237,19 +1285,43 @@ def timing_new(torch, hs, ld, cb, seed, card):
                   f"F.grid_sample{'' if name == 'heatmap_sample' else ' backward'}"
                   f" {lib_ms:.6f} ms [{card}]", flush=True)
             rows.setdefault(name, (ms, plain, bms, by, lib_ms))
-    for b, m in ((WINDOWS_PER_CHUNK, 25), (192, 10), (192, 2)):
-        args = direction_inputs(b, m, LATENT, gen, torch)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for b, m, dtype in ((WINDOWS_PER_CHUNK, 25, f32), (192, 10, f32),
+                        (192, 2, f32), (WINDOWS_PER_CHUNK, 25, bf16)):
+        args = direction_inputs(b, m, LATENT, gen, torch, dtype)
+        p = ld.launch_plan(b, m, LATENT, dtype, args[0].device)
         fn = lambda: ld.lbfgs_direction(*args)  # noqa: E731
         ms = graph_ms(torch, fn)
         with cb.plain_versions_on_cuda():
             plain = event_ms(torch, fn)
         n_valid = int(args[4].sum())
-        bms, by = direction_bound(b, m, LATENT, n_valid)
-        print(f"  time  lbfgs_direction B={b} m={m} d={LATENT} ({n_valid} of "
-              f"{b * m} slots valid): kernel {ms:.6f} ms, bound {bms:.6f} ms "
+        bms, by = direction_bound(b, m, LATENT, n_valid,
+                                  args[0].element_size())
+        print(f"  time  lbfgs_direction {str(dtype).split('.')[-1]} B={b} "
+              f"m={m} d={LATENT} ({n_valid} of {b * m} slots valid), "
+              f"C={p.cluster} ({p.threads} threads, {p.smem} B shared "
+              f"memory a CTA): kernel {ms:.6f} ms, bound {bms:.6f} ms "
               f"({by}), roofline share {bms / ms:.4f}, plain version "
               f"{plain:.6f} ms [{card}]", flush=True)
         rows.setdefault("lbfgs_direction", (ms, plain, bms, by, None))
+    # the design's choices: every cluster size, and partial sums exchanged
+    # through barrier.cluster instead of the mbarriers
+    for b, m in ((WINDOWS_PER_CHUNK, 25), (192, 10)):
+        args = direction_inputs(b, m, LATENT, gen, torch)
+        bms, _ = direction_bound(b, m, LATENT, int(args[4].sum()))
+        for c in ld.CLUSTERS:
+            try:
+                p = ld.launch_plan(b, m, LATENT, f32, args[0].device, c)
+            except ValueError:            # this slice does not fit
+                continue
+            ms = graph_ms(torch, lambda: ld.lbfgs_direction(*args,
+                                                            cluster=c))
+            ms_bar = graph_ms(torch, lambda: ld.lbfgs_direction(
+                *args, cluster=c, cluster_barrier=True))
+            print(f"  time  lbfgs_direction float32 B={b} m={m} at C={c} "
+                  f"({p.threads} threads, {p.smem} B): kernel {ms:.6f} ms "
+                  f"(roofline share {bms / ms:.4f}), with barrier.cluster "
+                  f"{ms_bar:.6f} ms [{card}]", flush=True)
     return rows
 
 

@@ -39,6 +39,10 @@ def params_from_dict(data: dict) -> FisheyeParams:
 
 
 def _polyval_ascending(coeffs: torch.Tensor, x: torch.Tensor):
+    """sum_i coeffs[i] x**i by Horner, in the promoted dtype of the two:
+    float32 coefficients lift a bf16 x to float32, as the JAX package's
+    non-weak coefficient scalars do."""
+    x = x.to(torch.promote_types(x.dtype, coeffs.dtype))
     out = torch.zeros_like(x)
     for c in coeffs.flip(0):
         out = out * x + c
@@ -48,11 +52,17 @@ def _polyval_ascending(coeffs: torch.Tensor, x: torch.Tensor):
 def world2camera(params: FisheyeParams, points3d: torch.Tensor):
     """Project camera-space points (..., 3) to fisheye pixels (..., 2):
     theta = atan(-z / ||xy||), rho = poly_w2c(theta), scale the unit xy
-    direction.  ||xy|| is clamped at 1e-9 to stay finite."""
+    direction.  ||xy|| is clamped at 1e-9 to stay finite, and its
+    gradient on the optical axis (x = y = 0) is 0, where the JAX package's
+    sqrt gives NaN: a bf16 decode can put a joint exactly there."""
     x = points3d[..., 0]
     y = points3d[..., 1]
     z = -points3d[..., 2]
-    safe_norm = torch.sqrt(x * x + y * y).clamp_min(1e-9)
+    sq = x * x + y * y
+    axis = sq == 0
+    norm = torch.where(axis, torch.zeros_like(sq),
+                       torch.sqrt(torch.where(axis, torch.ones_like(sq), sq)))
+    safe_norm = norm.clamp_min(1e-9)
     theta = torch.atan(z / safe_norm)
     inv = _polyval_ascending(params.poly_w2c, theta) / safe_norm
     return torch.stack([x * inv + params.center[0],

@@ -265,15 +265,24 @@ class SequenceOptimizer:
     def run(self, chunk: TestChunk, with_metrics: bool = True):
         """Optimise one chunk (`optimize_chunk`) and optionally evaluate
         it.  Returns (errors | None, estimated, mid_local, optimized, gt)
-        as numpy, the tuple of the reference's `optimizer.main`."""
+        as numpy, the tuple of the reference's `optimizer.main`, at every
+        tier.  A bf16 field (mid_local, at the tiers whose output decode
+        is bf16) is widened to float32, which is exact: numpy has no
+        bf16, and the JAX package's bf16 arrays need `ml_dtypes`."""
         res = self.optimize_chunk(chunk)
         errors = None
         if with_metrics:
-            errors = {k: v.cpu().numpy() for k, v in calculate_errors(
+            errors = {k: _numpy(v) for k, v in calculate_errors(
                 res.estimated, res.mid, res.optimized, res.gt).items()}
-        return (errors, res.estimated.cpu().numpy(),
-                res.mid_local.cpu().numpy(), res.optimized.cpu().numpy(),
-                res.gt.cpu().numpy())
+        return (errors, _numpy(res.estimated), _numpy(res.mid_local),
+                _numpy(res.optimized), _numpy(res.gt))
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host, bf16 widened to float32."""
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.cpu().numpy()
 
 
 def _regression_tripwire(errors: dict) -> None:

@@ -13,6 +13,7 @@ crop-mass guard measured on raw maps."""
 from dataclasses import replace
 
 import numpy as np
+import torch
 import pytest
 
 from globalegomocap_tpu.data.synthetic import synthetic_chunk_v2
@@ -131,3 +132,42 @@ def test_pallas_direction_on_the_cpu_is_the_two_loop(inputs):
                                          device="cpu")
         out.append(topt.run(port_chunk(c), with_metrics=False)[3])
     np.testing.assert_array_equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("tier", ["bfloat16_f32head", "bfloat16_pure"])
+def test_run_at_bf16_tiers_matches_jax(inputs, tier):
+    """`run` with the direction kernel at the tiers whose output decode
+    is bf16 (and, at bfloat16_pure, whose solver state is bf16), held as
+    tests/test_torch_bf16_tiers.py holds the tiers: one iteration per
+    stage, the JAX `run`'s shapes, finite, the 17 metrics within 5 %;
+    the bf16 field (mid_local, as in JAX) comes back as float32 numpy,
+    equal to the port's own tensor widened.  At 2+1 iterations the bf16
+    line search branches on rounding, as that file records: mid_local
+    then differs by up to 0.23 m and one metric by 7.4 %, where at 1+1
+    every field agrees to 5e-4 m.  The JAX side runs its plain two-loop
+    (`pallas_direction` off, the same function), as `dense` stands for
+    `pallas` sampling."""
+    v, sd, c = inputs
+    knobs = dict(max_iter=1, global_max_iter=1, compute_dtype=tier)
+    jc = chunk_config(jcfg, "dense", **knobs)
+    tc = chunk_config(tcfg, "pallas", **knobs)
+    tc = replace(tc, solver=replace(tc.solver, pallas_direction=True))
+    jerr, *jf = jdriver.SequenceOptimizer(jdriver.build_model(jc), v, v,
+                                          jc).run(c)
+    topt = tdriver.SequenceOptimizer(tdriver.build_model(tc), sd, sd, tc,
+                                     device="cpu")
+    solved = []
+    solve = topt.optimize_chunk
+    topt.optimize_chunk = lambda ch: solved.append(solve(ch)) or solved[-1]
+    terr, *tf = topt.run(port_chunk(c))
+    res = solved[0]
+    names = ("estimated", "mid_local", "optimized", "gt")
+    assert res.mid_local.dtype == torch.bfloat16
+    for name, a, b in zip(names, tf, jf):
+        assert a.shape == np.asarray(b).shape == (26, 15, 3), name
+        assert a.dtype == np.float32 and np.isfinite(a).all(), name
+        np.testing.assert_array_equal(
+            a, getattr(res, name).to(torch.float32).numpy(), err_msg=name)
+    for key in METRIC_KEYS[:17]:
+        a, b = float(terr[key]), float(jerr[key])
+        assert abs(a - b) <= 0.05 * abs(b), (tier, key, a, b)

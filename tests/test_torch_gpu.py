@@ -95,11 +95,25 @@ def test_heatmap_sample_matches_plain_version(gen, dtype, r, n):
     assert ok, msg
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [2, 10, 25])
 @pytest.mark.parametrize("b", [12, 13])
-def test_lbfgs_direction_matches_plain_version(gen, m, b):
-    ok, msg, _ = chip_smoke.compare_direction(torch, ld, cb, b, m, gen)
+def test_lbfgs_direction_matches_plain_version(gen, m, b, dtype):
+    ok, msg, _ = chip_smoke.compare_direction(torch, ld, cb, b, m, gen,
+                                              dtype)
     assert ok, msg
+
+
+def test_lbfgs_direction_raises_for_a_cluster_the_card_cannot_hold(gen):
+    """32 CTAs a lane split d = 2048 into 16-byte slices that fit, but
+    Hopper schedules clusters of at most 16: the wrapper raises, naming
+    the shape and the cluster, and launches nothing in its place."""
+    args = chip_smoke.direction_inputs(3, 4, 2048, gen, torch)
+    cb.reset_launches()
+    with pytest.raises(RuntimeError, match="cannot schedule a cluster of "
+                                           "32 CTAs .* B=3, m=4, d=2048"):
+        ld.lbfgs_direction(*args, cluster=32)
+    assert cb.LAUNCHES["lbfgs_direction"] == 0
 
 
 def test_heatmap_sample_counter_and_backward(gen):

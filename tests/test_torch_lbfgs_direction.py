@@ -1,10 +1,11 @@
 """The port's L-BFGS direction (`ops/lbfgs_direction.py`, plain version on
 the CPU) against the JAX package's `lbfgs_direction_pallas` (under
 `vmap`) and `lbfgs_direction_pallas_batched`, both in interpret mode,
-with the tolerances of tests/test_lbfgs_fixed.py:195-287 (rtol 1e-4,
-atol 1e-5); and the port's per-lane `lbfgs_minimize_fixed` against the
-JAX solver under `vmap`, with fused probes and the direction kernel each
-on and off."""
+in float32 with the tolerances of tests/test_lbfgs_fixed.py:195-287
+(rtol 1e-4, atol 1e-5) and in bf16; the port's per-lane
+`lbfgs_minimize_fixed` against the JAX solver under `vmap`, with fused
+probes and the direction kernel each on and off, and on a bf16 state;
+and the kernel's launch plan (`plan`), which needs no card."""
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from globalegomocap_tpu.ops.pallas.lbfgs_direction import (
 from globalegomocap_tpu.optimize import lbfgs as jl
 from globalegomocap_tpu_torch.ops import cuda_build
 from globalegomocap_tpu_torch.ops.lbfgs_direction import (
-    lbfgs_direction, two_loop_direction)
+    lbfgs_direction, plan as lbfgs_plan, smem_bytes, two_loop_direction)
 from globalegomocap_tpu_torch.optimize import lbfgs as tl
 
 D = 32
@@ -47,16 +48,41 @@ def _history(b, m, seed):
     return g, s, y, rho, valid
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m", [1, 2, 10, 25])
 @pytest.mark.parametrize("b", [5, 13])
-def test_direction_matches_pallas_kernels(m, b):
+def test_direction_matches_pallas_kernels(m, b, dtype):
+    """float32: the JAX tolerances above.  bfloat16: grad, s, y and rho in
+    bf16 on both sides, as the solver's bf16 state hands them over; the
+    JAX kernel sums bf16 products with bf16 reductions, the port exact
+    products in float32 (`jnp.dot`'s semantics), and both round every
+    other step to bf16's 8 significand bits, so max|d_bf16 - d_jax| <=
+    2e-2 max|d_f32| (7.8e-3 measured on these inputs)."""
     args = _history(b, m, seed=m * 100 + b)
-    jargs = tuple(jnp.asarray(a) for a in args)
-    t = two_loop_direction(*(torch.from_numpy(a) for a in args)).numpy()
-    via_vmap = np.asarray(jax.vmap(lbfgs_direction_pallas)(*jargs))
-    batched = np.asarray(lbfgs_direction_pallas_batched(*jargs))
-    np.testing.assert_allclose(t, via_vmap, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(t, batched, rtol=1e-4, atol=1e-5)
+    if dtype == "float32":
+        jargs = tuple(jnp.asarray(a) for a in args)
+        t = two_loop_direction(*(torch.from_numpy(a) for a in args)).numpy()
+        via_vmap = np.asarray(jax.vmap(lbfgs_direction_pallas)(*jargs))
+        batched = np.asarray(lbfgs_direction_pallas_batched(*jargs))
+        np.testing.assert_allclose(t, via_vmap, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t, batched, rtol=1e-4, atol=1e-5)
+        assert np.isfinite(t).all()
+        return
+    scale = np.abs(two_loop_direction(
+        *(torch.from_numpy(a) for a in args)).numpy()).max()
+    jargs = tuple(jnp.asarray(a, jnp.bfloat16) if a.dtype == np.float32
+                  else jnp.asarray(a) for a in args)
+    targs = tuple(torch.from_numpy(a).to(torch.bfloat16)
+                  if a.dtype == np.float32 else torch.from_numpy(a)
+                  for a in args)
+    out = lbfgs_direction(*targs)
+    assert out.dtype == torch.bfloat16
+    t = out.to(torch.float32).numpy()
+    for ref in (jax.vmap(lbfgs_direction_pallas)(*jargs),
+                lbfgs_direction_pallas_batched(*jargs)):
+        assert ref.dtype == jnp.bfloat16
+        err = np.abs(t - np.asarray(ref, np.float32)).max()
+        assert err <= 2e-2 * scale, (err, scale)
     assert np.isfinite(t).all()
 
 
@@ -74,6 +100,59 @@ def test_wrapper_on_cpu_is_the_plain_version():
     bad[2] = args[2][:, :5].contiguous()
     with pytest.raises(ValueError, match="y_hist"):
         lbfgs_direction(*bad)
+
+
+def test_wrapper_takes_one_float_dtype():
+    """float32 or bfloat16 for grad, s, y and rho, all four alike; the
+    direction comes back in that dtype."""
+    args = tuple(torch.from_numpy(a) for a in _history(7, 10, seed=2))
+    bf = tuple(x.to(torch.bfloat16) if x.is_floating_point() else x
+               for x in args)
+    out = lbfgs_direction(*bf)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.to(torch.float32).numpy(),
+                                  two_loop_direction(*bf).float().numpy())
+    # grad sets the dtype; the first argument that differs is named
+    for i, name in ((0, "s_hist"), (1, "s_hist"), (2, "y_hist"),
+                    (3, "rho_hist")):
+        mixed = list(bf)
+        mixed[i] = args[i]
+        with pytest.raises(TypeError, match=name):
+            lbfgs_direction(*mixed)
+    with pytest.raises(TypeError, match="grad"):
+        lbfgs_direction(*(x.half() if x.is_floating_point() else x
+                          for x in args))
+
+
+@pytest.mark.parametrize("b,m,elem,d,cluster,threads", [
+    (12, 25, 4, 2048, 2, 128),    # path A: 417 KB at C = 1 does not fit
+    (13, 25, 2, 2048, 2, 128),
+    (192, 10, 4, 2048, 2, 128),   # C = 1 fits, but needs 256 threads
+    (192, 2, 4, 2048, 2, 128),
+    (3, 4, 4, 64, 1, 32),
+    (12, 2, 4, 32768, 16, 256),   # no fit within 128 threads
+])
+def test_plan_fits_shared_memory_with_few_threads(b, m, elem, d, cluster,
+                                                  threads):
+    """The launch plan on an H100 (232,448 bytes of shared memory a block
+    may opt into): the smallest cluster whose slice fits in at most 128
+    threads (one warp per scheduler), else the largest that fits."""
+    p = lbfgs_plan(b, m, d, elem, 232448)
+    assert (p.cluster, p.threads) == (cluster, threads)
+    slice_ = d // cluster
+    assert slice_ * elem % 16 == 0 and slice_ <= 8 * threads
+    assert p.smem == smem_bytes(elem, m, slice_, cluster * threads // 32)
+    assert elem * slice_ * (2 * m + 1) <= p.smem <= 232448
+
+
+def test_plan_raises_where_nothing_fits():
+    with pytest.raises(ValueError, match="B=12, m=25, d=2050"):
+        lbfgs_plan(12, 25, 2050, 4, 232448)   # no 16-byte slices
+    with pytest.raises(ValueError, match="m=2000"):
+        lbfgs_plan(12, 2000, 2048, 4, 232448)  # too many slots
+    with pytest.raises(ValueError, match="cluster of 3"):
+        lbfgs_plan(12, 25, 2048, 4, 232448, cluster=3)
+    assert lbfgs_plan(12, 25, 2048, 4, 232448, cluster=8).cluster == 8
 
 
 B = 6
@@ -123,6 +202,49 @@ def test_minimize_fixed_matches_jax_under_vmap(fused_probes,
                                atol=1e-5)
     k = len(kw["step_candidates"])
     assert res.n_evals == (6 * k + 1 if fused_probes else 6 * (k + 1) + 1)
+
+
+def test_minimize_fixed_bf16_state_matches_jax_under_vmap():
+    """A bf16 x0 keeps the solver state, and the direction kernel's
+    inputs, in bf16 on both sides.  bf16 rounds at other places in the
+    two frameworks (the JAX kernel's bf16 reductions, `jnp.dot` against
+    the port's float32 sums), and the line search branches on that
+    rounding in the first iterations, so the two are held where they
+    end: on well-conditioned quadratics both reach the minimiser within
+    bf16's resolution after 8 iterations (|dx| <= 5.2e-3 (1 + |x|) and
+    |df| <= 1.6e-4 measured over three seeds), held at 2e-2 (1 + |x|) and
+    1e-3 (1 + |f|)."""
+    rng = np.random.default_rng(7)
+    sym = rng.normal(size=(B, D, D))
+    a = (np.eye(D) + 0.05 * (sym + sym.transpose(0, 2, 1))
+         / np.sqrt(D)).astype(np.float32)
+    rhs = rng.normal(size=(B, D)).astype(np.float32)
+    x0 = rng.normal(scale=0.5, size=(B, D)).astype(np.float32)
+    kw = dict(max_iter=8, history_size=4, lr=2.0,
+              step_candidates=(1.0, 0.5, 0.1, 0.02), pallas_direction=True)
+
+    def jsolve(x, am, bm):
+        def loss(v):
+            v = v.astype(jnp.float32)
+            return 0.5 * v @ am @ v - bm @ v
+        r = jl.lbfgs_minimize_fixed(loss, x, **kw)
+        return r.x, r.f
+    jx, jf = jax.vmap(jsolve)(jnp.asarray(x0, jnp.bfloat16), jnp.asarray(a),
+                              jnp.asarray(rhs))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(rhs)
+
+    def tloss(v):
+        v = v.to(torch.float32)
+        return (0.5 * torch.einsum("...bi,bij,...bj->...b", v, ta, v)
+                - torch.einsum("bi,...bi->...b", tb, v))
+    res = tl.lbfgs_minimize_fixed(tloss, torch.from_numpy(x0).to(
+        torch.bfloat16), **kw)
+    assert res.x.dtype == torch.bfloat16 and jx.dtype == jnp.bfloat16
+    jx, jf = np.asarray(jx, np.float32), np.asarray(jf)
+    np.testing.assert_array_less(
+        np.abs(res.x.to(torch.float32).numpy() - jx), 2e-2 * (1 + np.abs(jx)))
+    np.testing.assert_array_less(np.abs(res.f.numpy() - jf),
+                                 1e-3 * (1 + np.abs(jf)))
 
 
 def test_fused_probes_off_calls_the_loss_as_the_jax_solver_does():

@@ -3,6 +3,7 @@ numpy inputs (rtol 1e-5, atol 1e-6)."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -67,6 +68,28 @@ def test_fisheye_tables_and_projection(name):
     p[0, 0, 0, :2] = 0.0                  # on the optical axis: clamped
     _close(tfish.world2camera(tc, torch.from_numpy(p)),
            jfish.world2camera(jc, jnp.asarray(p)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fisheye_gradient_is_finite_on_the_optical_axis(dtype):
+    """A joint exactly on the axis (x = y = 0, as a bf16 decode can give):
+    the projection equals the JAX package's, and its gradient is finite,
+    where the JAX package's sqrt gives NaN (the other points' gradients
+    agree)."""
+    jc, tc = jfish.default_camera("egosyn"), tfish.default_camera("egosyn")
+    p = np.array([[0.0, 0.0, 0.5], [0.1, -0.2, 0.6]], np.float32)
+    x = torch.from_numpy(p).to(dtype).requires_grad_(True)
+    out = tfish.world2camera(tc, x)
+    (g,) = torch.autograd.grad(out.float().sum(), x)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jp = jnp.asarray(p, jdt)
+    _close(out.detach().float(), jfish.world2camera(jc, jp).astype(
+        jnp.float32))
+    jg = np.asarray(jax.grad(lambda v: jfish.world2camera(jc, v).astype(
+        jnp.float32).sum())(jp), np.float32)
+    assert np.isnan(jg[0, :2]).all() and torch.isfinite(g).all()
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=0)
+    _close(g[1:].float(), jg[1:], **tol)
 
 
 def test_transforms():
