@@ -44,7 +44,9 @@ Phases (any failure exits non-zero and prints no result line):
               the launch counts each run predicts, no failed chunk, a
               shadow run and a plain-version run (metrics within 1 %),
               and the library run at bfloat16_pure (bf16 solver state
-              into the direction kernel: its launches, finite metrics).
+              into the direction kernel: its launches, finite metrics,
+              and per chunk the projected joints that fell exactly on
+              the camera axis beside the chunk's MPJPE at each stage).
 3e. path B  - serve's full-map guard fallback: one 16-chunk sequence with
               --sampling pallas --guard_crop 0 and a crop-mass bar no map
               meets; full maps staged, the robust tier, the launch counts
@@ -68,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
               F.grid_sample's; kernel 5 beside the fused and the unfused
               (cuDNN/cuBLAS decode + kernel 1) stage-1 eval, and at
               1,200 rows; the direction's cluster size C beside each of
-              its times, and each C with either partial-sum exchange.
+              its times.
 
 The last lines are a {"kernels": [...]} record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Needs one CUDA card; exits 2
@@ -437,7 +439,7 @@ def direction_inputs(b, m, d, gen, torch, dtype=None):
 
 def compare_direction(torch, ld, cb, b, m, gen, dtype=None):
     args = direction_inputs(b, m, LATENT, gen, torch, dtype)
-    p = ld.launch_plan(b, m, LATENT, args[0].dtype, args[0].device)
+    p = ld.plan(b, m, LATENT, args[0].dtype, args[0].device)
     out_k = ld.lbfgs_direction(*args)
     with cb.plain_versions_on_cuda():
         out_p = ld.lbfgs_direction(*args)
@@ -760,6 +762,7 @@ def path_a_phase(torch, seed, dev, fails, card, work,
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.evaluation.metrics import METRIC_KEYS
     from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import fisheye
     from globalegomocap_tpu_torch.ops import heatmap_sample as hs
     from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
     from globalegomocap_tpu_torch.optimize.driver import (
@@ -814,7 +817,7 @@ def path_a_phase(torch, seed, dev, fails, card, work,
                             load_state(global_ckpt), cfg, device=dev)
     expect["lbfgs_direction"] = n_chunks * (it1 + it2)
     cb.reset_launches()                        # 2. the library, the main run
-    _, avg, timing = optimize_sequence_dir(opt, seq, verbose=False)
+    errs, avg, timing = optimize_sequence_dir(opt, seq, verbose=False)
     sync()
     launches = dict(cb.LAUNCHES)
     print(f"  library run with pallas_direction: launches {launches}, "
@@ -848,14 +851,38 @@ def path_a_phase(torch, seed, dev, fails, card, work,
                 f"plain versions")
 
     # 5. bfloat16_pure: the solver state, and so the direction kernel's
-    # inputs, in bf16
+    # inputs, in bf16.  A bf16 decode can put a joint exactly on the
+    # camera axis, where the projection's gradient is 0: count such
+    # projected joints per chunk, and print each chunk's global MPJPE
+    # before, between and after the stages beside the float32 run's
     cfg16 = replace(cfg, compute_dtype="bfloat16_pure")
     opt16 = SequenceOptimizer(build_model(cfg16), load_state(local_ckpt),
                               load_state(global_ckpt), cfg16, device=dev)
+    project, run16, on_axis = fisheye.world2camera, opt16.run, []
+
+    def counted(params, pts):
+        on_axis[-1] += ((pts[..., 0] == 0) & (pts[..., 1] == 0)).sum()
+        return project(params, pts)
+
+    def run(chunk):
+        on_axis.append(torch.zeros((), dtype=torch.int64, device=dev))
+        return run16(chunk)
+    opt16.run, fisheye.world2camera = run, counted
     cb.reset_launches()
-    _, avg16, t16 = optimize_sequence_dir(opt16, seq, verbose=False)
+    try:
+        errs16, avg16, t16 = optimize_sequence_dir(opt16, seq, verbose=False)
+    finally:
+        fisheye.world2camera = project
+        del opt16.run
     sync()
     l16 = dict(cb.LAUNCHES)
+    keys = ("original_global_mpjpe", "mid_global_mpjpe",
+            "optimized_global_mpjpe")
+    for i, (e16, e32) in enumerate(zip(errs16, errs)):
+        print(f"  bfloat16_pure chunk {i}: {int(on_axis[i])} projected "
+              f"joints on the camera axis; global MPJPE original, mid, "
+              f"optimized {[float(e16[k]) for k in keys]} (float32: "
+              f"{[float(e32[k]) for k in keys]})", flush=True)
     print(f"  library run at bfloat16_pure with pallas_direction: launches "
           f"{l16}, {t16['per_chunk_s'] * 1e3:.3f} ms per chunk [{card}]",
           flush=True)
@@ -1241,9 +1268,8 @@ def timing_new(torch, hs, ld, cb, seed, card):
     beside F.grid_sample on the same points (float32 maps of shape
     (N, 1, 64, 64), grid (N, 1, R, 2): the library yardstick, never
     called by the port), and the direction at path A's (12 lanes, m=25,
-    float32 and bf16) and the kernel phase's B=192 shapes, then at each
-    cluster size the kernel takes at path A's and the B=192, m=10
-    shapes.  Each bound counts the bytes these inputs need
+    float32 and bf16) and the kernel phase's B=192 shapes, each at the
+    cluster size `plan` takes.  Each bound counts the bytes these inputs need
     (`sampler_map_bytes`, `direction_bound`).  Returns {name: (ms,
     plain_ms, bound_ms, bound_by, library_ms)} at path A's shapes."""
     F = torch.nn.functional
@@ -1289,7 +1315,7 @@ def timing_new(torch, hs, ld, cb, seed, card):
     for b, m, dtype in ((WINDOWS_PER_CHUNK, 25, f32), (192, 10, f32),
                         (192, 2, f32), (WINDOWS_PER_CHUNK, 25, bf16)):
         args = direction_inputs(b, m, LATENT, gen, torch, dtype)
-        p = ld.launch_plan(b, m, LATENT, dtype, args[0].device)
+        p = ld.plan(b, m, LATENT, dtype, args[0].device)
         fn = lambda: ld.lbfgs_direction(*args)  # noqa: E731
         ms = graph_ms(torch, fn)
         with cb.plain_versions_on_cuda():
@@ -1304,24 +1330,6 @@ def timing_new(torch, hs, ld, cb, seed, card):
               f"({by}), roofline share {bms / ms:.4f}, plain version "
               f"{plain:.6f} ms [{card}]", flush=True)
         rows.setdefault("lbfgs_direction", (ms, plain, bms, by, None))
-    # the design's choices: every cluster size, and partial sums exchanged
-    # through barrier.cluster instead of the mbarriers
-    for b, m in ((WINDOWS_PER_CHUNK, 25), (192, 10)):
-        args = direction_inputs(b, m, LATENT, gen, torch)
-        bms, _ = direction_bound(b, m, LATENT, int(args[4].sum()))
-        for c in ld.CLUSTERS:
-            try:
-                p = ld.launch_plan(b, m, LATENT, f32, args[0].device, c)
-            except ValueError:            # this slice does not fit
-                continue
-            ms = graph_ms(torch, lambda: ld.lbfgs_direction(*args,
-                                                            cluster=c))
-            ms_bar = graph_ms(torch, lambda: ld.lbfgs_direction(
-                *args, cluster=c, cluster_barrier=True))
-            print(f"  time  lbfgs_direction float32 B={b} m={m} at C={c} "
-                  f"({p.threads} threads, {p.smem} B): kernel {ms:.6f} ms "
-                  f"(roofline share {bms / ms:.4f}), with barrier.cluster "
-                  f"{ms_bar:.6f} ms [{card}]", flush=True)
     return rows
 
 

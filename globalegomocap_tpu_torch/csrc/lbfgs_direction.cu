@@ -30,11 +30,16 @@
 // the number of steps.
 //
 // Design:
-// - A cluster of C CTAs per lane (C chosen on the host,
-//   ops/lbfgs_direction.py::plan: the smallest C whose slice fits shared
-//   memory with at most 128 threads, one warp per scheduler; C = 2 at
-//   d = 2048).  CTA `rank` owns the contiguous slice
-//   [rank * slice, (rank + 1) * slice) of the d elements, slice = d / C.
+// - A cluster of C CTAs per lane (C chosen on the host by `plan` below:
+//   the smallest C whose slice fits shared memory with at most 128
+//   threads, one warp per scheduler; C = 2 at d = 2048).  The slice must
+//   be a whole number of 16-byte rows (the bulk copies' unit) and at
+//   most kMaxThreads * kPerThread = 2048 elements, and the CTA's shared
+//   memory (`smem_bytes`, about (2 m + 1) slice elements) at most the
+//   card's opt-in limit: so d * element size is a multiple of 16,
+//   d <= 32768, and m <= 221 at d = 2048 in float32 (434 in bf16).  CTA
+//   `rank` owns the contiguous slice [rank * slice, (rank + 1) * slice)
+//   of the d elements, slice = d / C.
 // - At entry warp 0 copies the slice of g and of every valid slot of s and
 //   y into dynamic shared memory with bulk copies (cp.async.bulk, the TMA's
 //   1-D form), newest slot first, each slot completing on its own
@@ -55,8 +60,7 @@
 //   t + 2's partials only after it has every CTA's step t + 1 partials,
 //   which each CTA computes after reading step t's.  (barrier.cluster
 //   with release/acquire in place of the mbarriers, one barrier a step,
-//   is the `kBarrier` instantiation, kept for timing: on an H100 it ran
-//   1.5-1.9x slower at the solver's shapes; chip_smoke.py times both.)
+//   ran 1.5-1.9x slower on an H100 at the solver's shapes.)
 // - s.y and y.y of the newest pair do not depend on q: they are reduced in
 //   the same step as s_{m-1} . g.  An invalid slot costs no step: every
 //   CTA walks the same list of valid slots.
@@ -71,6 +75,8 @@ namespace {
 
 constexpr int kPerThread = 8;     // slice elements a thread owns, at most
 constexpr int kMaxThreads = 256;
+constexpr int kBestThreads = 128;  // one warp for each of four schedulers
+constexpr int kClusters[] = {1, 2, 4, 8, 16};  // 16: non-portable maximum
 
 // element type traits: load as float, round a float result to the type
 template <typename T>
@@ -154,14 +160,9 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   return out;
 }
 
-__device__ __forceinline__ void store_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
 // a barrier of every thread of every CTA of the cluster, in two halves;
-// orders the shared-memory stores before the arrival (release) against
-// the loads after the wait (acquire)
+// orders the shared-memory writes before the arrival (release) against
+// the accesses after the wait (acquire)
 __device__ __forceinline__ void cluster_arrive() {
   __syncwarp();  // the .aligned forms want the warp converged
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
@@ -231,8 +232,7 @@ __device__ __forceinline__ void store_async(uint32_t addr, float v,
 // slice, the s and y slices (m, slice) of type T, the partial sums
 // float[2 parities][3 values][padded parts], the mbarriers (g, m slots,
 // 2 exchange parities), alpha and rho as float (m), the valid slots'
-// indices and their count (m + 1 ints), valid (m bytes).  ops/lbfgs_direction.py's
-// `smem_bytes` repeats the size.
+// indices and their count (m + 1 ints), valid (m bytes).
 __host__ __device__ inline int padded_parts(int parts) {
   return (parts + 3) / 4 * 4;
 }
@@ -249,12 +249,10 @@ __host__ __device__ inline size_t smem_bytes(int elem, int m, int slice,
 // The cluster-wide sums of N values per thread: `send`, then `finish`,
 // with independent work (the next step's loads) between the two.  Each
 // warp reduces with shuffles; lane j < C sends the warp's sums to slot
-// `slot` of CTA j's partials of this parity; every CTA then adds its
-// `parts` slots in the same fixed order.  kBarrier: plain remote stores
-// and one barrier.cluster (release/acquire) a step; else st.async stores
-// that complete on the receiving CTA's exchange mbarrier of this parity,
-// which its thread 0 arms for the bytes it expects.
-template <bool kBarrier>
+// `slot` of CTA j's partials of this parity with st.async stores that
+// complete on CTA j's exchange mbarrier of this parity, which its thread
+// 0 arms for the bytes it expects; every CTA then adds its `parts` slots
+// in the same fixed order.
 struct Exchange {
   float* part;        // [2][3][pp]
   uint64_t* bar;      // [2]
@@ -271,28 +269,17 @@ struct Exchange {
     if (lane < cluster) {
       const uint32_t rb = map_rank(smem_addr(bar + parity), lane);
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const uint32_t at = map_rank(smem_addr(mine + n * pp + slot), lane);
-        if (kBarrier)
-          store_cluster(at, v[n]);
-        else
-          store_async(at, v[n], rb);
-      }
+      for (int n = 0; n < N; ++n)
+        store_async(map_rank(smem_addr(mine + n * pp + slot), lane), v[n],
+                    rb);
     }
-    if (kBarrier)
-      cluster_arrive();
-    else if (threadIdx.x == 0)
-      mbar_expect(smem_addr(bar + parity), 4 * N * parts);
+    if (threadIdx.x == 0) mbar_expect(smem_addr(bar + parity), 4 * N * parts);
   }
 
   template <int N>
   __device__ __forceinline__ void finish(float* v) {
-    if (kBarrier) {
-      cluster_wait();
-    } else {
-      mbar_wait(smem_addr(bar + parity), (phase >> parity) & 1u);
-      phase ^= 1u << parity;
-    }
+    mbar_wait(smem_addr(bar + parity), (phase >> parity) & 1u);
+    phase ^= 1u << parity;
     const float* mine = part + parity * 3 * pp;
 #pragma unroll
     for (int n = 0; n < N; ++n) {
@@ -319,7 +306,7 @@ __device__ __forceinline__ void load_slice(float (&v)[kPerThread],
   }
 }
 
-template <typename T, bool kBarrier>
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     lbfgs_direction_kernel(const T* __restrict__ g, const T* __restrict__ s,
                            const T* __restrict__ y,
@@ -397,8 +384,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   cluster_arrive();
   cluster_wait();
   const int n_valid = idx[m];
-  Exchange<kBarrier> x{part, xbar, pp, parts, rank * warps + (tid >> 5),
-                       cluster, 0u, 0};
+  Exchange x{part, xbar, pp, parts, rank * warps + (tid >> 5), cluster, 0u,
+             0};
 
   float q[kPerThread], sv[kPerThread], yv[kPerThread];
   float sn[kPerThread], yn[kPerThread];  // the next step's s, y
@@ -507,21 +494,35 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// the shared memory a block of the current card may opt into
+cudaError_t smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return e;
+}
+
+// threads for a slice: kPerThread elements each, whole warps
+int threads_for(int slice) {
+  const int per_warp = 32 * kPerThread;
+  const int warps = (slice + per_warp - 1) / per_warp;
+  return 32 * (warps > 1 ? warps : 1);
+}
+
 // the opt-in shared-memory limit and 16-CTA clusters, once per kernel
-template <typename T, bool kBarrier>
+template <typename T>
 cudaError_t prepare() {
   static const cudaError_t err = [] {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    int optin = 0;
+    cudaError_t e = smem_optin(&optin);
     if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(lbfgs_direction_kernel<T, kBarrier>,
+      e = cudaFuncSetAttribute(lbfgs_direction_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(lbfgs_direction_kernel<T, kBarrier>,
+      e = cudaFuncSetAttribute(lbfgs_direction_kernel<T>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     return e;
@@ -532,19 +533,18 @@ cudaError_t prepare() {
 // the launch configuration, or an error for one the kernel cannot take
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int elem, int B, int m, int d, int cluster,
-                      int threads, int smem, cudaStream_t stream) {
+                      int threads, cudaStream_t stream) {
   if (cluster < 1 || d % cluster != 0 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
   const int slice = d / cluster;
-  if ((slice * elem) % 16 != 0 || slice > threads * kPerThread ||
-      static_cast<size_t>(smem) <
-          smem_bytes(elem, m, slice, cluster * (threads / 32)))
+  if ((slice * elem) % 16 != 0 || slice > threads * kPerThread)
     return cudaErrorInvalidValue;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(static_cast<unsigned>(B) * cluster);
   cfg->blockDim = dim3(threads);
-  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->dynamicSmemBytes =
+      smem_bytes(elem, m, slice, cluster * (threads / 32));
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -555,18 +555,18 @@ cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   return cudaSuccess;
 }
 
-template <typename T, bool kBarrier>
+template <typename T>
 int launch(const void* g, const void* s, const void* y, const void* rho,
            const void* valid, void* out, int B, int m, int d, int cluster,
-           int threads, int smem, void* stream) {
-  cudaError_t e = prepare<T, kBarrier>();
+           int threads, void* stream) {
+  cudaError_t e = prepare<T>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  e = configure(&cfg, &attr, sizeof(T), B, m, d, cluster, threads, smem,
+  e = configure(&cfg, &attr, sizeof(T), B, m, d, cluster, threads,
                 static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaLaunchKernelEx(&cfg, lbfgs_direction_kernel<T, kBarrier>,
+  e = cudaLaunchKernelEx(&cfg, lbfgs_direction_kernel<T>,
                          static_cast<const T*>(g), static_cast<const T*>(s),
                          static_cast<const T*>(y),
                          static_cast<const T*>(rho),
@@ -576,18 +576,16 @@ int launch(const void* g, const void* s, const void* y, const void* rho,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBarrier>
-int max_clusters(int m, int d, int cluster, int threads, int smem,
-                 int* count) {
+template <typename T>
+int max_clusters(int m, int d, int cluster, int threads, int* count) {
   *count = 0;
-  cudaError_t e = prepare<T, kBarrier>();
+  cudaError_t e = prepare<T>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  e = configure(&cfg, &attr, sizeof(T), 1, m, d, cluster, threads, smem,
-                nullptr);
+  e = configure(&cfg, &attr, sizeof(T), 1, m, d, cluster, threads, nullptr);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveClusters(count, lbfgs_direction_kernel<T, kBarrier>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(count, lbfgs_direction_kernel<T>, &cfg);
   if (e != cudaSuccess) cudaGetLastError();  // not left for the next launch
   return static_cast<int>(e);
 }
@@ -596,43 +594,50 @@ int max_clusters(int m, int d, int cluster, int threads, int smem,
 
 extern "C" {
 
+// The launch for lanes of m slots and d elements of `elem` bytes on the
+// current card: the smallest cluster whose slice fits its shared memory
+// with at most kBestThreads threads a CTA, else the largest that fits
+// (the kernel is latency-bound: one warp per scheduler and few partial
+// sums a step beat covering the SMs, so the lane count does not enter).
+// *cluster = 0 where none fits.  Returns a CUDA error code.
+int lbfgs_direction_plan(int elem, int m, int d, int* cluster, int* threads,
+                         int* smem) {
+  *cluster = *threads = *smem = 0;
+  int optin = 0;
+  const cudaError_t e = smem_optin(&optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (const int c : kClusters) {
+    if (d % c != 0 || (d / c * elem) % 16 != 0) continue;
+    const int slice = d / c, t = threads_for(slice);
+    const size_t need = smem_bytes(elem, m, slice, c * (t / 32));
+    if (t > kMaxThreads || need > static_cast<size_t>(optin)) continue;
+    *cluster = c;
+    *threads = t;
+    *smem = static_cast<int>(need);
+    if (t <= kBestThreads) break;
+  }
+  return 0;
+}
+
 // grad (B, d), s/y (B, m, d), rho (B, m) of one element type (bf16 != 0:
 // __nv_bfloat16, else float); valid (B, m) bytes (0/1); out (B, d).
-// `cluster` CTAs of `threads` threads and `smem` bytes of dynamic shared
-// memory per lane (ops/lbfgs_direction.py::plan); barrier != 0 takes the
-// barrier.cluster exchange instead of the mbarrier one.  Returns
-// cudaGetLastError() after the launch, or the error that refused it.
-int lbfgs_direction_launch(int bf16, int barrier, const void* g,
-                           const void* s, const void* y, const void* rho,
-                           const void* valid, void* out, int B, int m, int d,
-                           int cluster, int threads, int smem, void* stream) {
-  auto* fn = bf16 ? (barrier ? launch<__nv_bfloat16, true>
-                             : launch<__nv_bfloat16, false>)
-                  : (barrier ? launch<float, true> : launch<float, false>);
-  return fn(g, s, y, rho, valid, out, B, m, d, cluster, threads, smem,
-            stream);
+// `cluster` CTAs of `threads` threads per lane, with the shared memory
+// their slice needs.  Returns cudaGetLastError() after the launch, or the
+// error that refused it.
+int lbfgs_direction_launch(int bf16, const void* g, const void* s,
+                           const void* y, const void* rho, const void* valid,
+                           void* out, int B, int m, int d, int cluster,
+                           int threads, void* stream) {
+  auto* fn = bf16 ? launch<__nv_bfloat16> : launch<float>;
+  return fn(g, s, y, rho, valid, out, B, m, d, cluster, threads, stream);
 }
 
 // *count = how many such clusters the card can hold at once
 // (cudaOccupancyMaxActiveClusters); 0 means it cannot schedule one.
-int lbfgs_direction_max_clusters(int bf16, int barrier, int m, int d,
-                                 int cluster, int threads, int smem,
-                                 int* count) {
-  auto* fn = bf16 ? (barrier ? max_clusters<__nv_bfloat16, true>
-                             : max_clusters<__nv_bfloat16, false>)
-                  : (barrier ? max_clusters<float, true>
-                             : max_clusters<float, false>);
-  return fn(m, d, cluster, threads, smem, count);
-}
-
-// the shared memory a block of the current card may opt into
-int lbfgs_direction_smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  return static_cast<int>(e);
+int lbfgs_direction_max_clusters(int bf16, int m, int d, int cluster,
+                                 int threads, int* count) {
+  auto* fn = bf16 ? max_clusters<__nv_bfloat16> : max_clusters<float>;
+  return fn(m, d, cluster, threads, count);
 }
 
 }  // extern "C"

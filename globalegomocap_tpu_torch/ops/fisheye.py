@@ -52,21 +52,23 @@ def _polyval_ascending(coeffs: torch.Tensor, x: torch.Tensor):
 def world2camera(params: FisheyeParams, points3d: torch.Tensor):
     """Project camera-space points (..., 3) to fisheye pixels (..., 2):
     theta = atan(-z / ||xy||), rho = poly_w2c(theta), scale the unit xy
-    direction.  ||xy|| is clamped at 1e-9 to stay finite, and its
-    gradient on the optical axis (x = y = 0) is 0, where the JAX package's
-    sqrt gives NaN: a bf16 decode can put a joint exactly there."""
+    direction, ||xy|| clamped at 1e-9 as in the JAX package.  A point on
+    the optical axis (x = y = 0, as a bf16 decode can give) has no xy
+    direction: it projects to the image centre, as in the JAX package,
+    with a zero gradient, where the JAX package's sqrt gives NaN."""
     x = points3d[..., 0]
     y = points3d[..., 1]
     z = -points3d[..., 2]
-    sq = x * x + y * y
-    axis = sq == 0
-    norm = torch.where(axis, torch.zeros_like(sq),
-                       torch.sqrt(torch.where(axis, torch.ones_like(sq), sq)))
-    safe_norm = norm.clamp_min(1e-9)
+    axis = (x == 0) & (y == 0)
+    one = torch.ones_like(x)
+    x, y = torch.where(axis, one, x), torch.where(axis, one, y)
+    safe_norm = torch.sqrt(x * x + y * y).clamp_min(1e-9)
     theta = torch.atan(z / safe_norm)
     inv = _polyval_ascending(params.poly_w2c, theta) / safe_norm
-    return torch.stack([x * inv + params.center[0],
-                        y * inv + params.center[1]], dim=-1)
+    zero = torch.zeros_like(inv)
+    return torch.stack([torch.where(axis, zero, x * inv) + params.center[0],
+                        torch.where(axis, zero, y * inv) + params.center[1]],
+                       dim=-1)
 
 
 EGOSYN_CALIBRATION = {

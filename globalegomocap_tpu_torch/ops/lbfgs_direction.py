@@ -15,9 +15,13 @@ the kernel is off).  `lbfgs_direction` dispatches: a CUDA tensor launches
 `csrc/lbfgs_direction.cu` (built and bound by `ops/cuda_build.py`) or
 raises; a CPU tensor runs the plain version.  On the card each lane is a
 cluster of C CTAs, each holding a slice of d/C elements of g, s and y in
-shared memory; `plan` picks C, the CTA's threads and its shared memory
-from m, d and the element size, and a cluster the card cannot schedule
-raises.
+shared memory; `plan` (the kernel source's `lbfgs_direction_plan`) picks
+C and the CTA's threads from m, d and the element size, and a cluster
+the card cannot schedule raises.  The slice must be a whole number of
+16-byte rows and at most 2048 elements, and fit the card's shared memory
+with the m slots of s and y: on an H100, d * element size a multiple of
+16, d <= 32768, and m <= 221 at d = 2048 in float32 (434 in bf16).
+Other shapes raise ValueError on the card; the plain version takes any.
 """
 
 from __future__ import annotations
@@ -33,22 +37,14 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _PI = ctypes.POINTER(_CI)
 _SIGNATURES = {
     "lbfgs_direction_launch": (
-        [_CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI,
-         _CI, _VP], _CI),
-    "lbfgs_direction_max_clusters": (
-        [_CI, _CI, _CI, _CI, _CI, _CI, _CI, _PI], _CI),
-    "lbfgs_direction_smem_optin": ([_PI], _CI)}
+        [_CI, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _VP],
+        _CI),
+    "lbfgs_direction_max_clusters": ([_CI, _CI, _CI, _CI, _CI, _PI], _CI),
+    "lbfgs_direction_plan": ([_CI, _CI, _CI, _PI, _PI, _PI], _CI)}
 _DTYPES = (torch.float32, torch.bfloat16)
-# cluster sizes the kernel takes (16 is Hopper's non-portable maximum),
-# slice elements per thread at most, threads per CTA at most and at best
-# (one warp for each of the SM's four schedulers)
-CLUSTERS = (1, 2, 4, 8, 16)
-PER_THREAD = 8
-MAX_THREADS = 256
-BEST_THREADS = 128
-# (device index) -> opt-in shared memory per block; configurations the
-# card was asked about and can schedule
-_SMEM_OPTIN: dict[int, int] = {}
+# (device index, element bytes, m, d) -> Plan; configurations the card was
+# asked about and can schedule
+_PLANS: dict = {}
 _SCHEDULABLE: set = set()
 
 
@@ -64,98 +60,48 @@ class Plan(NamedTuple):
     smem: int
 
 
-def smem_bytes(elem: int, m: int, slice_: int, parts: int) -> int:
-    """Dynamic shared memory of one CTA (csrc/lbfgs_direction.cu's
-    `smem_bytes`): the g, s and y slices; partial sums for 2 parities x 3
-    values x `parts` slots (padded to 4); m + 3 mbarriers; alpha and rho
-    as float; the valid slots' indices and count; valid."""
-    arrays = elem * slice_ * (2 * m + 1)
-    tail = 4 * 6 * (-(-parts // 4) * 4) + 8 * (m + 3) + 12 * m + 4 + m
-    return (arrays + tail + 15) // 16 * 16
-
-
-def _fit(m, d, elem, cluster, smem_optin):
-    """The Plan for this cluster size, or None where the slice is not a
-    whole number of 16-byte rows (the bulk copies' unit), needs more than
-    MAX_THREADS threads or more than `smem_optin` bytes."""
-    if cluster < 1 or d % cluster or (d // cluster * elem) % 16:
-        return None
-    slice_ = d // cluster
-    threads = max(32, -(-slice_ // (32 * PER_THREAD)) * 32)
-    if threads > MAX_THREADS:
-        return None
-    smem = smem_bytes(elem, m, slice_, cluster * threads // 32)
-    return Plan(cluster, threads, smem) if smem <= smem_optin else None
-
-
-def plan(b: int, m: int, d: int, elem: int, smem_optin: int,
-         cluster: int | None = None) -> Plan:
-    """The launch for B lanes of m slots and d elements of `elem` bytes on
-    a card with `smem_optin` bytes of shared memory a block may opt into.
-    C is the smallest cluster whose slice fits in at most BEST_THREADS
-    threads, else the largest that fits; `cluster` asks for one size.
-    The kernel is latency-bound, so B does not enter: on the H100 one
-    warp per scheduler and few partial sums a step beat covering the SMs
-    (chip_smoke.py times every size).  Raises ValueError, naming the
-    shape, where none fits."""
-    shape = f"B={b}, m={m}, d={d}, {elem}-byte elements"
-    if cluster is not None:
-        p = _fit(m, d, elem, cluster, smem_optin)
-        if p is None:
-            raise ValueError(
-                f"lbfgs_direction: {shape}: a cluster of {cluster} CTAs "
-                f"does not split d into 16-byte slices that fit "
-                f"{smem_optin} bytes of shared memory")
-        return p
-    fits = [p for p in (_fit(m, d, elem, c, smem_optin) for c in CLUSTERS)
-            if p is not None]
-    if not fits:
-        raise ValueError(
-            f"lbfgs_direction: {shape}: no cluster of up to {CLUSTERS[-1]} "
-            f"CTAs holds its slice of g, s and y in {smem_optin} bytes of "
-            f"shared memory (d * element size must be a multiple of 16)")
-    return next((p for p in fits if p.threads <= BEST_THREADS), fits[-1])
-
-
-def _smem_optin(dev: torch.device) -> int:
+def plan(b: int, m: int, d: int, dtype: torch.dtype,
+         dev: torch.device) -> Plan:
+    """The launch on CUDA device `dev` for B lanes of m slots and d
+    elements of `dtype`.  Raises ValueError, naming the shape, where no
+    cluster of up to 16 CTAs holds its slice."""
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    if index not in _SMEM_OPTIN:
-        optin = _CI(0)
+    elem = torch.empty((), dtype=dtype).element_size()
+    key = (index, elem, m, d)
+    if key not in _PLANS:
+        out = [_CI(0) for _ in range(3)]
         with torch.cuda.device(index):
-            err = _library().lbfgs_direction_smem_optin(ctypes.byref(optin))
+            err = _library().lbfgs_direction_plan(
+                elem, m, d, *(ctypes.byref(v) for v in out))
         if err != 0:
             raise RuntimeError(f"lbfgs_direction: reading the card's shared "
                                f"memory limit failed with CUDA error {err}")
-        _SMEM_OPTIN[index] = optin.value
-    return _SMEM_OPTIN[index]
+        if out[0].value == 0:
+            raise ValueError(
+                f"lbfgs_direction: B={b}, m={m}, d={d}, {elem}-byte "
+                f"elements: no cluster of up to 16 CTAs holds its slice of "
+                f"g, s and y in the card's shared memory (d * element size "
+                f"must be a multiple of 16)")
+        _PLANS[key] = Plan(*(v.value for v in out))
+    return _PLANS[key]
 
 
-def launch_plan(b: int, m: int, d: int, dtype: torch.dtype,
-                dev: torch.device, cluster: int | None = None) -> Plan:
-    """The Plan a launch on CUDA device `dev` takes for these shapes."""
-    return plan(b, m, d, torch.empty((), dtype=dtype).element_size(),
-                _smem_optin(dev), cluster=cluster)
-
-
-def _check_schedulable(bf16: int, barrier: int, b: int, m: int, d: int,
-                       p: Plan) -> None:
+def _check_schedulable(bf16: int, b: int, m: int, d: int, p: Plan) -> None:
     """Ask the card (cudaOccupancyMaxActiveClusters) once per
     configuration whether it can hold one such cluster; raise if not."""
-    key = (bf16, barrier, m, d, p)
+    key = (bf16, m, d, p)
     if key in _SCHEDULABLE:
         return
     count = _CI(0)
     err = _library().lbfgs_direction_max_clusters(
-        bf16, barrier, m, d, p.cluster, p.threads, p.smem,
-        ctypes.byref(count))
+        bf16, m, d, p.cluster, p.threads, ctypes.byref(count))
     if err != 0 or count.value < 1:
         raise RuntimeError(
             f"lbfgs_direction: the card cannot schedule a cluster of "
-            f"{p.cluster} CTAs ({p.threads} threads, {p.smem} bytes of "
-            f"shared memory each) for B={b}, m={m}, d={d}: "
-            f"cudaOccupancyMaxActiveClusters gave {count.value} clusters "
-            f"(CUDA error {err})")
+            f"{p.cluster} CTAs ({p.threads} threads each) for B={b}, m={m}, "
+            f"d={d}: cudaOccupancyMaxActiveClusters gave {count.value} "
+            f"clusters (CUDA error {err})")
     _SCHEDULABLE.add(key)
 
 
@@ -191,14 +137,9 @@ def two_loop_direction(grad, s_hist, y_hist, rho_hist, valid):
     return -r
 
 
-def lbfgs_direction(grad, s_hist, y_hist, rho_hist, valid,
-                    cluster: int | None = None,
-                    cluster_barrier: bool = False):
+def lbfgs_direction(grad, s_hist, y_hist, rho_hist, valid):
     """The two-loop direction (B, d) in the inputs' dtype: the kernel on
-    CUDA tensors, the plain version on CPU tensors.  CUDA only, for
-    timing the design's choices: `cluster` asks for that many CTAs a lane
-    instead of `plan`'s choice; `cluster_barrier` exchanges the partial
-    sums through barrier.cluster instead of the mbarriers."""
+    CUDA tensors, the plain version on CPU tensors."""
     if grad.dim() != 2 or s_hist.dim() != 3:
         raise ValueError(f"grad must be (B, d) and s_hist (B, m, d), got "
                          f"{tuple(grad.shape)} and {tuple(s_hist.shape)}")
@@ -216,13 +157,13 @@ def lbfgs_direction(grad, s_hist, y_hist, rho_hist, valid,
     cuda_build.expect(valid, "valid", (b, m), (torch.bool,), dev)
     if cuda_build.use_plain(dev):
         return two_loop_direction(grad, s_hist, y_hist, rho_hist, valid)
-    bf16, barrier = int(grad.dtype == torch.bfloat16), int(cluster_barrier)
-    p = launch_plan(b, m, d, grad.dtype, dev, cluster)
-    _check_schedulable(bf16, barrier, b, m, d, p)
+    bf16 = int(grad.dtype == torch.bfloat16)
+    p = plan(b, m, d, grad.dtype, dev)
+    _check_schedulable(bf16, b, m, d, p)
     out = torch.empty_like(grad)
     err = _library().lbfgs_direction_launch(
-        bf16, barrier, grad.data_ptr(), s_hist.data_ptr(), y_hist.data_ptr(),
+        bf16, grad.data_ptr(), s_hist.data_ptr(), y_hist.data_ptr(),
         rho_hist.data_ptr(), valid.data_ptr(), out.data_ptr(), b, m, d,
-        p.cluster, p.threads, p.smem, cuda_build.stream_of(dev))
+        p.cluster, p.threads, cuda_build.stream_of(dev))
     cuda_build.launched("lbfgs_direction", err)
     return out

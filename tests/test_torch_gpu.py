@@ -104,16 +104,49 @@ def test_lbfgs_direction_matches_plain_version(gen, m, b, dtype):
     assert ok, msg
 
 
-def test_lbfgs_direction_raises_for_a_cluster_the_card_cannot_hold(gen):
-    """32 CTAs a lane split d = 2048 into 16-byte slices that fit, but
-    Hopper schedules clusters of at most 16: the wrapper raises, naming
-    the shape and the cluster, and launches nothing in its place."""
+def test_lbfgs_direction_raises_for_a_cluster_the_card_cannot_hold(
+        gen, monkeypatch):
+    """A plan of 32 CTAs a lane splits d = 2048 into 16-byte slices that
+    fit, but Hopper schedules clusters of at most 16: the wrapper raises,
+    naming the shape and the cluster, and launches nothing in its
+    place."""
     args = chip_smoke.direction_inputs(3, 4, 2048, gen, torch)
+    monkeypatch.setattr(ld, "plan", lambda *a: ld.Plan(32, 32, 0))
     cb.reset_launches()
     with pytest.raises(RuntimeError, match="cannot schedule a cluster of "
                                            "32 CTAs .* B=3, m=4, d=2048"):
-        ld.lbfgs_direction(*args, cluster=32)
+        ld.lbfgs_direction(*args)
     assert cb.LAUNCHES["lbfgs_direction"] == 0
+
+
+@pytest.mark.parametrize("b,m,dtype,d,cluster,threads", [
+    (12, 25, torch.float32, 2048, 2, 128),    # path A: C = 1 needs 417 KB
+    (13, 25, torch.bfloat16, 2048, 2, 128),
+    (192, 10, torch.float32, 2048, 2, 128),   # C = 1 fits, in 256 threads
+    (192, 2, torch.float32, 2048, 2, 128),
+    (3, 4, torch.float32, 64, 1, 32),
+    (12, 2, torch.float32, 32768, 16, 256),   # none fits in 128 threads
+])
+def test_plan_fits_shared_memory_with_few_threads(gen, b, m, dtype, d,
+                                                  cluster, threads):
+    """The kernel source's launch plan on an H100 (232,448 bytes of
+    shared memory a block may opt into): the smallest cluster whose slice
+    fits its shared memory in at most 128 threads (one warp per
+    scheduler), else the largest that fits."""
+    p = ld.plan(b, m, d, dtype, torch.device("cuda"))
+    assert (p.cluster, p.threads) == (cluster, threads)
+    slice_ = d // cluster
+    elem = torch.empty((), dtype=dtype).element_size()
+    assert slice_ * elem % 16 == 0 and slice_ <= 8 * threads
+    assert elem * slice_ * (2 * m + 1) <= p.smem <= 232448  # H100 opt-in
+
+
+def test_plan_raises_where_nothing_fits(gen):
+    dev = torch.device("cuda")
+    with pytest.raises(ValueError, match="B=12, m=25, d=2050"):
+        ld.plan(12, 25, 2050, torch.float32, dev)   # no 16-byte slices
+    with pytest.raises(ValueError, match="m=2000"):
+        ld.plan(12, 2000, 2048, torch.float32, dev)  # too many slots
 
 
 def test_heatmap_sample_counter_and_backward(gen):
