@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
               points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
               and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
               13, 192}, d = 2048 with partly filled histories, float32
-              and bf16 (the solver's bf16 state); the decoder
+              and bf16 (the solver's bf16 state), and d = 2050 float32
+              and d = 36 bf16 (zero-padded to the plan's width); the
+              decoder
               energy (kernel 5) with the production prior's conv chain
               (random folded weights), R in {1, 2, 4}, B in {192, 37},
               k=8 bf16 and k=16 f32 crops, and R=4, B=300 (1,200 rows):
@@ -67,7 +69,10 @@ Phases (any failure exits non-zero and prints no result line):
               events) beside its bound (from the bytes these inputs need:
               the map sectors that hold an in-range tap, the valid history
               slots), the plain version's time and, for the sampler,
-              F.grid_sample's; kernel 5 beside the fused and the unfused
+              F.grid_sample's; kernel 5 beside its plan (rows a CTA,
+              ring stages, the weight bytes its CTAs read from L2), both
+              its bounds (float32 on the CUDA cores; 3xTF32 on the
+              tensor cores) and both shares, the fused and the unfused
               (cuDNN/cuBLAS decode + kernel 1) stage-1 eval, and at
               1,200 rows; the direction's cluster size C beside each of
               its times.
@@ -95,6 +100,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# dense TF32 on the tensor cores (the same data sheet)
+TF32_FLOP_PER_S = 495e12
 # float32 operations the energies do, counted from csrc/fused_energy.cu:
 # per crop cell and point (two triangle weights, their derivatives, three
 # multiply-adds, the bf16/f32 load), and per point outside the cell loop
@@ -437,16 +444,19 @@ def direction_inputs(b, m, d, gen, torch, dtype=None):
             rho.to(dtype), valid)
 
 
-def compare_direction(torch, ld, cb, b, m, gen, dtype=None):
-    args = direction_inputs(b, m, LATENT, gen, torch, dtype)
-    p = ld.plan(b, m, LATENT, args[0].dtype, args[0].device)
+def compare_direction(torch, ld, cb, b, m, gen, dtype=None, d=LATENT):
+    """The direction kernel against its plain version; a d whose slices
+    are not whole 16-byte rows runs zero-padded to the plan's width."""
+    args = direction_inputs(b, m, d, gen, torch, dtype)
+    width, p = ld.padded_plan(b, m, d, args[0].dtype, args[0].device)
     out_k = ld.lbfgs_direction(*args)
     with cb.plain_versions_on_cuda():
         out_p = ld.lbfgs_direction(*args)
     torch.cuda.synchronize()
     ok, err = dir_agreement(torch, out_k, out_p)
     msg = (f"lbfgs_direction {str(args[0].dtype).split('.')[-1]} B={b} "
-           f"m={m} d={LATENT} (C={p.cluster}, {p.threads} threads, "
+           f"m={m} d={d}" + (f" padded to {width}" if width != d else "")
+           + f" (C={p.cluster}, {p.threads} threads, "
            f"{p.smem} B shared memory a CTA): max|dd|={err:.3e} "
            f"(|d|~{float(out_p.float().abs().mean()):.3e}; "
            f"{int(args[4].sum())} of {b * m} slots valid)")
@@ -480,6 +490,11 @@ def new_kernel_phase(torch, hs, ld, cb, fails, seed):
                                                dtype)
                 fails.check(ok, msg)
                 err["lbfgs_direction"] = max(err["lbfgs_direction"], e)
+    # a latent width whose slices are not whole 16-byte rows (zero-padded)
+    for dtype, d in ((torch.float32, 2050), (torch.bfloat16, 36)):
+        ok, msg, e = compare_direction(torch, ld, cb, 13, 10, gen, dtype, d)
+        fails.check(ok, msg)
+        err["lbfgs_direction"] = max(err["lbfgs_direction"], e)
     return err
 
 
@@ -1365,9 +1380,15 @@ def timing_phase(torch, fe, fisheye, seed, b, card):
 
 
 def decode_bound(r, b, k, crop_bytes):
-    """Kernel 5's bound: the chain's forward and input-transpose
-    operations plus kernel 1's per point, over the float32 peak, against
-    h0 in, dE/dh0 and e out, the context and the weights read once."""
+    """Kernel 5's bound on the CUDA cores: the chain's forward and
+    input-transpose operations plus kernel 1's per point, over the
+    float32 peak, against h0 in, dE/dh0 and e out, the context and the
+    weights read once."""
+    return bound_of(*decode_work(r, b, k, crop_bytes))
+
+
+def decode_work(r, b, k, crop_bytes):
+    """(bytes, float32 operations) of one kernel-5 call."""
     rows = r * b
     weights = sum((3 * a + 1) * c for a, c in zip(DEC_DIMS[:-1],
                                                   DEC_DIMS[1:])) * 4
@@ -1375,16 +1396,54 @@ def decode_bound(r, b, k, crop_bytes):
               + b * (3 * L * 4 + k * k * L * crop_bytes + 3 * L * 4))
     ops = rows * (DEC_OPS_PER_ROW
                   + L * (OPS_PER_CELL * k * k + OPS_PER_POINT_REPROJ))
-    return bound_of(nbytes, ops)
+    return nbytes, ops
+
+
+def decode_tf32_bound(r, b, k, crop_bytes):
+    """Kernel 5's least time at float32-equivalent accuracy on the card:
+    the chain as three TF32 passes (3xTF32) over the dense TF32 peak,
+    the energy's operations over the float32 peak, the bytes over the HBM
+    rate; the largest of the three (the units overlap)."""
+    nbytes, ops = decode_work(r, b, k, crop_bytes)
+    chain = r * b * DEC_OPS_PER_ROW
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(3 * chain / TF32_FLOP_PER_S,
+                               (ops - chain) / F32_FLOP_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def decode_plan_line(fde, r, b):
+    """The kernel source's plan for R*B rows, as chip_smoke prints it."""
+    import torch
+    p = fde.plan(DEC_DIMS, r * b, torch.device("cuda"))
+    return (f"plan {p.rows_per_block} rows a CTA, {p.cluster} CTA a "
+            f"cluster, {p.ctas} CTAs, {p.stages} ring stages of "
+            f"{p.stage_bytes} B of weights, {p.smem} B shared memory a CTA; "
+            f"L2 weight reads {p.l2_bytes} B")
+
+
+def decode_time_line(ms, r, b, k):
+    """Kernel 5's time beside both bounds and both shares."""
+    b32, by32 = decode_bound(r, b, k, 2)
+    btf, bytf = decode_tf32_bound(r, b, k, 2)
+    return (f"kernel {ms:.6f} ms; bound at float32 on the CUDA cores "
+            f"{b32:.6f} ms ({by32}), share {b32 / ms:.4f}; bound at 3xTF32 "
+            f"on the tensor cores {btf:.6f} ms ({bytf}), share "
+            f"{btf / ms:.4f}"), btf, bytf
 
 
 def timing_decode(torch, fe, fde, fisheye, seed, b, card):
     """Kernel 5 at path C's shapes (R=2 probes, R=1, and the guard trip's
-    R=4 with k=16 crops; bf16 crops) beside its bound and its plain
-    version, and one stage-1 eval both ways at the same shapes: the first
-    dense layer, kernel 5 and dz (fused), against the cuDNN/cuBLAS decode
-    forward and backward around kernel 1 (unfused), on one random prior
-    (events, host launch cost included).  Returns the R=2 row."""
+    R=4 with k=16 crops; bf16 crops) and at R=4, B=300, each beside the
+    plan the kernel source picks (rows a CTA, cluster, CTAs, ring stages,
+    the weight bytes its CTAs read from L2), both bounds (float32 on the
+    CUDA cores; 3xTF32 on the tensor cores) and both shares, and
+    its plain version; and one stage-1 eval both ways at path C's shapes:
+    the first dense layer, kernel 5 and dz (fused), against the
+    cuDNN/cuBLAS decode forward and backward around kernel 1 (unfused),
+    on one random prior (events, host launch cost included).  Returns the
+    R=2 row, its bound the 3xTF32 one."""
     import torch.nn.functional as F
     from globalegomocap_tpu_torch.models.conv_vae import ConvVAE, init_random
     from globalegomocap_tpu_torch.ops import cuda_build as cb
@@ -1401,7 +1460,7 @@ def timing_decode(torch, fe, fde, fisheye, seed, b, card):
         ms = graph_ms(torch, fn)
         with cb.plain_versions_on_cuda():
             plain = event_ms(torch, fn, reps=5)
-        bms, by = decode_bound(r, b, k, 2)
+        text, bms, by = decode_time_line(ms, r, b, k)
         ctx = args[2:7] + ((args[7], args[8]),) + args[9:]
         z = torch.randn((r, b, LATENT), generator=gen, device="cuda")
 
@@ -1424,9 +1483,9 @@ def timing_decode(torch, fe, fde, fisheye, seed, b, card):
         t_f = event_ms(torch, fused_eval)
         t_u = event_ms(torch, unfused_eval)
         print(f"  time  fused_decode_stage_energy R={r} B={b} k={k} bf16 "
-              f"crops: kernel {ms:.6f} ms, bound {bms:.6f} ms ({by}), "
-              f"roofline share {bms / ms:.4f}, plain version {plain:.6f} ms "
-              f"(no single library call computes it) [{card}]", flush=True)
+              f"crops: {text}; plain version {plain:.6f} ms (no single "
+              f"library call computes it); {decode_plan_line(fde, r, b)} "
+              f"[{card}]", flush=True)
         print(f"  time  stage-1 eval R={r} B={b} k={k} (value and dE/dz): "
               f"first dense + kernel 5 + dz {t_f:.6f} ms; cuDNN/cuBLAS "
               f"decode fwd+bwd + kernel 1 {t_u:.6f} ms [{card}]",
@@ -1436,10 +1495,10 @@ def timing_decode(torch, fe, fde, fisheye, seed, b, card):
     args = decode_inputs(4, 300, 8, torch.bfloat16, gen, torch, fe, fde,
                          fisheye)
     ms = graph_ms(torch, lambda: fde.decode_energy_and_grad(*args))
-    bms, by = decode_bound(4, 300, 8, 2)
+    text, _, _ = decode_time_line(ms, 4, 300, 8)
     print(f"  time  fused_decode_stage_energy R=4 B=300 k=8 bf16 crops (1200 "
-          f"rows): kernel {ms:.6f} ms, bound {bms:.6f} ms ({by}), roofline "
-          f"share {bms / ms:.4f} [{card}]", flush=True)
+          f"rows): {text}; {decode_plan_line(fde, 4, 300)} [{card}]",
+          flush=True)
     return row
 
 

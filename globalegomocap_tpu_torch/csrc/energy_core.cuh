@@ -65,22 +65,27 @@ struct WindowContext {
 };
 
 // Energy and gradient of one (probe, window) row.  Every thread of the
-// block calls it (it holds barriers); thread l < L owns point l.  `sp` is
-// the row's pose in shared memory, written before a barrier; sa and sr are
-// (3, L) shared scratch and sred (5, 32) shared partial sums.  Writes
-// g = dE/dpose through `gl` and, from thread 0, the row's energy to *e.
-// The five parts are reduced with warp shuffles and one fixed-order pass
-// over the warps: deterministic, no atomics.  Ends with a barrier, so the
-// scratch can be reused by the next row at once.
-template <bool WITH_REPROJ, typename CropT>
+// block calls it (it holds barriers).  With kGroup = 0 the block works on
+// one row and thread l < L owns point l; with kGroup > 0 (whole warps,
+// >= L) each group of kGroup consecutive threads works on its own row,
+// passing that row's pointers and scratch, and `present` false for a
+// group with no row.  `sp` is the row's pose in shared memory, written
+// before a barrier; sa and sr are (3, L) shared scratch of the row and
+// sred (5, 32) shared partial sums of the block.  Writes g = dE/dpose
+// through `gl` and, from the row's first thread, its energy to *e.  The
+// five parts are reduced with warp shuffles and one fixed-order pass over
+// the row's warps: deterministic, no atomics.  Ends with a barrier, so
+// the scratch can be reused by the next row at once.
+template <bool WITH_REPROJ, typename CropT, int kGroup = 0>
 __device__ void energy_row(const float* sp, PointLayout pl, float* sa,
                            float* sr, float* sred, WindowContext<CropT> w,
                            const float* __restrict__ wvec,
                            const float* __restrict__ poly, int npoly, int L,
                            int k, float sx, float sy, float crop_offset,
-                           float* g, PointLayout gl, float* e) {
-  const int l = threadIdx.x;
-  const bool live = l < L;
+                           float* g, PointLayout gl, float* e,
+                           bool present = true) {
+  const int l = kGroup > 0 ? threadIdx.x % kGroup : threadIdx.x;
+  const bool live = present && l < L;
   auto pose = [&](int c, int i) { return sp[c * pl.cs + i * pl.ps]; };
 
   const float w3d = wvec[0], w_sm = wvec[1], w_bone = wvec[2];
@@ -237,12 +242,13 @@ __device__ void energy_row(const float* sp, PointLayout pl, float* sa,
     if (lane == 0) sred[i * 32 + warp] = v;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const int nwarps = blockDim.x >> 5;
+  if (l == 0 && present) {
+    const int w0 = kGroup > 0 ? warp : 0;
+    const int nwarps = kGroup > 0 ? kGroup >> 5 : blockDim.x >> 5;
     float tot[5];
     for (int i = 0; i < 5; ++i) {
       float v = 0.f;
-      for (int wi = 0; wi < nwarps; ++wi) v += sred[i * 32 + wi];
+      for (int wi = w0; wi < w0 + nwarps; ++wi) v += sred[i * 32 + wi];
       tot[i] = v;
     }
     *e = w3d * tot[0] + w_sm * tot[1] + w_bone * tot[2] + w_vae * tot[3] +

@@ -25,10 +25,14 @@ chain).
 Bound on the H100 (computed from the shapes, not measured): the chain is
 2*(3T-2)*sum(Cin*Cout) = 10.3 MFLOP per (probe, window) forward at the
 production widths (512-256-128-64-64-64-45; the edge frames have no outer
-tap) and as much backward, so at R=2, B=192 about 7.9 GFLOP, 118 us at
-67 TFLOP/s of float32, against about 22 MB (h0 in, dE/dh0 out, context,
-weights), 6.5 us at 3.35 TB/s: operations bound it.  chip_smoke.py
-measures the time; PERF.md records it.
+tap) and as much backward, so at R=2, B=192 about 7.9 GFLOP: 118 us at
+67 TFLOP/s of float32 on the CUDA cores, 47.7 us as three TF32 passes at
+495 TFLOP/s on the tensor cores (the kernel's 3xTF32), against about
+22 MB (h0 in, dE/dh0 out, context, weights), 6.5 us at 3.35 TB/s.  The
+kernel runs wgmma in 3xTF32, several rows a CTA, each weight chunk staged
+once for all of them; `plan` reports its launch (rows a CTA, stages, the
+L2 bytes its CTAs read).  chip_smoke.py measures the time; PERF.md
+records it.
 """
 
 from __future__ import annotations
@@ -45,12 +49,14 @@ from globalegomocap_tpu_torch.ops.skeleton import KINEMATIC_PARENTS
 
 T_FRAMES = 10                     # the kernel's compile-time window length
 _MAX_LAYERS = 8
-_SMEM_LIMIT = 232448              # bytes of shared memory a block may opt into
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"fused_decode_stage_energy_launch": (
     [_VP, _VP, ctypes.POINTER(_CI), _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP,
      _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF, _CF, _CF, _VP],
-    _CI)}
+    _CI),
+    "fused_decode_energy_plan": (
+        [ctypes.POINTER(_CI), _CI, _CI, ctypes.POINTER(ctypes.c_longlong),
+         ctypes.POINTER(ctypes.c_longlong)], _CI)}
 
 
 def _library():
@@ -59,24 +65,66 @@ def _library():
 
 
 class DecoderLayers(NamedTuple):
-    """The conv chain in the JAX layout plus the kernel's packed weights:
-    per layer the forward kernel (3, Cin, Cout), the backward kernel
-    (3, Cout, Cin) with its taps reversed, and the bias, one float32
-    buffer; dims = (C0, C1, ..., Cn)."""
+    """The conv chain in the JAX layout plus the kernel's packed weights
+    (`pack_layers`), one float32 buffer; dims = (C0, C1, ..., Cn)."""
     layers: tuple
     packed: torch.Tensor
     dims: tuple
 
 
+MAX_M_TILES = 16                  # m-tiles of one kernel pass (256 rows)
+
+
+def passes(dims):
+    """The kernel's passes over a chain, in order: (layer, backward,
+    first m-tile, m-tiles, M, K channels).  Forward layer i maps C_i to
+    C_{i+1} (M = C_{i+1}, K channels C_i); backward layer i maps C_{i+1}
+    back to C_i; each split into passes of at most MAX_M_TILES m-tiles of
+    16 (csrc/fused_decode_energy.cu::build_plan)."""
+    n = len(dims) - 1
+    out = []
+    for step in range(2 * n):
+        bwd = step >= n
+        i = 2 * n - 1 - step if bwd else step
+        m, kch = (dims[i], dims[i + 1]) if bwd else (dims[i + 1], dims[i])
+        mt_all = -(-m // 16)
+        for t0 in range(0, mt_all, MAX_M_TILES):
+            out.append((i, bwd, t0, min(MAX_M_TILES, mt_all - t0), m, kch))
+    return out
+
+
+def fragment_matrix(kern, backward):
+    """A (M, K) of one layer as the kernel multiplies it, K ordered
+    (channel block of 8, tap, channel): forward A[co][(cb, tap, c)] =
+    kern[tap][cb*8 + c][co]; backward (the input transpose)
+    A[ci][(cb, tap, c)] = kern[2 - tap][ci][cb*8 + c].  M padded to 16
+    and the K channels to 8 with zeros."""
+    w = kern.flip(0) if backward else kern.transpose(1, 2)  # (3, M, Kch)
+    _, m, kch = w.shape
+    pm, pk = -(-m // 16) * 16, -(-kch // 8) * 8
+    w = torch.nn.functional.pad(w, (0, pk - kch, 0, pm - m))
+    return w.reshape(3, pm, pk // 8, 8).permute(1, 2, 0, 3).reshape(pm, -1)
+
+
+def fragments(a):
+    """A (M, K), M and K multiples of 16 and 8, in mma.m16n8k8 fragment
+    order [k-step][m-tile][lane][4]: lane = 4 g + t4 holds A[16 mt + g]
+    [8 ks + t4], A[16 mt + g + 8][8 ks + t4], A[16 mt + g][8 ks + t4 + 4],
+    A[16 mt + g + 8][8 ks + t4 + 4]."""
+    m, k = a.shape
+    f = a.reshape(m // 16, 2, 8, k // 8, 2, 4)      # mt, h, g, ks, kh, t4
+    return f.permute(3, 0, 2, 5, 4, 1).reshape(-1)  # ks, mt, g, t4, kh, h
+
+
 def pack_layers(layers: Sequence) -> DecoderLayers:
     """Pack (kernel (3, Cin, Cout), bias (Cout)) pairs for the kernel (a
-    no-op for a DecoderLayers)."""
+    no-op for a DecoderLayers): each pass of `passes` in fragment order,
+    then each layer's bias padded to 16 channels."""
     if isinstance(layers, DecoderLayers):
         return layers
     layers = tuple((k.to(torch.float32).contiguous(),
                     b.to(torch.float32).contiguous()) for k, b in layers)
     dims = [layers[0][0].shape[1]]
-    parts = []
     for kern, bias in layers:
         if kern.dim() != 3 or kern.shape[0] != 3 or kern.shape[1] != dims[-1]:
             raise ValueError(f"layer kernel {tuple(kern.shape)} does not "
@@ -85,8 +133,12 @@ def pack_layers(layers: Sequence) -> DecoderLayers:
             raise ValueError(f"bias {tuple(bias.shape)} for kernel "
                              f"{tuple(kern.shape)}")
         dims.append(kern.shape[2])
-        parts += [kern.reshape(-1), kern.flip(0).transpose(1, 2).reshape(-1),
-                  bias]
+    parts = []
+    for i, bwd, t0, mt, _, _ in passes(dims):
+        a = fragment_matrix(layers[i][0], bwd)
+        parts.append(fragments(a[16 * t0:16 * (t0 + mt)]))
+    for _, bias in layers:
+        parts.append(torch.nn.functional.pad(bias, (0, -len(bias) % 16)))
     return DecoderLayers(layers, torch.cat(parts).contiguous(), tuple(dims))
 
 
@@ -138,7 +190,7 @@ def plain_decode_pose(h0_rt, layers):
     for i, (kern, bias) in enumerate(layers):
         h = conv3(h, kern, bias)
         if i < len(layers) - 1:      # the JAX mask: slope 1 where pre >= 0
-            h = h * torch.where(h >= 0.0, 1.0, 0.01)
+            h = torch.where(h >= 0.0, h, 0.01 * h)
     j = h.shape[-1] // 3
     return h.reshape(r, b, t, j, 3).permute(0, 1, 4, 2, 3).reshape(
         r, b, 3, t * j).contiguous()
@@ -165,13 +217,61 @@ def plain_decode_energy_and_grad(h0_rt, layers, anchor_t, crops, ox, oy,
 # dispatch
 # ---------------------------------------------------------------------------
 
-def _smem_bytes(dims, L):
-    """Shared memory of one block (one row): the saved layer inputs, the
-    pose and dE/dpose, and the energy core's scratch."""
-    t = T_FRAMES
-    gmax = max(dims[1:-1], default=0)
-    row = max(t * dims[0], 2 * t * gmax) + t * sum(dims[1:-1]) + 2 * t * dims[-1]
-    return (row + 6 * L + 5 * 32) * 4
+class Plan(NamedTuple):
+    """Kernel 5's launch (the kernel source's `fused_decode_energy_plan`):
+    rows a CTA, CTAs a cluster, CTAs, ring stages, dynamic shared memory
+    bytes, the weight bytes a ring stage holds, and the weight bytes the
+    CTAs read from L2."""
+    rows_per_block: int
+    cluster: int
+    ctas: int
+    stages: int
+    smem: int
+    stage_bytes: int
+    l2_bytes: int
+
+
+_PLANS: dict = {}
+
+
+def plan(dims, rows: int, dev: torch.device) -> Plan:
+    """The launch for a chain `dims` over `rows` (probe, window) rows on
+    CUDA device `dev`.  Raises ValueError where the kernel cannot take the
+    chain (a layer too wide for one block's shared memory, more than
+    `_MAX_LAYERS` layers, C0 not a multiple of 8, or not 45 outputs)."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, tuple(dims), rows)
+    if key not in _PLANS:
+        n = len(dims) - 1
+        out = (ctypes.c_longlong * 7)()
+        l2 = ctypes.c_longlong(0)
+        with torch.cuda.device(index):
+            err = _library().fused_decode_energy_plan(
+                (_CI * (n + 1))(*dims), n, rows, out, ctypes.byref(l2))
+        if err != 0:
+            raise RuntimeError(f"fused_decode_stage_energy: asking the card "
+                               f"for its limits failed with CUDA error {err}")
+        if out[0] == 0 or n > _MAX_LAYERS:
+            raise ValueError(
+                f"fused_decode_stage_energy: channels {tuple(dims)} over "
+                f"{rows} rows: the kernel cannot take this chain (at most "
+                f"{_MAX_LAYERS} layers, C0 a multiple of 8, 45 outputs, and "
+                f"one row's activations must fit a block's shared memory)")
+        if out[5] != sum(passes_floats(dims)):
+            raise RuntimeError("fused_decode_stage_energy: the kernel's "
+                               "weight layout differs from pack_layers'")
+        _PLANS[key] = Plan(out[0], out[1], out[2], out[3], out[4], out[6],
+                           l2.value)
+    return _PLANS[key]
+
+
+def passes_floats(dims):
+    """Floats of each part of the packed buffer: the passes' fragments,
+    then the biases."""
+    sizes = [mt * 16 * 3 * (-(-kch // 8) * 8)
+             for _, _, _, mt, _, kch in passes(dims)]
+    return sizes + [-(-c // 16) * 16 for c in dims[1:]]
 
 
 def decode_energy_and_grad(h0_rt, layers, anchor_t, crops, ox, oy, bone,
@@ -224,13 +324,8 @@ def decode_energy_and_grad(h0_rt, layers, anchor_t, crops, ox, oy, bone,
     if t != T_FRAMES:
         raise ValueError(f"the kernel is built for T={T_FRAMES} frames")
     n = len(dl.dims) - 1
-    if n > _MAX_LAYERS:
-        raise ValueError(f"{n} layers: the kernel takes at most "
-                         f"{_MAX_LAYERS}")
     expect(dl.packed, "packed weights", tuple(dl.packed.shape), f32, dev)
-    if _smem_bytes(dl.dims, L) > _SMEM_LIMIT:
-        raise ValueError(f"channels {dl.dims}: a row does not fit one "
-                         f"block's shared memory")
+    plan(dl.dims, r * b, dev)
     e = torch.empty((r, b), dtype=torch.float32, device=dev)
     gh0 = torch.empty_like(h0_rt)
     pose = g = None

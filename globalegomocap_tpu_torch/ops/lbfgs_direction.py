@@ -17,11 +17,12 @@ raises; a CPU tensor runs the plain version.  On the card each lane is a
 cluster of C CTAs, each holding a slice of d/C elements of g, s and y in
 shared memory; `plan` (the kernel source's `lbfgs_direction_plan`) picks
 C and the CTA's threads from m, d and the element size, and a cluster
-the card cannot schedule raises.  The slice must be a whole number of
-16-byte rows and at most 2048 elements, and fit the card's shared memory
-with the m slots of s and y: on an H100, d * element size a multiple of
-16, d <= 32768, and m <= 221 at d = 2048 in float32 (434 in bf16).
-Other shapes raise ValueError on the card; the plain version takes any.
+the card cannot schedule raises.  A d whose slices are not whole 16-byte
+rows is zero-padded (`pad_width`, `pad_last`) and the direction sliced
+back: exact, since zero elements add nothing to any dot product and stay
+zero under every update.  The m slots of s and y must fit the card's
+shared memory: on an H100, m <= 221 at d = 2048 in float32 (434 in
+bf16); a larger m raises ValueError on the card.
 """
 
 from __future__ import annotations
@@ -77,14 +78,43 @@ def plan(b: int, m: int, d: int, dtype: torch.dtype,
         if err != 0:
             raise RuntimeError(f"lbfgs_direction: reading the card's shared "
                                f"memory limit failed with CUDA error {err}")
-        if out[0].value == 0:
-            raise ValueError(
-                f"lbfgs_direction: B={b}, m={m}, d={d}, {elem}-byte "
-                f"elements: no cluster of up to 16 CTAs holds its slice of "
-                f"g, s and y in the card's shared memory (d * element size "
-                f"must be a multiple of 16)")
-        _PLANS[key] = Plan(*(v.value for v in out))
+        _PLANS[key] = Plan(*(v.value for v in out)) if out[0].value else None
+    if _PLANS[key] is None:
+        raise ValueError(
+            f"lbfgs_direction: B={b}, m={m}, d={d}, {elem}-byte "
+            f"elements: no cluster of up to 16 CTAs holds its slice of "
+            f"g, s and y in the card's shared memory (d * element size "
+            f"must be a multiple of 16)")
     return _PLANS[key]
+
+
+def pad_width(d: int, elem: int, granule: int = 1) -> int:
+    """d rounded up to a whole number of `granule` 16-byte rows of
+    `elem`-byte elements."""
+    step = granule * 16 // elem
+    return -(-d // step) * step
+
+
+def pad_last(xs, width: int):
+    """Each tensor zero-padded along its last axis to `width`."""
+    return tuple(torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+                 for x in xs)
+
+
+def padded_plan(b: int, m: int, d: int, dtype: torch.dtype,
+                dev: torch.device) -> tuple[int, Plan]:
+    """(width, plan): the narrowest zero-padded width whose slices `plan`
+    takes, d rounded up to 1, 2, ..., 16 rows of 16 bytes per cluster
+    CTA in turn (d itself where it fits).  Raises `plan`'s ValueError,
+    naming d, where none fits."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    for granule in (1, 2, 4, 8, 16):
+        width = pad_width(d, elem, granule)
+        try:
+            return width, plan(b, m, width, dtype, dev)
+        except ValueError:
+            pass
+    return d, plan(b, m, d, dtype, dev)
 
 
 def _check_schedulable(bf16: int, b: int, m: int, d: int, p: Plan) -> None:
@@ -158,12 +188,14 @@ def lbfgs_direction(grad, s_hist, y_hist, rho_hist, valid):
     if cuda_build.use_plain(dev):
         return two_loop_direction(grad, s_hist, y_hist, rho_hist, valid)
     bf16 = int(grad.dtype == torch.bfloat16)
-    p = plan(b, m, d, grad.dtype, dev)
-    _check_schedulable(bf16, b, m, d, p)
+    width, p = padded_plan(b, m, d, grad.dtype, dev)
+    if width != d:
+        grad, s_hist, y_hist = pad_last((grad, s_hist, y_hist), width)
+    _check_schedulable(bf16, b, m, width, p)
     out = torch.empty_like(grad)
     err = _library().lbfgs_direction_launch(
         bf16, grad.data_ptr(), s_hist.data_ptr(), y_hist.data_ptr(),
-        rho_hist.data_ptr(), valid.data_ptr(), out.data_ptr(), b, m, d,
+        rho_hist.data_ptr(), valid.data_ptr(), out.data_ptr(), b, m, width,
         p.cluster, p.threads, cuda_build.stream_of(dev))
     cuda_build.launched("lbfgs_direction", err)
-    return out
+    return out if width == d else out[:, :d].contiguous()

@@ -104,6 +104,19 @@ def test_lbfgs_direction_matches_plain_version(gen, m, b, dtype):
     assert ok, msg
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 2050),
+                                     (torch.bfloat16, 36)])
+def test_lbfgs_direction_takes_any_d(gen, dtype, d):
+    """A d whose slices are not whole 16-byte rows runs zero-padded to
+    the plan's width, and the direction comes back at d, against the
+    plain version `two_loop_direction`."""
+    ok, msg, _ = chip_smoke.compare_direction(torch, ld, cb, 13, 10, gen,
+                                              dtype, d)
+    assert ok, msg
+    width, _ = ld.padded_plan(13, 10, d, dtype, torch.device("cuda"))
+    assert width > d and "padded to" in msg
+
+
 def test_lbfgs_direction_raises_for_a_cluster_the_card_cannot_hold(
         gen, monkeypatch):
     """A plan of 32 CTAs a lane splits d = 2048 into 16-byte slices that
@@ -215,3 +228,55 @@ def test_decode_energy_counter_and_backward(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fde.decode_energy_and_grad(args[0].transpose(2, 3).contiguous()
                                    .transpose(2, 3), *args[1:])
+
+
+def test_decode_energy_ragged_block_and_row_edges(gen):
+    """401 rows: the plan's rows a CTA (4) leave one row in the last CTA;
+    every other window's h0 is scaled by 50, so a frame that leaked across
+    a row's SAME padding into its neighbour would show in the neighbour's
+    pose, energy and dE/dh0 (held by chip_smoke.decode_check)."""
+    args = list(chip_smoke.decode_inputs(1, 401, 8, torch.bfloat16, gen,
+                                         torch, fe, fde, fisheye))
+    p = fde.plan(args[1].dims, 401, torch.device("cuda"))
+    assert 401 % p.rows_per_block != 0
+    h0 = args[0].clone()
+    h0[:, ::2] *= 50.0
+    args[0] = h0
+    out = fde.decode_energy_and_grad(*args, with_pose=True)
+    torch.cuda.synchronize()
+    ok, de, dgh, rel, _, _, failed = chip_smoke.decode_check(
+        torch, fe, fde, tuple(args), out)
+    assert ok, (failed, de, dgh, rel)
+
+
+def test_decode_plan_at_the_timed_row_counts(gen):
+    """The kernel source's plan on an H100 (132 SMs, 232,448 bytes of
+    shared memory a CTA): the least time by its cost model, waves x (185
+    + 1.0 x chunks) us; one CTA a cluster; the L2 bytes are the CTAs'
+    weight reads."""
+    dims = chip_smoke.DEC_DIMS
+    weight_bytes = 4 * sum(fde.passes_floats(dims))
+    for rows, rb, stage in ((192, 2, 49152), (384, 3, 24576),
+                            (768, 3, 24576), (1200, 4, 24576)):
+        p = fde.plan(dims, rows, torch.device("cuda"))
+        assert (p.rows_per_block, p.cluster, p.stage_bytes) == (
+            rb, 1, stage), (rows, p)
+        assert p.ctas == -(-rows // rb) and 2 <= p.stages <= 8
+        assert p.smem <= 232448 and p.l2_bytes == p.ctas * weight_bytes
+
+
+def test_decode_wrapper_raises_for_a_chain_the_plan_cannot_take(gen):
+    """A 4096-channel hidden layer: one row's activations do not fit a
+    block's shared memory, so the wrapper raises ValueError naming the
+    chain and launches nothing."""
+    layers = [(torch.zeros(3, 512, 4096, device="cuda"),
+               torch.zeros(4096, device="cuda")),
+              (torch.zeros(3, 4096, 45, device="cuda"),
+               torch.zeros(45, device="cuda"))]
+    args = list(chip_smoke.decode_inputs(1, 3, 8, torch.bfloat16, gen,
+                                         torch, fe, fde, fisheye))
+    args[1] = fde.pack_layers(layers)
+    cb.reset_launches()
+    with pytest.raises(ValueError, match=r"channels \(512, 4096, 45\)"):
+        fde.decode_energy_and_grad(*args)
+    assert cb.LAUNCHES["fused_decode_stage_energy"] == 0

@@ -19,33 +19,33 @@ from globalegomocap_tpu.ops.pallas.lbfgs_direction import (
 from globalegomocap_tpu.optimize import lbfgs as jl
 from globalegomocap_tpu_torch.ops import cuda_build
 from globalegomocap_tpu_torch.ops.lbfgs_direction import (
-    lbfgs_direction, two_loop_direction)
+    lbfgs_direction, pad_last, pad_width, two_loop_direction)
 from globalegomocap_tpu_torch.optimize import lbfgs as tl
 
 D = 32
 
 
-def _history(b, m, seed):
+def _history(b, m, seed, d=D):
     """Partly filled histories: lane i holds its newest n_i pairs (n_i
     from 0 to m), curvature pairs with s.y > 0, one lane whose newest
     pair has y.y = 0 (gamma falls back to 1)."""
     rng = np.random.default_rng(seed)
-    s = np.zeros((b, m, D), np.float32)
-    y = np.zeros((b, m, D), np.float32)
+    s = np.zeros((b, m, d), np.float32)
+    y = np.zeros((b, m, d), np.float32)
     valid = np.zeros((b, m), bool)
     fill = rng.integers(0, m + 1, size=b)
     fill[0], fill[-1] = m, 0
     for i in range(b):
         for k in range(m - fill[i], m):
-            si = rng.normal(size=D).astype(np.float32)
+            si = rng.normal(size=d).astype(np.float32)
             yi = (si * rng.uniform(0.5, 2.0)
-                  + 0.1 * rng.normal(size=D)).astype(np.float32)
+                  + 0.1 * rng.normal(size=d)).astype(np.float32)
             s[i, k], y[i, k], valid[i, k] = si, yi, True
     rho = np.where(valid, 1.0 / np.maximum(np.sum(s * y, -1), 1e-12),
                    0.0).astype(np.float32)
     if b > 2 and fill[1] > 0:
         y[1, m - 1] = 0.0                      # y.y = 0 in the newest slot
-    g = rng.normal(size=(b, D)).astype(np.float32)
+    g = rng.normal(size=(b, d)).astype(np.float32)
     return g, s, y, rho, valid
 
 
@@ -108,6 +108,38 @@ def test_wrapper_on_cpu_is_the_plain_version():
     bad[2] = args[2][:, :5].contiguous()
     with pytest.raises(ValueError, match="y_hist"):
         lbfgs_direction(*bad)
+
+
+@pytest.mark.parametrize("granule", [1, 16])
+@pytest.mark.parametrize("d", [2050, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_padding_of_d_is_exact(dtype, d, granule):
+    """The wrapper zero-pads a d the kernel's 16-byte slices do not hold
+    (`pad_width`, `pad_last`) and slices the direction back: the plain
+    version on the padded inputs, sliced back, is the plain version on
+    the originals.  float32 to 1e-6 of each element and of its lane's
+    largest element (a longer sum may reassociate, so an element that
+    cancels to near zero moves by a float32 ulp of the lane's scale:
+    9e-8 against |d| up to 6 measured), bf16 to one ulp of its 8
+    significand bits."""
+    args = tuple(torch.from_numpy(a) for a in _history(6, 10, seed=d, d=d))
+    args = tuple(x.to(dtype) if x.is_floating_point() else x for x in args)
+    elem = args[0].element_size()
+    width = pad_width(d, elem, granule)
+    assert width >= d and width * elem % (16 * granule) == 0
+    g, s, y = pad_last(args[:3], width)
+    assert (g[:, d:] == 0).all() and (s[..., :d] == args[1]).all()
+    out = two_loop_direction(g, s, y, *args[3:])
+    assert (out[:, d:] == 0).all()
+    ref = two_loop_direction(*args).to(torch.float64)
+    got = out[:, :d].to(torch.float64)
+    if dtype == torch.float32:
+        scale = ref.abs().amax(-1, keepdim=True)
+        assert ((got - ref).abs() <= 1e-6 * (ref.abs() + scale)).all()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(
+            1e-30))) - 7)
+        assert ((got - ref).abs() <= ulp).all()
 
 
 def test_wrapper_takes_one_float_dtype():
