@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. kernels  - each kernel against its plain PyTorch version on the same
               CUDA inputs: the fused energies at k=8 bf16 and k=16 f32
               crops, R in {1, 2, 4}, a window count that is a multiple of
-              no block size and the serve path's own shapes; the heatmap
+              no block size and the serve path's own shapes, and at R=3,
+              k=24 and crop coordinates pushed off the crops and onto
+              integer cells; the heatmap
               sampler forward and backward on f32 and bf16 64x64 maps,
               points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
               and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
@@ -67,10 +69,13 @@ Phases (any failure exits non-zero and prints no result line):
               serve-f32-full's float32 stack.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
-              the map sectors that hold an in-range tap, the valid history
-              slots), the plain version's time and, for the sampler,
-              F.grid_sample's; kernel 5 beside its plan (rows a CTA,
-              ring stages, the weight bytes its CTAs read from L2), both
+              the map and crop sectors that hold an in-range tap, the
+              valid history slots), the plain version's time and, for the
+              sampler, F.grid_sample's; kernels 1 and 2 at their plan (one
+              row a block), beside the record bound (every crop byte, k*k
+              cells) too; the launch floor (a no-op kernel) beside
+              kernels 1-3; kernel 5 beside its plan (rows a CTA, ring
+              stages, the weight bytes its CTAs read from L2), both
               its bounds (float32 on the CUDA cores; 3xTF32 on the
               tensor cores) and both shares, the fused and the unfused
               (cuDNN/cuBLAS decode + kernel 1) stage-1 eval, and at
@@ -109,6 +114,11 @@ TF32_FLOP_PER_S = 495e12
 OPS_PER_CELL = 14
 OPS_PER_POINT_REPROJ = 120
 OPS_PER_POINT_POSE = 60
+# and since the 2 x 2 tap gather (csrc/energy_core.cuh), per point in place
+# of the cell loop: the two axes' taps (~24), four weights and four
+# derivatives (~28), four tap addresses (~12), three sums of four terms
+# (~36); the record bound `bound` keeps OPS_PER_CELL * k * k
+OPS_PER_POINT_TAPS = 100
 
 CSRC = "globalegomocap_tpu_torch/csrc/"
 SOURCES = {"fused_stage_energy": CSRC + "fused_energy.cu",
@@ -175,10 +185,21 @@ class Failures:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def stage1_inputs(r, b, k, crop_dtype, gen, torch, fe, fisheye):
+# where stage1_inputs puts the crop coordinate of each point, per axis:
+# "near" around the crop's middle (+-1 cell); "off" a seventh each around
+# the middle, straddling the low edge (-1 <= i < 0) and the high edge
+# (k - 1 <= i < k), just off (i ~ -3, ~ k + 2) and far off (i ~ -1000,
+# ~ k + 1000) each side; "cells" on integer cells (the edges 0 and k - 1
+# among them; exact up to the rounding of ix0 - ox) for probe 0, whose pose
+# is then the windows' base pose.
+PLACEMENTS = ("near", "off", "cells")
+
+
+def stage1_inputs(r, b, k, crop_dtype, gen, torch, fe, fisheye,
+                  placement="near"):
     """Kernel-layout inputs on the card.  Poses scatter around the
-    synthetic skeleton; each window's crop origins sit around the first
-    probe's projection, so the k x k cell loop samples real weights."""
+    synthetic skeleton; each window's crop origins put the first probe's
+    projection where `placement` says (PLACEMENTS)."""
     from globalegomocap_tpu_torch.ops.skeleton import MEAN3D_MM
     dev = torch.device("cuda")
     base = torch.as_tensor(MEAN3D_MM / 1000.0, dtype=torch.float32,
@@ -196,16 +217,30 @@ def stage1_inputs(r, b, k, crop_dtype, gen, torch, fe, fisheye):
     s = 63.0 / 1024.0
     ix0, iy0, _ = fe.crop_coordinates(p0[:, 0], p0[:, 1], p0[:, 2], wvec,
                                       poly, s, s, 128.0)
-    jitter = lambda: torch.randint(-1, 2, (b, L), generator=gen,  # noqa
-                                   device=dev).float()
-    ox = (torch.floor(ix0) - k // 2 + jitter()).contiguous()
-    oy = (torch.floor(iy0) - k // 2 + jitter()).contiguous()
+    pick = lambda vals: torch.as_tensor(vals, dtype=torch.float32,  # noqa
+                                        device=dev)[torch.randint(
+                                            len(vals), (b, L), generator=gen,
+                                            device=dev)]
+    if placement == "near":
+        jitter = lambda: torch.randint(-1, 2, (b, L), generator=gen,  # noqa
+                                       device=dev).float()
+        ox = torch.floor(ix0) - k // 2 + jitter()
+        oy = torch.floor(iy0) - k // 2 + jitter()
+    elif placement == "off":
+        at = [k // 2, -1, k - 1, -3, k + 2, -1000, k + 1000]
+        ox = torch.floor(ix0) - pick(at)
+        oy = torch.floor(iy0) - pick(at)
+    else:
+        pose[0] = p0
+        at = list(range(k))
+        ox = ix0 - pick(at)
+        oy = iy0 - pick(at)
     crops = torch.rand((b, k * k, L), generator=gen, device=dev).to(
         crop_dtype).contiguous()
     bone = (0.1 + 0.4 * torch.rand((b, J), generator=gen, device=dev)
             ).repeat(1, T).contiguous()
-    return (pose, anchor, crops, ox, oy, bone, wvec, poly, T, J, k,
-            (64, 64), 128.0, 512.0)
+    return (pose, anchor, crops, ox.contiguous(), oy.contiguous(), bone,
+            wvec, poly, T, J, k, (64, 64), 128.0, 512.0)
 
 
 def stage2_inputs(r, b, gen, torch):
@@ -265,13 +300,16 @@ def agreement(fe, torch, name, args, e_k, g_k, e_p, g_p, axis_tol=0.0):
             int((~smooth).sum()) // 3)
 
 
-def compare_case(torch, fe, fisheye, name, r, b, k, crop_dtype, gen):
+def compare_case(torch, fe, fisheye, name, r, b, k, crop_dtype, gen,
+                 placement="near"):
     """One kernel against its plain version on the same CUDA inputs (see
-    `agreement`).  Returns (ok, message, max |error| of e and g)."""
+    `agreement`; `placement` as in stage1_inputs).  Returns (ok, message,
+    max |error| of e and g)."""
     if name == "fused_stage_energy":
-        args = stage1_inputs(r, b, k, crop_dtype, gen, torch, fe, fisheye)
+        args = stage1_inputs(r, b, k, crop_dtype, gen, torch, fe, fisheye,
+                             placement)
         call = fe.stage_energy_and_grad
-        tag = f"k={k} {str(crop_dtype).split('.')[-1]}"
+        tag = f"k={k} {str(crop_dtype).split('.')[-1]} {placement}"
     else:
         args = stage2_inputs(r, b, gen, torch)
         call = fe.stage_energy_and_grad_noreproj
@@ -320,18 +358,33 @@ def shadowed(torch, fe, log):
 def kernel_phase(torch, fe, fisheye, fails, seed, serve_b):
     """Both kernels against their plain versions: k=8 bf16 and k=16 f32
     crops, R in {1, 2, 4}, B=1037 (a multiple of no block size) and the
-    serve batch, plus the guard path's k=16 bf16 at R=4."""
+    serve batch, plus the guard path's k=16 bf16 at R=4; R=3; k=24; and
+    crop coordinates off the crops and on integer cells (`stage1_inputs`
+    placements)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     err = {"fused_stage_energy": 0.0, "fused_stage_energy_noreproj": 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for b in (1037, serve_b):
         for r in (1, 2, 4):
-            cases.append(("fused_stage_energy", r, b, 8, torch.bfloat16))
-            cases.append(("fused_stage_energy", r, b, 16, torch.float32))
+            cases.append(("fused_stage_energy", r, b, 8, bf16))
+            cases.append(("fused_stage_energy", r, b, 16, f32))
             cases.append(("fused_stage_energy_noreproj", r, b, 0, None))
-    cases.append(("fused_stage_energy", 4, serve_b, 16, torch.bfloat16))
+    cases += [("fused_stage_energy", 4, serve_b, 16, bf16),
+              ("fused_stage_energy", 3, serve_b, 8, bf16),
+              ("fused_stage_energy", 3, 37, 16, f32),
+              ("fused_stage_energy_noreproj", 3, serve_b, 0, None),
+              ("fused_stage_energy", 2, serve_b, 24, bf16),
+              ("fused_stage_energy", 4, 37, 24, f32),
+              ("fused_stage_energy", 2, serve_b, 8, bf16, "off"),
+              ("fused_stage_energy", 4, 37, 16, f32, "off"),
+              ("fused_stage_energy", 1, 37, 24, bf16, "off"),
+              ("fused_stage_energy", 2, serve_b, 8, bf16, "cells"),
+              ("fused_stage_energy", 3, 37, 16, bf16, "cells"),
+              ("fused_stage_energy", 2, 37, 24, f32, "cells")]
     for case in cases:
-        ok, msg, e = compare_case(torch, fe, fisheye, *case, gen)
+        ok, msg, e = compare_case(torch, fe, fisheye, *case[:5], gen,
+                                  *case[5:])
         fails.check(ok, msg)
         err[case[0]] = max(err[case[0]], e)
     return err
@@ -1266,7 +1319,9 @@ def direction_bound(b, m, d, n_valid, elem=4):
 def bound(name, r, b, k, crop_bytes):
     """(bound_ms, 'bytes' | 'operations') from the call's shapes: each
     input read once, each output written once; the operations counted
-    above over the float32 peak."""
+    above over the float32 peak.  The record of the dense k*k cell sum
+    (every crop byte, OPS_PER_CELL * k * k a point), kept beside
+    `tap_bound` so the shares of earlier PRs stay comparable."""
     pose_io = r * b * (3 * L * 4 * 2 + 4)          # pose in, g out, e out
     if name == "fused_stage_energy":
         ctx = b * (3 * L * 4 + k * k * L * crop_bytes + 3 * L * 4)
@@ -1275,6 +1330,53 @@ def bound(name, r, b, k, crop_bytes):
         ctx = b * (3 * L * 4 + L * 4)
         ops = r * b * L * OPS_PER_POINT_POSE
     return bound_of(pose_io + ctx, ops)
+
+
+def crop_tap_bytes(torch, fe, args):
+    """Bytes of crop the stage-1 kernel must read for these arguments: the
+    distinct 32-byte sectors of the (B, k*k, L) crops that hold at least
+    one in-range tap of a point of any probe row (columns floor(ix) and
+    floor(ix) + 1, rows likewise, as csrc/energy_core.cuh reads them; a
+    tap outside the crop is never read), counted as `sampler_map_bytes`
+    counts the sampler's.  The coordinates are the plain version's."""
+    pose, _, crops, ox, oy, _, wvec, poly = args[:8]
+    k, (fh, fw), offset, half = args[10:14]
+    ix, iy, _ = fe.crop_coordinates(
+        pose[:, :, 0], pose[:, :, 1], pose[:, :, 2], wvec, poly,
+        (fw - 1) / (2.0 * half), (fh - 1) / (2.0 * half), offset)
+    x0, y0 = (ix - ox).floor(), (iy - oy).floor()          # (R, B, L)
+    b = crops.shape[0]
+    win = torch.arange(b, device=pose.device)[None, :, None]
+    pt = torch.arange(L, device=pose.device)
+    e = crops.element_size()
+    sectors = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = y0 + dy, x0 + dx
+            ok = (y >= 0) & (y <= k - 1) & (x >= 0) & (x <= k - 1)  # NaN
+            cell = torch.where(ok, y * k + x, 0).long()
+            sectors.append((((win * k * k + cell) * L + pt) * e // 32)[ok])
+    return 32 * int(torch.unique(torch.cat(sectors)).numel())
+
+
+def tap_bound(torch, fe, name, args):
+    """(bound_ms, 'bytes' | 'operations', crop bytes) of one call of the
+    tap kernel on these arguments: the pose in, g and e out, the window
+    context (anchor, ox, oy, bone; anchor and bone without reprojection)
+    read once, the crop sectors `crop_tap_bytes` counts, and
+    OPS_PER_POINT_REPROJ + OPS_PER_POINT_TAPS (or OPS_PER_POINT_POSE)
+    operations a point."""
+    r, b = args[0].shape[:2]
+    pose_io = r * b * (3 * L * 4 * 2 + 4)
+    if name == "fused_stage_energy":
+        crop = crop_tap_bytes(torch, fe, args)
+        nbytes = pose_io + b * 6 * L * 4 + crop
+        ops = r * b * L * (OPS_PER_POINT_REPROJ + OPS_PER_POINT_TAPS)
+    else:
+        crop = 0
+        nbytes = pose_io + b * 4 * L * 4
+        ops = r * b * L * OPS_PER_POINT_POSE
+    return bound_of(nbytes, ops) + (crop,)
 
 
 def timing_new(torch, hs, ld, cb, seed, card):
@@ -1349,6 +1451,12 @@ def timing_new(torch, hs, ld, cb, seed, card):
 
 
 def timing_phase(torch, fe, fisheye, seed, b, card):
+    """Kernels 1 and 2 at the paths' shapes: the time at their plan (one
+    row a block), both bounds (the record `bound`, every crop byte and k*k
+    cells; `tap_bound`, what the taps need) and both shares, and the plain
+    version.  Returns {name:
+    (ms, plain_ms, bound_ms, bound_by, tag)} at each kernel's first shape,
+    its bound the tap bound."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     rows = {}
     shapes = [("fused_stage_energy", 2, b, 8, torch.bfloat16),
@@ -1367,16 +1475,38 @@ def timing_phase(torch, fe, fisheye, seed, b, card):
             args = stage2_inputs(r, bb, gen, torch)
             call = lambda: fe.stage_energy_and_grad_noreproj(*args)  # noqa
             cb = 0
+        p = fe.plan(r, bb, L)
         ms = graph_ms(torch, call)
         with fe.plain_versions_on_cuda():
             plain = event_ms(torch, call)
         bms, by = bound(name, r, bb, k, cb)
+        tms, tby, crop = tap_bound(torch, fe, name, args)
         tag = f"{name} R={r} B={bb}" + (f" k={k}" if k else "")
-        print(f"  time  {tag}: kernel {ms:.6f} ms, bound {bms:.6f} ms "
-              f"({by}), roofline share {bms / ms:.4f}, plain version "
-              f"{plain:.6f} ms (no yardstick) [{card}]", flush=True)
-        rows.setdefault(name, (ms, plain, bms, by, tag))
+        print(f"  time  {tag}: kernel {ms:.6f} ms at the plan's one row a "
+              f"block ({p.blocks} blocks of {p.threads} threads); tap "
+              f"bound {tms:.6f} ms ({tby}; {crop} bytes of crop sectors), "
+              f"share {tms / ms:.4f}; record bound {bms:.6f} ms ({by}), "
+              f"share {bms / ms:.4f}; plain version {plain:.6f} ms (no "
+              f"yardstick) [{card}]", flush=True)
+        rows.setdefault(name, (ms, plain, tms, tby, tag))
     return rows
+
+
+def launch_floor(torch, fe, card, rows):
+    """The no-op kernel's time (one block of one thread, CUDA graph
+    replay, as every kernel here is timed) beside kernel 2 and kernel 3
+    at their timed shapes: what separates a small kernel from its bound
+    that no change to its body removes."""
+    floor = graph_ms(torch, lambda: fe.launch_noop(torch.device("cuda")))
+    print(f"  time  launch floor (no-op kernel, 1 block of 1 thread): "
+          f"{floor:.6f} ms [{card}]", flush=True)
+    for name in ("fused_stage_energy", "fused_stage_energy_noreproj",
+                 "heatmap_sample", "heatmap_sample_bwd"):
+        ms, bms = rows[name][0], rows[name][2]
+        print(f"  time  {name} at its first timed shape: {ms:.6f} ms = "
+              f"{ms / floor:.2f} x the launch floor (bound {bms:.6f} ms) "
+              f"[{card}]", flush=True)
+    return floor
 
 
 def decode_bound(r, b, k, crop_bytes):
@@ -1823,6 +1953,7 @@ def main(argv=None) -> int:
     rows = timing_phase(torch, fe, fisheye, args.seed, wins, card)
     rows = {name: row[:4] + (None,) for name, row in rows.items()}
     rows.update(timing_new(torch, hs, ld, cb, args.seed, card))
+    launch_floor(torch, fe, card, rows)
     rows["fused_decode_stage_energy"] = timing_decode(
         torch, fe, fde, fisheye, args.seed, wins, card)
     phase_done("timing", t0)

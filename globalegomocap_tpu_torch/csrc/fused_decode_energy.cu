@@ -576,34 +576,44 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_energy_kernel(
     if (pi == pl.first_bwd) {
       // the energy, kEnergyRows rows at once (one group of kEnergyThreads
       // threads each; a group past the block's rows works on none), g =
-      // dE/dy in y's channel layout
+      // dE/dy in y's channel layout; the W2C polynomial stays in memory
+      // (16 more live registers spilled the 128-register wgmma loops)
       const int grp = threadIdx.x / kEnergyThreads;
       float* sa = scratch + imin(grp, kEnergyRows - 1) * 6 * L;
       float* sr = sa + 3 * L;
+      const int l = threadIdx.x - grp * kEnergyThreads;
       for (int r0 = 0; r0 < vrows; r0 += kEnergyRows) {
         const bool present = grp < kEnergyRows && r0 + grp < vrows;
+        const RowThreads rt{l, grp * (kEnergyThreads / 32),
+                            kEnergyThreads / 32, present};
+        const bool live = present && l < L;
         const int r = present ? r0 + grp : r0;
         const int row = row0 + r;
         const size_t ctx = static_cast<size_t>(row % B) * L;
-        const float* y = ybuf + r * kT * 3 * kJ;
+        float* y = ybuf + r * kT * 3 * kJ;
         float* gr = gbuf + r * kT * 3 * kJ;
+        const float px = live ? y[3 * l] : 0.f;
+        const float py = live ? y[3 * l + 1] : 0.f;
+        const float pz = live ? y[3 * l + 2] : 0.f;
         if (crop_bf16) {
-          WindowContext<__nv_bfloat16> win{
+          const WindowContext<__nv_bfloat16> win{
               anchor + 3 * ctx,
               static_cast<const __nv_bfloat16*>(crops) + ctx * k * k,
               ox + ctx, oy + ctx, bone + ctx};
-          energy_row<true, __nv_bfloat16, kEnergyThreads>(
-              y, PointLayout{1, 3}, sa, sr, sred, win, wvec, poly, npoly, L,
-              k, sx, sy, crop_offset, gr, PointLayout{1, 3}, e_out + row,
-              present);
+          energy_row<true, __nv_bfloat16, 0>(
+              rt, px, py, pz, load_context<true>(win, l, L, live), y,
+              PointLayout{1, 3}, false, sa, sr, sred, win.crops, wvec, poly,
+              npoly, L, k, sx, sy, crop_offset, gr, PointLayout{1, 3},
+              e_out + row);
         } else {
-          WindowContext<float> win{
+          const WindowContext<float> win{
               anchor + 3 * ctx, static_cast<const float*>(crops) + ctx * k * k,
               ox + ctx, oy + ctx, bone + ctx};
-          energy_row<true, float, kEnergyThreads>(
-              y, PointLayout{1, 3}, sa, sr, sred, win, wvec, poly, npoly, L,
-              k, sx, sy, crop_offset, gr, PointLayout{1, 3}, e_out + row,
-              present);
+          energy_row<true, float, 0>(
+              rt, px, py, pz, load_context<true>(win, l, L, live), y,
+              PointLayout{1, 3}, false, sa, sr, sred, win.crops, wvec, poly,
+              npoly, L, k, sx, sy, crop_offset, gr, PointLayout{1, 3},
+              e_out + row);
         }
       }
       if (pose_out != nullptr) {  // the checking path's view of the pose

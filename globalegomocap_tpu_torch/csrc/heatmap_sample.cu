@@ -37,56 +37,11 @@
 
 #include <cstddef>
 
+#include "taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// triangle weight max(0, 1 - |a|)
-__device__ __forceinline__ float tri(float a) {
-  return fmaxf(0.f, __fsub_rn(1.f, fabsf(a)));
-}
-
-// a.e. derivative of the triangle weight: -sign(a) inside |a| < 1, else 0
-__device__ __forceinline__ float tri_grad(float a) {
-  if (!(fabsf(a) < 1.f)) return 0.f;
-  return a > 0.f ? -1.f : (a < 0.f ? 1.f : 0.f);
-}
-
-// The (at most) two taps of one axis: integer positions c0 = floor(i) and
-// c0 + 1, whether each lies in [0, size - 1], and the offsets i - c.
-struct Axis {
-  int c0;
-  bool in0, in1;
-  float a0, a1;
-};
-
-__device__ __forceinline__ Axis axis_taps(float i, int size) {
-  const float f0 = floorf(i);
-  const float f1 = f0 + 1.f;
-  const float hi = static_cast<float>(size - 1);
-  Axis ax;
-  ax.in0 = f0 >= 0.f && f0 <= hi;
-  ax.in1 = f1 >= 0.f && f1 <= hi;
-  ax.c0 = (ax.in0 || ax.in1) ? static_cast<int>(f0) : 0;
-  ax.a0 = __fsub_rn(i, f0);
-  ax.a1 = __fsub_rn(i, f1);
-  return ax;
-}
-
-template <typename MapT>
-__device__ __forceinline__ float tap(const MapT* map, int W, const Axis& ay,
-                                     bool row1, const Axis& ax, bool col1) {
-  const bool in = (row1 ? ay.in1 : ay.in0) && (col1 ? ax.in1 : ax.in0);
-  if (!in) return 0.f;
-  const int h = ay.c0 + (row1 ? 1 : 0);
-  const int w = ax.c0 + (col1 ? 1 : 0);
-  return load_f32(map + static_cast<size_t>(h) * W + w);
-}
 
 // sum over the two taps of one axis: m0 * w0 + m1 * w1
 __device__ __forceinline__ float pair(float m0, float w0, float m1,
@@ -109,10 +64,10 @@ __global__ void heatmap_sample_fwd_kernel(const MapT* __restrict__ maps,
     const Axis ay = axis_taps(__fmul_rn(__fadd_rn(pt.y, 1.f), sy), H);
     const MapT* map = maps + static_cast<size_t>(n) * H * W;
     const float wx0 = tri(ax.a0), wx1 = tri(ax.a1);
-    const float in0 = pair(tap(map, W, ay, false, ax, false), wx0,
-                           tap(map, W, ay, false, ax, true), wx1);
-    const float in1 = pair(tap(map, W, ay, true, ax, false), wx0,
-                           tap(map, W, ay, true, ax, true), wx1);
+    const float in0 = pair(tap(map, W, 1, ay, false, ax, false), wx0,
+                           tap(map, W, 1, ay, false, ax, true), wx1);
+    const float in1 = pair(tap(map, W, 1, ay, true, ax, false), wx0,
+                           tap(map, W, 1, ay, true, ax, true), wx1);
     out[p] = pair(in0, tri(ay.a0), in1, tri(ay.a1));
   }
 }
@@ -132,10 +87,10 @@ __global__ void heatmap_sample_bwd_kernel(const MapT* __restrict__ maps,
     const Axis ax = axis_taps(__fmul_rn(__fadd_rn(pt.x, 1.f), sx), W);
     const Axis ay = axis_taps(__fmul_rn(__fadd_rn(pt.y, 1.f), sy), H);
     const MapT* map = maps + static_cast<size_t>(n) * H * W;
-    const float m00 = tap(map, W, ay, false, ax, false);
-    const float m01 = tap(map, W, ay, false, ax, true);
-    const float m10 = tap(map, W, ay, true, ax, false);
-    const float m11 = tap(map, W, ay, true, ax, true);
+    const float m00 = tap(map, W, 1, ay, false, ax, false);
+    const float m01 = tap(map, W, 1, ay, false, ax, true);
+    const float m10 = tap(map, W, 1, ay, true, ax, false);
+    const float m11 = tap(map, W, 1, ay, true, ax, true);
     const float wx0 = tri(ax.a0), wx1 = tri(ax.a1);
     const float wy0 = tri(ay.a0), wy1 = tri(ay.a1);
     const float dwx0 = tri_grad(ax.a0), dwx1 = tri_grad(ax.a1);

@@ -15,24 +15,31 @@ ct[..., None, None] * g, the JAX custom VJP (the TPU kernel has no
 backward kernel either).
 
 Dispatch: a CUDA tensor launches the hand-written kernel
-(`csrc/fused_energy.cu`, built and bound by `ops/cuda_build.py`) or
-raises; a CPU tensor runs the plain PyTorch version below, which mirrors
-`_energy_core` term by term with the same hand-written gradient.
-`cuda_build.LAUNCHES` counts kernel launches per wrapper.
+(`csrc/fused_energy.cu`, built and bound by `ops/cuda_build.py`), one
+(probe, window) row a block, at the launch that the kernel source's
+`fused_energy_plan` gives (`plan`; it raises for an L whose row does not
+fit a block), or raises; a CPU tensor runs the plain PyTorch version
+below, which mirrors `_energy_core` term by term with the same
+hand-written gradient and its dense k*k cell sum.  The kernel reads only
+the 2 x 2 crop taps around each point, which give the same sums for
+coordinates that are not NaN.  `cuda_build.LAUNCHES` counts kernel launches per
+wrapper.
 
-Bound on the H100 (computed from the shapes, not measured): per stage-1
-call with bf16 crops at k=8 the kernel must move about
-B*(1800 anchor + 19200 crops + 1800 ox/oy/bone) + R*B*(1800 pose in +
-1800 g out + 4 e) bytes and does about R*B*150*(k*k*14 + 120) float32
-operations; at B=3840, R=2 that is ~115 MB (~35 us at 3.35 TB/s) against
-~1.2 GFLOP (~17 us at 67 TFLOP/s): bytes bound it.  The no-reproj call
-moves B*(1800 + 600) + R*B*3604 bytes for ~R*B*150*120 operations, also
+Bound on the H100 (computed from the shapes and chip_smoke.py's inputs,
+not measured): per stage-1 call the kernel must move the pose in and g out
+(R*B*3604 bytes), the window context once (B*3600: anchor, ox, oy, bone)
+and the 32-byte crop sectors that hold an in-range tap, and do about 220
+float32 operations a point; at B=3840, R=2, k=8 that is ~68 MB (26 MB of
+it crop sectors, about a third of the crops; ~20 us at 3.35 TB/s) against
+~0.25 GFLOP (~4 us at 67 TFLOP/s): bytes bound it.  The no-reproj call
+moves B*(1800 + 600) + R*B*3604 bytes for ~R*B*150*60 operations, also
 bytes-bound.  chip_smoke.py measures the times; PERF.md records them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +58,8 @@ _SIGNATURES = {
          _CI, _CI, _CI, _CI, _CF, _CF, _CF, _VP], _CI),
     "fused_stage_energy_noreproj_launch": (
         [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP], _CI),
+    "fused_energy_plan": ([_CI, _CI, _CI, ctypes.POINTER(_CI)], _CI),
+    "fused_energy_noop_launch": ([_VP], _CI),
 }
 
 
@@ -70,8 +79,6 @@ def _check_common(pose_rt, anchor_t, bone, wvec, t, j):
     r, b, _, L = pose_rt.shape
     if j != len(KINEMATIC_PARENTS) or L != t * j:
         raise ValueError(f"L={L} must be t*j with j=15 (got t={t}, j={j})")
-    if L > 1024:
-        raise ValueError(f"L={L} exceeds one block (1024 threads)")
     if r < 1 or b < 1:
         raise ValueError("empty probe or window axis")
     dev = pose_rt.device
@@ -83,6 +90,48 @@ def _check_common(pose_rt, anchor_t, bone, wvec, t, j):
     _expect(bone, "bone", (b, L), f32, dev)
     _expect(wvec, "wvec", (1, 8), f32, dev)
     return r, b, L, dev
+
+
+# ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """The kernels' launch (the kernel source's `fused_energy_plan`), one
+    (probe, window) row a block: threads a block, dynamic shared memory
+    bytes, blocks."""
+    threads: int
+    smem: int
+    blocks: int
+
+
+_PLANS: dict = {}
+
+
+def plan(r: int, b: int, L: int) -> Plan:
+    """The launch for R probe rows of B windows of L points.  Raises
+    ValueError where the kernel cannot take L (one row of L points, one
+    thread each, must fit a block of 1024 threads)."""
+    key = (r, b, L)
+    if key not in _PLANS:
+        out = (_CI * 3)()
+        if not _library().fused_energy_plan(r, b, L, out):
+            raise ValueError(
+                f"fused_stage_energy: R={r}, B={b}, L={L}: the kernel cannot "
+                f"take L={L} (a row of L points, one thread each, must fit "
+                f"a block of 1024 threads)")
+        _PLANS[key] = Plan(*out)
+    return _PLANS[key]
+
+
+def launch_noop(dev: torch.device) -> None:
+    """Launch the library's no-op kernel (one block of one thread) on
+    `dev`'s current stream: the floor of one launch, timed by
+    chip_smoke.py.  Counts nothing."""
+    err = _library().fused_energy_noop_launch(cuda_build.stream_of(dev))
+    if err != 0:
+        raise RuntimeError(f"fused_energy_noop: CUDA launch failed with "
+                           f"error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +191,27 @@ def crop_coordinates(px, py, pz, wvec, poly, sx, sy, crop_offset):
     return ix, iy, partials
 
 
+def dense_cell_terms(ix, iy, crops, k):
+    """The dense bilinear sampling of the plain version (align_corners,
+    zero padding) over all k*k cells with the triangle kernel's a.e.
+    derivative: per cell and point the terms of s, ds/dix and ds/diy,
+    each (..., k*k, L) for ix, iy (..., L) and crops (..., k*k, L); their
+    sums over the cells are the samples.  A NaN coordinate gives NaN
+    terms, as JAX's jnp.maximum does (the kernel's taps read nothing
+    there and give 0)."""
+    cell = torch.arange(k * k, device=ix.device)
+    cxc = (cell % k).to(ix.dtype)[:, None]
+    cyc = (cell // k).to(ix.dtype)[:, None]
+    dx = ix[..., None, :] - cxc                  # (..., k*k, L)
+    dy = iy[..., None, :] - cyc
+    wx = (1.0 - dx.abs()).clamp_min(0.0)
+    wy = (1.0 - dy.abs()).clamp_min(0.0)
+    zero = torch.zeros_like(dx)
+    dwx = torch.where(dx.abs() < 1.0, -torch.sign(dx), zero)
+    dwy = torch.where(dy.abs() < 1.0, -torch.sign(dy), zero)
+    return crops * wx * wy, crops * dwx * wy, crops * wx * dwy
+
+
 def plain_energy_and_grad(pose_rt, anchor_t, crops, ox, oy, bone, wvec,
                           poly, t, j, k, sx, sy, crop_offset,
                           with_reproj: bool = True):
@@ -160,22 +230,8 @@ def plain_energy_and_grad(pose_rt, anchor_t, crops, ox, oy, bone, wvec,
                                         crop_offset)
         ix = ix0 - ox
         iy = iy0 - oy
-        # dense bilinear sampling over the k*k cells (align_corners, zero
-        # padding) with the triangle kernel's a.e. derivative
-        cell = torch.arange(k * k, device=pose_rt.device)
-        cxc = (cell % k).to(pose_rt.dtype)[:, None]
-        cyc = (cell // k).to(pose_rt.dtype)[:, None]
-        dx = ix[..., None, :] - cxc                  # (R, B, k*k, L)
-        dy = iy[..., None, :] - cyc
-        wx = (1.0 - dx.abs()).clamp_min(0.0)
-        wy = (1.0 - dy.abs()).clamp_min(0.0)
-        zero = torch.zeros_like(dx)
-        dwx = torch.where(dx.abs() < 1.0, -torch.sign(dx), zero)
-        dwy = torch.where(dy.abs() < 1.0, -torch.sign(dy), zero)
-        c = crops.to(pose_rt.dtype)
-        s = (c * wx * wy).sum(-2)
-        ds_dix = (c * dwx * wy).sum(-2)
-        ds_diy = (c * wx * dwy).sum(-2)
+        ts, tdx, tdy = dense_cell_terms(ix, iy, crops.to(pose_rt.dtype), k)
+        s, ds_dix, ds_diy = ts.sum(-2), tdx.sum(-2), tdy.sum(-2)
         e_rep = -s.sum(-1)
         dPx_dx, dPx_dy, dPx_dz, dPy_dx, dPy_dy, dPy_dz = dP
         gx_rep = -w_rep * (ds_dix * sx * dPx_dx + ds_diy * sy * dPy_dx)
@@ -250,6 +306,7 @@ def stage_energy_and_grad(pose_rt, anchor_t, crops, ox, oy, bone, wvec,
         return plain_energy_and_grad(pose_rt, anchor_t, crops, ox, oy,
                                      bone, wvec, poly, t, j, k, sx, sy,
                                      crop_offset)
+    plan(r, b, L)
     e = torch.empty((r, b), dtype=torch.float32, device=dev)
     g = torch.empty_like(pose_rt)
     err = _library().fused_stage_energy_launch(
@@ -269,6 +326,7 @@ def stage_energy_and_grad_noreproj(pose_rt, anchor_t, bone, wvec, t, j):
         return plain_energy_and_grad(pose_rt, anchor_t, None, None, None,
                                      bone, wvec, None, t, j, 0, 0.0, 0.0,
                                      0.0, with_reproj=False)
+    plan(r, b, L)
     e = torch.empty((r, b), dtype=torch.float32, device=dev)
     g = torch.empty_like(pose_rt)
     err = _library().fused_stage_energy_noreproj_launch(

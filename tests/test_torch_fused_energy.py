@@ -220,3 +220,116 @@ def test_wrapper_rejects_bad_arguments():
     bad[0] = _t(pose_rt).transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         tfe.stage_energy_and_grad(*bad)
+
+
+def _tap_sample(ix, iy, crops, k):
+    """PyTorch transcription of the kernel's 2 x 2-tap sampling
+    (csrc/taps.cuh and the reprojection of csrc/energy_core.cuh's
+    energy_row), float32: (s, ds/dix, ds/diy) for ix, iy (B, L) and crops
+    (B, k*k, L)."""
+    zero = torch.zeros((), dtype=ix.dtype)
+
+    def axis(i):
+        f0 = torch.floor(i)
+        f1 = f0 + 1.0
+        in0 = (f0 >= 0.0) & (f0 <= k - 1.0)
+        in1 = (f1 >= 0.0) & (f1 <= k - 1.0)
+        # an int only after the range test: NaN and +-1e30 read nothing
+        c0 = torch.where(in0 | in1, f0, zero).to(torch.int64)
+        return c0, (in0, in1), (i - f0, i - f1)
+
+    def tri(a):                       # fmaxf(0, 1 - |a|): NaN gives 0
+        w = 1.0 - a.abs()
+        return torch.where(w > 0.0, w, zero)
+
+    def tri_grad(a):
+        inner = torch.where(a > 0.0, -1.0, torch.where(a < 0.0, 1.0, 0.0))
+        return torch.where(a.abs() < 1.0, inner, zero)
+
+    cx0, inx, ax = axis(ix)
+    cy0, iny, ay = axis(iy)
+
+    def tap(row1, col1):
+        inside = iny[row1] & inx[col1]
+        cell = torch.where(inside, (cy0 + row1) * k + cx0 + col1, 0)
+        v = torch.gather(crops, 1, cell[:, None, :])[:, 0]
+        return torch.where(inside, v, zero)
+
+    s, dix, diy = (torch.zeros_like(ix) for _ in range(3))
+    # the dense loop's order: row c0 before c0 + 1, column c0 before c0 + 1
+    for row1 in (0, 1):
+        for col1 in (0, 1):
+            c = tap(row1, col1)
+            wx, wy = tri(ax[col1]), tri(ay[row1])
+            dwx, dwy = tri_grad(ax[col1]), tri_grad(ay[row1])
+            s = s + c * wx * wy
+            dix = dix + c * dwx * wy
+            diy = diy + c * wx * dwy
+    return s, dix, diy
+
+
+def _tap_coordinates(k, rng, b):
+    """(ix, iy) (b, L): random coordinates around and beyond the crop, and
+    on each axis the special places: exact integer cells (0 and k - 1
+    among them), half cells at both edges, just outside and far outside on
+    each side, NaN and +-1e30."""
+    special = np.array(
+        [0.0, k - 1.0, 1.0, k / 2, -0.5, k - 0.5, -1.0, float(k),
+         np.nextafter(np.float32(0), np.float32(-1)),
+         np.nextafter(np.float32(k - 1), np.float32(k)), -1.5, k + 0.5,
+         -7.0, k + 7.0, np.nan, 1e30, -1e30], np.float32)
+    n = b * L
+    ix = rng.uniform(-3.0, k + 2.0, n).astype(np.float32)
+    iy = rng.uniform(-3.0, k + 2.0, n).astype(np.float32)
+    m = len(special)
+    ix[:m * m] = np.repeat(special, m)          # every pair of specials
+    iy[:m * m] = np.tile(special, m)
+    ix[m * m:m * m + 40] = rng.integers(0, k, 40)   # integer on both axes
+    iy[m * m:m * m + 40] = rng.integers(0, k, 40)
+    perm = rng.permutation(n)
+    return (torch.from_numpy(ix[perm].reshape(b, L)),
+            torch.from_numpy(iy[perm].reshape(b, L)))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [8, 16, 24])
+def test_tap_sampling_equals_dense_cells(k, bf16):
+    """The kernel's 2 x 2 taps give the plain version's dense k*k cell
+    sum: bit for bit against the dense terms (`dense_cell_terms`) added in
+    the dense loop's cell order, and within the reassociation of four
+    float32 terms against `plain_energy_and_grad`'s `.sum` over the cells
+    (PyTorch sums the cells in blocks, so the four non-zero terms may pair
+    differently: at most 3 float32 eps of the sum of their magnitudes).
+    Both comparisons hold where neither coordinate is NaN: there the plain
+    version's clamp keeps the NaN (as JAX's jnp.maximum does), while the
+    taps read nothing and give 0 (the kernel's fmaxf drops a NaN), which
+    is checked on its own."""
+    rng = np.random.default_rng(40 + k + bf16)
+    b = 3
+    ix, iy = _tap_coordinates(k, rng, b)
+    crops = torch.from_numpy(rng.uniform(size=(b, k * k, L)).astype(
+        np.float32))
+    if bf16:
+        crops = crops.to(torch.bfloat16).to(torch.float32)
+    taps = _tap_sample(ix, iy, crops, k)
+    terms = tfe.dense_cell_terms(ix, iy, crops, k)
+    nan = torch.isnan(ix) | torch.isnan(iy)
+    assert nan.any() and not bool(nan.all())
+    eps = torch.finfo(torch.float32).eps
+    for got, t in zip(taps, terms):
+        ordered = torch.zeros_like(ix)
+        for cell in range(k * k):
+            ordered = ordered + t[:, cell]
+        assert torch.equal(got[~nan].view(torch.int32),
+                           ordered[~nan].view(torch.int32))
+        bound = 3 * eps * t.abs().sum(1)
+        assert bool(((got - t.sum(1)).abs() <= bound)[~nan].all())
+        assert bool((got[nan] == 0).all())
+    # the specials landed: NaN and +-1e30 read nothing, and some points
+    # sample a crop edge with one tap outside
+    s = taps[0]
+    assert bool(torch.isfinite(torch.stack(taps)).all())
+    far = ~(ix.abs() < 1e29) | ~(iy.abs() < 1e29)         # NaN too
+    assert far.any() and bool((s[far] == 0).all())
+    edge = (ix == -0.5) & (iy >= 0) & (iy <= k - 1)
+    assert edge.any() and bool((s[edge] > 0).all())

@@ -38,16 +38,59 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("name,k,dtype", [
-    ("fused_stage_energy", 8, torch.bfloat16),
-    ("fused_stage_energy", 16, torch.float32),
-    ("fused_stage_energy", 16, torch.bfloat16),
-    ("fused_stage_energy_noreproj", 0, None)])
-@pytest.mark.parametrize("r", [1, 2, 4])
-def test_kernel_matches_plain_version(gen, name, k, dtype, r):
-    ok, msg, _ = chip_smoke.compare_case(torch, fe, fisheye, name, r, 37, k,
-                                         dtype, gen)
+ENERGY_CASES = [
+    ("fused_stage_energy", k, dtype, placement)
+    for k, dtype in ((8, torch.bfloat16), (16, torch.float32),
+                     (16, torch.bfloat16), (24, torch.float32),
+                     (24, torch.bfloat16))
+    for placement in chip_smoke.PLACEMENTS] + [
+    ("fused_stage_energy_noreproj", 0, None, "near")]
+
+
+@pytest.mark.parametrize("name,k,dtype,placement", ENERGY_CASES)
+@pytest.mark.parametrize("b", [1, 37, 192])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_kernel_matches_plain_version(gen, name, k, dtype, placement, r, b):
+    """Kernels 1 and 2 against their plain version, with the crop
+    coordinates around the crop's middle, pushed off it on every side and
+    exactly on integer cells (chip_smoke.stage1_inputs), over R, B and
+    k."""
+    ok, msg, _ = chip_smoke.compare_case(torch, fe, fisheye, name, r, b, k,
+                                         dtype, gen, placement)
     assert ok, msg
+
+
+@pytest.mark.parametrize("r,b", [(2, 192), (1, 192), (4, 192), (2, 3840)])
+def test_energy_plan_at_the_timed_shapes(gen, r, b):
+    """The kernel source's plan (`fused_energy_plan`) at phase 4's shapes:
+    one (probe, window) row a block, so R * B blocks of 160 threads (L =
+    150 rounded up to whole warps), with the row's pose, acceleration and
+    bone scratch (9 L floats) and the (5, 32) partial sums in shared
+    memory."""
+    n = chip_smoke.L
+    assert fe.plan(r, b, n) == fe.Plan(160, 4 * (9 * n + 160), r * b)
+
+
+def test_energy_wrapper_raises_for_a_shape_the_plan_refuses(gen):
+    """69 frames make L = 1035 points, one thread each: a row does not fit
+    a block of 1024 threads, so both wrappers raise ValueError naming the
+    shape and launch nothing (the plain version would take it)."""
+    t = 69
+    args = list(chip_smoke.stage1_inputs(1, 3, 8, torch.float32, gen, torch,
+                                         fe, fisheye))
+    pose = torch.randn((1, 3, 3, 15 * t), device="cuda")
+    anchor, bone = pose[0].clone(), torch.ones((3, 15 * t), device="cuda")
+    crops = torch.rand((3, 64, 15 * t), device="cuda")
+    ox = oy = torch.zeros((3, 15 * t), device="cuda")
+    cb.reset_launches()
+    with pytest.raises(ValueError, match="R=1, B=3, L=1035"):
+        fe.stage_energy_and_grad(pose, anchor, crops, ox, oy, bone,
+                                 *args[6:8], t, 15, *args[10:])
+    with pytest.raises(ValueError, match="L=1035"):
+        fe.stage_energy_and_grad_noreproj(pose, anchor, bone, args[6], t,
+                                          15)
+    assert cb.LAUNCHES["fused_stage_energy"] == 0
+    assert cb.LAUNCHES["fused_stage_energy_noreproj"] == 0
 
 
 def test_launch_counter_and_backward(gen):
