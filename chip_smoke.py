@@ -34,7 +34,9 @@ Phases (any failure exits non-zero and prints no result line):
               64,64,128,256,512) with random priors from a seeded
               torch.Generator.  The kernels' launch counts are reset just
               before and read just after.  Then: one sequence through the
-              crop-guard trip path (k=16 crops, robust tier, R=4); a serve
+              crop-guard trip path (k=16 crops, robust tier, R=4); one
+              warm request's host staging with the native crop and with
+              the numpy crop, in turns (the same batch); a serve
               run in which every kernel call is also checked against the
               plain version on its own arguments; and serve runs with the
               plain versions swapped in (metrics and merged poses at 12+3
@@ -51,6 +53,16 @@ Phases (any failure exits non-zero and prints no result line):
               into the direction kernel: its launches, finite metrics,
               and per chunk the projected joints that fell exactly on
               the camera axis beside the chunk's MPJPE at each stage).
+3g. path D  - the parity CLI at its own defaults: no --solver flag
+              (strong-Wolfe L-BFGS, 25/25 iterations, history 25,
+              tolerance_change 1e-6, 25 line-search evaluations) with
+              --sampling pallas, on path A's traffic, with both priors
+              written as reference .pth.tar training checkpoints: through
+              the CLI and `optimize_sequence_dir`, heatmap_sample and its
+              backward launched exactly once per batched stage-1 call the
+              solver reports and no other kernel, a shadow run, a
+              plain-version run (17 metrics within 1 %), one chunk at
+              --solver adam.  (Run right after path A.)
 3e. path B  - serve's full-map guard fallback: one 16-chunk sequence with
               --sampling pallas --guard_crop 0 and a crop-mass bar no map
               meets; full maps staged, the robust tier, the launch counts
@@ -971,6 +983,188 @@ def path_a_phase(torch, seed, dev, fails, card, work,
     return launches
 
 
+def write_training_checkpoints(torch, tmp, work):
+    """The two priors of `work` as the reference's .pth.tar training
+    checkpoints ({'epoch', 'args', 'state_dict', 'eval_result',
+    'optimizer'}, an argparse.Namespace under 'args')."""
+    paths = []
+    for name, path in (("local", work[2]), ("global", work[3])):
+        out = os.path.join(tmp, f"{name}.pth.tar")
+        torch.save({"epoch": 0,
+                    "args": argparse.Namespace(latent_dim=LATENT,
+                                               seq_len=T),
+                    "state_dict": torch.load(path, weights_only=True),
+                    "eval_result": 0.0,
+                    "optimizer": {"state": {}, "param_groups": []}}, out)
+        paths.append(out)
+    return paths
+
+
+@contextlib.contextmanager
+def solver_calls(pipeline, log):
+    """Inside the block every per-window solve appends the batched
+    objective calls it reports (`LBFGSResult.n_calls`) to `log`: a
+    chunk's stage 1, then its stage 2."""
+    orig = (pipeline.lbfgs_minimize, pipeline.adam_minimize)
+
+    def recorded(solver):
+        def run(*args, **kwargs):
+            res = solver(*args, **kwargs)
+            log.append(res.n_calls)
+            return res
+        return run
+    pipeline.lbfgs_minimize, pipeline.adam_minimize = map(recorded, orig)
+    try:
+        yield log
+    finally:
+        pipeline.lbfgs_minimize, pipeline.adam_minimize = orig
+
+
+def path_d_phase(torch, seed, dev, fails, card, work,
+                 n_chunks=PATH_A_CHUNKS, n_frames=FRAMES, iters=None,
+                 profile=False):
+    """Path D: the parity CLI at its own defaults (strong-Wolfe L-BFGS,
+    25 + 25 iterations, history 25, tolerance_change 1e-6, 25 line-search
+    evaluations) with --sampling pallas, on priors written as reference
+    .pth.tar training checkpoints, over path A's traffic: through the CLI
+    and through `optimize_sequence_dir`, with the launch counts reset just
+    before and read just after each run and held against the batched
+    stage-1 calls the solver reports; then a shadow run, a plain-version
+    run and one chunk at --solver adam.  `iters` and the chunk shape are
+    cut only in a rehearsal on the CPU.  Returns the library run's launch
+    counts."""
+    from dataclasses import replace
+    from globalegomocap_tpu_torch.cli import optimize_sequence as cli
+    from globalegomocap_tpu_torch.cli.serve import load_state
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import METRIC_KEYS
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.optimize import pipeline
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model, optimize_sequence_dir)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    tmp = work[0]
+    root = os.path.join(tmp, "path_d")
+    write_sequences(root, 1, n_chunks, n_frames, seed + 7)   # path A's
+    seq = os.path.join(root, "seq0")
+    local_ckpt, global_ckpt = write_training_checkpoints(torch, root, work)
+    argv = ["--data_path", seq, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--sampling", "pallas", "--device", dev]
+    if iters is not None:
+        argv += ["--max_iter", str(iters)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    s = cfg.solver
+    print(f"  {n_chunks} chunks x {n_frames} frames, --solver {s.method}: "
+          f"{s.max_iter}+{s.global_max_iter or s.max_iter} iterations, "
+          f"history {s.history_size}, tolerance_change "
+          f"{s.tolerance_change}, {s.max_ls_evals} line-search "
+          f"evaluations", flush=True)
+    fails.check(s.method == "lbfgs", f"the CLI's default solver is "
+                f"{s.method!r}")
+
+    def expect_of(calls):
+        """heatmap_sample and its backward once per batched stage-1
+        call (value and gradient at every line-search point), no other
+        kernel."""
+        stage1 = sum(calls[0::2])
+        return {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
+                "heatmap_sample": stage1, "heatmap_sample_bwd": stage1,
+                "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
+
+    calls = []                                 # 1. the CLI
+    cb.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with solver_calls(pipeline, calls), contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    launches = dict(cb.LAUNCHES)
+    for line in out.splitlines()[-20:]:
+        print("  cli | " + line, flush=True)
+    fails.check(out.count("Average ") == 16 and "joints error is:" in out
+                and "total optimization time" in out,
+                f"optimize_sequence CLI with no --solver flag printed the "
+                f"17-metric summary ({wall:.2f} s)")
+    fails.check("SKIPPED" not in out, "CLI skipped no chunk")
+    fails.check(len(calls) == 2 * n_chunks and launches == expect_of(calls),
+                f"CLI launches {launches}; the solver reported {calls} "
+                f"batched calls (stage 1, stage 2 per chunk)")
+
+    model = build_model(cfg)                   # 2. the library, main run
+    opt = SequenceOptimizer(model, load_state(local_ckpt, model),
+                            load_state(global_ckpt, model), cfg, device=dev)
+    calls = []
+    cb.reset_launches()
+    with solver_calls(pipeline, calls):
+        errs, avg, timing = optimize_sequence_dir(opt, seq, verbose=False)
+    sync()
+    launches = main_launches = dict(cb.LAUNCHES)
+    print(f"  library run: launches {launches}; batched calls per stage "
+          f"{calls}; {timing['per_chunk_s'] * 1e3:.3f} ms per chunk of 12 "
+          f"windows [{card}]", flush=True)
+    fails.check(timing["failed_chunks"] == [],
+                f"no failed chunk ({timing['failed_chunks']})")
+    fails.check(len(calls) == 2 * n_chunks and launches == expect_of(calls),
+                f"library launches {launches}, expected "
+                f"{expect_of(calls)}")
+
+    log, sh_calls = [], []                     # 3. the shadow run
+    with shadowed_new(torch, hs, ld, cb, log), solver_calls(pipeline,
+                                                             sh_calls):
+        _, _, t_sh = optimize_sequence_dir(opt, seq, verbose=False)
+    fails.check(t_sh["failed_chunks"] == [],
+                f"shadow run: no failed chunk ({t_sh['failed_chunks']})")
+    check_shadow(fails, log, {k: v for k, v in expect_of(sh_calls).items()
+                              if k in ("heatmap_sample",
+                                       "heatmap_sample_bwd",
+                                       "lbfgs_direction")}, "path D")
+
+    with cb.plain_versions_on_cuda():          # 4. the plain versions
+        _, pavg, ptiming = optimize_sequence_dir(opt, seq, verbose=False)
+    fails.check(ptiming["failed_chunks"] == [], "plain run: no failed chunk")
+    worst = max(abs(float(avg[k]) - float(pavg[k])) / abs(float(pavg[k]))
+                for k in METRIC_KEYS[:17])
+    fails.check(worst <= 0.01,
+                f"path D 17 metrics with the kernels vs the plain versions: "
+                f"worst relative difference {worst:.3e} (bound 1 %); "
+                f"optimized_global_mpjpe {float(avg['optimized_global_mpjpe'])}"
+                f" vs {float(pavg['optimized_global_mpjpe'])}; "
+                f"{ptiming['per_chunk_s'] * 1e3:.3f} ms per chunk with the "
+                f"plain versions")
+
+    # 5. one chunk at --solver adam: 150 steps a stage, steps + 1 calls
+    cfg_a = replace(cfg, solver=replace(s, method="adam"))
+    opt_a = SequenceOptimizer(model, load_state(local_ckpt, model),
+                              load_state(global_ckpt, model), cfg_a,
+                              device=dev)
+    chunk = load_test_chunk(list_chunk_dirs(seq)[0])
+    calls = []
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    with solver_calls(pipeline, calls):
+        errs_a, *_ = opt_a.run(chunk)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(cb.LAUNCHES)
+    fails.check(calls == [s.adam_steps + 1] * 2
+                and launches == expect_of(calls),
+                f"adam: launches {launches}, batched calls {calls}, "
+                f"{wall * 1e3:.3f} ms for the chunk [{card}]")
+    fails.check(all(abs(float(errs_a[k])) < float("inf")
+                    for k in METRIC_KEYS[:17]),
+                f"adam: the 17 metrics finite (optimized_global_mpjpe "
+                f"{float(errs_a['optimized_global_mpjpe'])})")
+    if profile:
+        print("[3g'] profile of one path D chunk", flush=True)
+        profile_phase(torch, lambda: opt.optimize_chunk(chunk))
+    return main_launches
+
+
 def path_b_phase(torch, dev, fails, card, work,
                  shape=(CHUNKS, FRAMES), profile=False):
     """Path B: serve's full-map guard fallback on the first sequence of
@@ -1682,6 +1876,42 @@ def make_work(torch, seed, tmp, shape=(SEQUENCES, CHUNKS, FRAMES)):
     return tmp, data, local_ckpt, global_ckpt
 
 
+def staging_in_turns(torch, opt, chunks, fails, card, sync, rounds=3):
+    """One warm request's host staging (`SequenceOptimizer.stage`) with
+    the native crop (`native/hostcrop.c`, serve's) and with the numpy
+    crop swapped in, in turns (native, numpy, numpy, native, ...); both
+    must stage the same batch."""
+    from globalegomocap_tpu_torch.energy.terms import (
+        crop_heatmaps_channels_last_np)
+    from globalegomocap_tpu_torch.optimize import driver
+    native = driver.crop_peak_native
+
+    def numpy_crop(heat, k):
+        cr, org, hw, box, total = crop_heatmaps_channels_last_np(heat, k)
+        return cr.reshape(cr.shape[0], -1), org, hw, box, total
+    times, staged = {"native": [], "numpy": []}, {}
+    order = ["native", "numpy", "numpy", "native"] * ((rounds + 1) // 2)
+    for way in order[:2 * rounds]:
+        driver.crop_peak_native = native if way == "native" else numpy_crop
+        try:
+            t0 = time.perf_counter()
+            staged[way] = opt.stage(chunks, on_host=True)
+            sync()
+            times[way].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            driver.crop_peak_native = native
+    print("  host staging of one warm request in turns (ms): native crop "
+          + "/".join(f"{t:.3f}" for t in times["native"]) + ", numpy crop "
+          + "/".join(f"{t:.3f}" for t in times["numpy"])
+          + f" [{card}]", flush=True)
+    a, b = staged["native"], staged["numpy"]
+    fails.check(all(bool(torch.equal(getattr(a, n), getattr(b, n)))
+                    for n in ("est", "cams", "heat", "gt", "origins"))
+                and a.crop_coverage == b.crop_coverage,
+                f"the native and the numpy crop stage the same batch "
+                f"(coverage {a.crop_coverage} and {b.crop_coverage})")
+
+
 def serve_phase(torch, seed, dev, fails, card, work, profile=False,
                 shape=(SEQUENCES, CHUNKS, FRAMES)):
     """The main path: serve over synthetic sequences at full width with
@@ -1749,6 +1979,7 @@ def serve_phase(torch, seed, dev, fails, card, work, profile=False,
     print(f"  one warm request of {wins} windows: host staging "
           f"{t_stage * 1e3:.3f} ms, solve {t_solve * 1e3:.3f} ms "
           f"[{card}]", flush=True)
+    staging_in_turns(torch, opt, chunks, fails, card, sync)
 
     staged = opt.stage(chunks, on_host=True, coverage=0.1)
     fe.reset_launches()
@@ -1855,8 +2086,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one serve solve, one path A chunk, "
-                         "one path B solve and one path C solve with and "
-                         "without kernel 5 and at float32 (torch.profiler)")
+                         "one path D chunk, one path B solve and one path "
+                         "C solve with and without kernel 5 and at float32 "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "globalegomocap_tpu_torch")):
@@ -1933,6 +2165,13 @@ def main(argv=None) -> int:
             if k in ("heatmap_sample", "heatmap_sample_bwd",
                      "lbfgs_direction")})
         phase_done("path A", t0)
+        # ---- 3g. path D -----------------------------------------------------
+        print("[3g] path D: the parity CLI at its own defaults "
+              "(strong-Wolfe L-BFGS, .pth.tar priors)", flush=True)
+        t0 = time.perf_counter()
+        path_d_phase(torch, args.seed, "cuda", fails, card, work,
+                     profile=args.profile)
+        phase_done("path D", t0)
         # ---- 3e. path B -----------------------------------------------------
         print("[3e] path B: serve's full-map guard fallback", flush=True)
         t0 = time.perf_counter()

@@ -6,15 +6,17 @@ defaults, plus --device (the card unless `cpu`).  It prints the
 17-metric summary and the total optimisation time.
 
     python -m globalegomocap_tpu_torch.cli.optimize_sequence \\
-        --data_path data/jian3 --local_ckpt local.pt --global_ckpt global.pt \\
-        --solver lbfgs_fixed [--sampling pallas]
+        --data_path data/jian3 --local_ckpt local.pth.tar \\
+        --global_ckpt global.pth.tar [--sampling pallas]
 
-Checkpoints are ConvVAE state dicts saved with torch.save (loaded as the
-serve CLI loads them).  Options of later slices raise NotImplementedError
-naming the option: the default --solver lbfgs (strong-Wolfe) and adam,
---circular_history true, --save true, --profile_dir, flax msgpack and the
-reference's .pth.tar checkpoints, and the configurations that
-`optimize/pipeline.check_supported` names.
+With no --solver flag it runs the reference's solver, L-BFGS with a
+strong-Wolfe line search (`optimize/lbfgs.py::lbfgs_minimize`); --solver
+lbfgs_fixed and adam select the JAX package's other two.  Checkpoints are
+the reference's .pth.tar training checkpoints or bare ConvVAE state dicts
+saved with torch.save (`cli/serve.py::load_state`).  Options of later
+slices raise NotImplementedError naming the option: --circular_history
+true, --save true, --profile_dir, flax msgpack checkpoints, and the
+configurations that `optimize/pipeline.check_supported` names.
 """
 
 from __future__ import annotations
@@ -138,25 +140,18 @@ def config_from_args(args):
         final_smooth_method=args.final_smooth_method, merge=args.merge)
 
 
-def load_variables(path: str) -> dict:
-    """A prior's state dict: torch.save files load with the serve CLI's
-    `load_state`; the JAX package's other formats wait for a later
-    slice."""
+def load_variables(path: str, model) -> dict:
+    """A prior's state dict, checked against `model` (`serve.load_state`:
+    .pth.tar training checkpoints or bare state dicts); flax msgpack waits
+    for a later slice."""
     from globalegomocap_tpu_torch.cli.serve import load_state
-    if path.endswith((".pth.tar", ".pth", ".tar")):
-        raise NotImplementedError(
-            f"{path}: reference .pth.tar checkpoints are not ported yet")
     if path.endswith(".msgpack"):
         raise NotImplementedError(
             f"{path}: flax msgpack checkpoints are not ported yet")
-    return load_state(path)
+    return load_state(path, model)
 
 
 def _reject_later_slices(args) -> None:
-    if args.solver != "lbfgs_fixed":
-        raise NotImplementedError(
-            f"--solver {args.solver}: only lbfgs_fixed is ported yet (the "
-            "strong-Wolfe lbfgs and adam wait for a later slice)")
     for flag, on in (("--circular_history true", args.circular_history),
                      ("--save true", args.save),
                      ("--profile_dir", args.profile_dir is not None)):
@@ -176,8 +171,9 @@ def main(argv=None):
 
     cfg = config_from_args(args)
     check_supported(cfg)
-    opt = SequenceOptimizer(build_model(cfg), load_variables(args.local_ckpt),
-                            load_variables(args.global_ckpt), cfg,
+    model = build_model(cfg)
+    opt = SequenceOptimizer(model, load_variables(args.local_ckpt, model),
+                            load_variables(args.global_ckpt, model), cfg,
                             device=args.device)
     errors, averages, _ = optimize_sequence_dir(opt, args.data_path)
 

@@ -25,10 +25,12 @@ also with "failed_chunks").
         --local_ckpt local.pth.tar --global_ckpt global.pth.tar
 
 Checkpoints are ConvVAE state dicts in the reference's torch layout,
-saved with torch.save bare or under a 'state_dict' key (tensors and plain
-containers only: they load with weights_only=True).  Runs on the card
-unless --device cpu.  latency_ms covers host staging, the solve and the
-device sync, as the JAX serve's does when it stages inline.
+saved with torch.save bare or under a 'state_dict' key, as the
+reference's .pth.tar training checkpoints hold them (tensors, plain
+containers and an argparse.Namespace: they load with weights_only=True).
+Runs on the card unless --device cpu.  latency_ms covers host staging
+(the peak crops through `native/hostcrop.c`), the solve and the device
+sync, as the JAX serve's does when it stages inline.
 """
 
 from __future__ import annotations
@@ -135,11 +137,33 @@ def config_from_args(args) -> OptimizeConfig:
         final_smooth=args.final_smooth)
 
 
-def load_state(path: str) -> dict:
-    """A ConvVAE state dict from torch.save (bare or under 'state_dict');
-    weights_only=True refuses pickled objects other than tensors."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    return blob.get("state_dict", blob)
+def load_state(path: str, model=None) -> dict:
+    """A ConvVAE state dict from a torch.save file: bare, or under
+    'state_dict' as in the reference's .pth.tar training checkpoints
+    ({'epoch', 'args', 'state_dict', 'eval_result', 'optimizer'}).
+    weights_only=True lets through tensors, plain containers and the
+    checkpoint's argparse.Namespace, and refuses any other pickled object.
+    With `model` (a ConvVAE), a key the model lacks, a key of the model
+    the file lacks, or a value of another shape raises ValueError naming
+    them."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(blob, dict):
+        raise ValueError(f"{path}: holds a {type(blob).__name__}, not a "
+                         "state dict or a training checkpoint")
+    state = blob.get("state_dict", blob)
+    if model is not None:
+        want = model.state_dict()
+        missing = sorted(set(want) - set(state))
+        unexpected = sorted(set(state) - set(want))
+        shapes = [k for k in want if k in state and (
+            not isinstance(state[k], torch.Tensor)
+            or state[k].shape != want[k].shape)]
+        if missing or unexpected or shapes:
+            raise ValueError(
+                f"{path}: not a state dict of this prior: missing "
+                f"{missing}, unexpected {unexpected}, mis-shaped {shapes}")
+    return state
 
 
 def main(argv=None) -> int:
@@ -162,8 +186,9 @@ def main(argv=None) -> int:
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
     cfg = config_from_args(args)
-    opt = SequenceOptimizer(build_model(cfg), load_state(args.local_ckpt),
-                            load_state(args.global_ckpt), cfg,
+    model = build_model(cfg)
+    opt = SequenceOptimizer(model, load_state(args.local_ckpt, model),
+                            load_state(args.global_ckpt, model), cfg,
                             device=args.device)
     sync = (torch.cuda.synchronize if opt.device.type == "cuda"
             else (lambda: None))

@@ -4,8 +4,9 @@ guard, host staging, the flat batched solve and the per-chunk solve.
 Counterpart of `globalegomocap_tpu/optimize/driver.py`:
 `SequenceOptimizer` (BN folding at construction, the guard on raw maps
 `_crop_coverage`/`_effective_cfg`, `_cfg_for_coverage` with its
-`guard_crop` = 0 full-map fallback, `stage(on_host=True)`,
-`optimize_chunks_batched(mode="flat")`, `optimize_chunk`, `run`), and
+`guard_crop` = 0 full-map fallback, `stage(on_host=True)` through the
+native host crop, `optimize_chunks_batched(mode="flat")`,
+`optimize_chunk`, `run`), and
 `optimize_sequence_dir` (its per-chunk loop, with the per-chunk fault
 isolation; the batched variant waits for the port of `evaluate_all`) and
 `print_summary`.  Every derived configuration is built from the full
@@ -32,6 +33,7 @@ from globalegomocap_tpu_torch.energy.terms import (
 from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.models.fold_bn import fold_batchnorm
+from globalegomocap_tpu_torch.native.hostcrop import crop_peak_native
 from globalegomocap_tpu_torch.ops import fisheye
 from globalegomocap_tpu_torch.optimize import pipeline
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
@@ -155,12 +157,13 @@ class SequenceOptimizer:
 
     def stage(self, chunks: list[TestChunk], coverage: float | None = None,
               on_host: bool = True) -> StagedBatch:
-        """Crop the maps in numpy (argmax on the float32 maps), resolve
-        the crop-mass guard from the same pass (or take `coverage`), cast
-        the staged heat to bf16 when cfg.heatmap_dtype asks, and move the
-        stacked fields to the solve device once.  Without crops
-        (heatmap_crop = 0, reproj = 0, or a tripped guard with
-        guard_crop = 0) the full maps are staged."""
+        """Crop the maps on the host with the native kernel
+        (`native/hostcrop.c`: one pass a chunk, argmax on the float32
+        maps), resolve the crop-mass guard from its box and total sums (or
+        take `coverage`), cast the staged heat to bf16 when
+        cfg.heatmap_dtype asks, and move the stacked fields to the solve
+        device once.  Without crops (heatmap_crop = 0, reproj = 0, or a
+        tripped guard with guard_crop = 0) the full maps are staged."""
         if not on_host:
             raise NotImplementedError(
                 "stage(on_host=False) (device staging) is not ported yet")
@@ -178,9 +181,9 @@ class SequenceOptimizer:
         full_hw = None
         if kk > 0 and use_reproj:
             for c in chunks:   # per chunk: bounds host temp memory
-                cr, org, full_hw, box, total = \
-                    crop_heatmaps_channels_last_np(np.asarray(c.heatmaps), kk)
-                crops_l.append(cr.reshape(cr.shape[0], -1))  # flat contract
+                cr, org, full_hw, box, total = crop_peak_native(c.heatmaps,
+                                                                kk)
+                crops_l.append(cr)                 # the flat layout
                 orgs_l.append(org)
                 if guard_on and coverage is None:
                     ratios.append(crop_coverage_np(box, total))

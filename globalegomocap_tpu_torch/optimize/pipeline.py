@@ -9,9 +9,10 @@ with one matrix that also applies the final Gaussian smoothing.
 
 Two entry points, as in the JAX package:
 
-- `optimize_chunk`: one chunk, per-window solves (`lbfgs_minimize_fixed`
-  with the window axis written out), k x k crops cut on the device before
-  windowing when `heatmap_crop` > 0, else full maps;
+- `optimize_chunk`: one chunk, per-window solves (`solver.method`'s
+  solver with the window axis written out: strong-Wolfe `lbfgs_minimize`,
+  `lbfgs_minimize_fixed` or `adam_minimize`), k x k crops cut on the
+  device before windowing when `heatmap_crop` > 0, else full maps;
 - `optimize_chunks_flat`: many equal-length chunks with all windows in
   one flat batch (`lbfgs_minimize_fixed_batched`), on staged crops or on
   full maps (the guard-trip fallback with `guard_crop` = 0).
@@ -51,7 +52,8 @@ from globalegomocap_tpu_torch.ops.skeleton import mean_bone_lengths
 from globalegomocap_tpu_torch.ops.transforms import (
     relative_global_pose, relative_to_global_pose, transform_pose)
 from globalegomocap_tpu_torch.optimize.lbfgs import (
-    lbfgs_minimize_fixed, lbfgs_minimize_fixed_batched)
+    adam_minimize, lbfgs_minimize, lbfgs_minimize_fixed,
+    lbfgs_minimize_fixed_batched)
 from globalegomocap_tpu_torch.optimize.window import (
     merge_windows_matmul, slice_windows)
 
@@ -76,8 +78,6 @@ def check_supported(cfg: OptimizeConfig) -> None:
     s, e = cfg.solver, cfg.energy
     impl = cfg.decoder_impl or ("dense" if cfg.dense_decoder else "conv")
     unsupported = [
-        (s.method != "lbfgs_fixed",
-         f"solver.method={s.method!r} (strong-Wolfe lbfgs, adam)"),
         (s.compact_direction, "solver.compact_direction=True"),
         (s.circular_history, "solver.circular_history=True"),
         (s.remat, "solver.remat=True"),
@@ -120,6 +120,27 @@ def stage_weights(cfg: OptimizeConfig):
         bone_length=e.bone_length, vae=e.vae, reproj=e.reproj, gmm=e.gmm,
         soft_smooth=e.soft_smooth)
     return local_w, global_w
+
+
+def _solve(cfg: OptimizeConfig, loss, z0):
+    """The per-window solve of solver.method over the lanes of z0 (W, d):
+    'adam', 'lbfgs_fixed', else the strong-Wolfe 'lbfgs' (as JAX's
+    `_solve` dispatches)."""
+    s = cfg.solver
+    if s.method == "adam":
+        return adam_minimize(loss, z0, steps=s.adam_steps, lr=s.adam_lr)
+    if s.method == "lbfgs_fixed":
+        return lbfgs_minimize_fixed(
+            loss, z0, max_iter=s.max_iter, history_size=s.history_size,
+            lr=s.lr, step_candidates=tuple(s.step_candidates),
+            fused_probes=s.fused_probes,
+            compact_direction=s.compact_direction,
+            circular_history=s.circular_history,
+            pallas_direction=s.pallas_direction, unroll=s.unroll)
+    return lbfgs_minimize(
+        loss, z0, max_iter=s.max_iter, history_size=s.history_size,
+        lr=s.lr, tolerance_change=s.tolerance_change,
+        tolerance_grad=s.tolerance_grad, max_ls_evals=s.max_ls_evals)
 
 
 def _stage2_cfg(cfg: OptimizeConfig) -> OptimizeConfig:
@@ -328,14 +349,7 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
                 history_size=s.history_size, lr=s.lr,
                 step_candidates=tuple(s.step_candidates), unroll=s.unroll)
         else:
-            res = lbfgs_minimize_fixed(
-                batch_energy, mu, max_iter=s.max_iter,
-                history_size=s.history_size, lr=s.lr,
-                step_candidates=tuple(s.step_candidates),
-                fused_probes=s.fused_probes,
-                compact_direction=s.compact_direction,
-                circular_history=s.circular_history,
-                pallas_direction=s.pallas_direction, unroll=s.unroll)
+            res = _solve(cfg, batch_energy, mu)
         return decode(out_model, z_eff(res.x))
 
 

@@ -323,3 +323,18 @@ def test_decode_wrapper_raises_for_a_chain_the_plan_cannot_take(gen):
     with pytest.raises(ValueError, match=r"channels \(512, 4096, 45\)"):
         fde.decode_energy_and_grad(*args)
     assert cb.LAUNCHES["fused_decode_stage_energy"] == 0
+
+
+def test_path_d_at_a_small_size(gen, tmp_path):
+    """chip_smoke's path D on two 26-frame chunks at 3 + 3 iterations:
+    the parity CLI with no --solver flag on .pth.tar priors, heatmap_sample
+    and its backward launched once per batched stage-1 call the solver
+    reports, a shadow run, a plain-version run and one chunk at --solver
+    adam, every check passing."""
+    fails = chip_smoke.Failures()
+    work = chip_smoke.make_work(torch, 0, str(tmp_path), shape=(1, 2, 26))
+    launches = chip_smoke.path_d_phase(torch, 0, "cuda", fails, "test",
+                                       work, n_chunks=2, n_frames=26,
+                                       iters=3)
+    assert fails.items == []
+    assert launches["heatmap_sample"] > 0

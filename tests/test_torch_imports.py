@@ -22,6 +22,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from globalegomocap_tpu_torch.optimize.lbfgs import (  # noqa: F401
+    adam_minimize, lbfgs_minimize)
+from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
+    crop_peak_native)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "globalegomocap_tpu" or m.startswith("globalegomocap_tpu.")]
@@ -41,7 +45,7 @@ def test_port_imports_no_jax():
                 "ops.heatmap_sample",
                 "ops.lbfgs_direction", "ops.sampling", "optimize.driver",
                 "optimize.pipeline", "optimize.lbfgs", "models.convert",
-                "data.synthetic"):
+                "data.synthetic", "native.hostcrop"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 
