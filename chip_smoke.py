@@ -79,6 +79,26 @@ Phases (any failure exits non-zero and prints no result line):
               plain-version run (17 metrics within 1 %); one request
               timed in turns with kernel 5, without it, and on
               serve-f32-full's float32 stack.
+3h. serve at the JAX serve's defaults - the serve CLI with no flag but
+              the paths (prefetch depth 2, in-flight depth 3, guard policy
+              'first', host staging, bfloat16_delta) over 6 sequences x 16
+              chunks x 100 frames (2 of them phase 3's): its launch counts,
+              its metrics against an inline run (--prefetch_depth 0
+              --max_in_flight 1, 1 %), sustained windows/s (first staging
+              or submission to the last record) at the defaults and inline
+              in turns, 3 rounds each; a warm optimize_chunks_batched at
+              serve's defaults under torch.cuda.set_sync_debug_mode("error");
+              StagePrefetcher's batches against inline staging bit for bit
+              and torch.cuda.memory_allocated() over the 6 submissions;
+              device staging against host staging (bit for bit, coverage
+              1e-6) timed in turns; the guard policy (a noise-map sequence
+              solved at the clean first sequence's decision, by kernel 1's
+              launches); one warm request at --decoder_impl dense, shift
+              and shift --decoder_dtype bfloat16 against conv at float32
+              compute (1 %, 5 % at bf16; solve ms, device launches); and
+              the CLI in watch mode as its own process, a third sequence
+              renamed into the root after the first record (3 records,
+              exit 0).
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -109,6 +129,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -782,10 +803,11 @@ def check_shadow(fails, log, expected, what):
 # phase 3: the serve path
 # ---------------------------------------------------------------------------
 
-def write_sequences(root, n_seq, n_chunks, n_frames, seed):
+def write_sequences(root, n_seq, n_chunks, n_frames, seed, first=0):
+    """Sequences seq{first} .. seq{n_seq - 1} of synthetic chunks."""
     from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
     from globalegomocap_tpu_torch.data.test_data import save_test_chunk
-    for s in range(n_seq):
+    for s in range(first, n_seq):
         for c in range(n_chunks):
             chunk = synthetic_chunk(n_frames, seed=seed * 1000 + 100 * s + c)
             start = c * n_frames
@@ -1425,6 +1447,383 @@ def path_c_phase(torch, dev, fails, card, work,
             profile_phase(torch, lambda: o.optimize_chunks_batched(
                 staged[0], mode="flat"))
     return main_launches
+
+
+# phase 3h: serve at the JAX serve's own defaults
+# ---------------------------------------------------------------------------
+
+SEQUENCES_3H = 6
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout that keeps each JSON line with the host clock at which it
+    was printed, and sets `first` at the first one."""
+
+    def __init__(self):
+        self.lines: list[tuple[float, str]] = []
+        self.first = threading.Event()
+        self._part = ""
+
+    def write(self, text):
+        self._part += text
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            if line.startswith("{"):
+                self.lines.append((time.perf_counter(), line))
+                self.first.set()
+        return len(text)
+
+
+def sustained_serve(serve, argv):
+    """serve.main(argv) with the host clock read at its first staging or
+    submission and at each record: (records, windows/s from the first
+    staging or submission to the last record, seconds of that span)."""
+    from globalegomocap_tpu_torch.optimize import driver, streaming
+    starts = []
+    stage, submit = (driver.SequenceOptimizer.stage,
+                     streaming.StreamingOptimizer.submit_batch)
+
+    def first(fn):
+        def wrapped(*a, **k):
+            starts.append(time.perf_counter())
+            return fn(*a, **k)
+        return wrapped
+    out = TimedLines()
+    driver.SequenceOptimizer.stage = first(stage)
+    streaming.StreamingOptimizer.submit_batch = first(submit)
+    try:
+        with contextlib.redirect_stdout(out):
+            serve.main(argv)
+    finally:
+        driver.SequenceOptimizer.stage = stage
+        streaming.StreamingOptimizer.submit_batch = submit
+    recs = [json.loads(line) for _, line in out.lines]
+    span = out.lines[-1][0] - min(starts)
+    return recs, sum(r.get("windows", 0) for r in recs) / span, span
+
+
+def link_sequence(src, dst):
+    """A sequence directory `dst` whose chunk directories link to `src`'s
+    (the same pickles, no copy)."""
+    from globalegomocap_tpu_torch.data.test_data import list_chunk_dirs
+    os.makedirs(dst)
+    for d in list_chunk_dirs(src):
+        os.symlink(d, os.path.join(dst, os.path.basename(d)))
+
+
+def device_launches(torch, fn):
+    """(device launches, device busy ms) of one call of `fn` under
+    torch.profiler (a warm call runs first)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def watch_run(root, prepared, local_ckpt, global_ckpt, dev, fails):
+    """The serve CLI in watch mode as its own process: two sequences in
+    the root, a third (fully written elsewhere) renamed in after the
+    first record; --max_batches 3 must emit all three and exit 0."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "globalegomocap_tpu_torch.cli.serve",
+           "--data_root", root, "--local_ckpt", local_ckpt, "--global_ckpt",
+           global_ckpt, "--device", dev, "--watch_interval", "0.2",
+           "--max_batches", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    recs, renamed = [], None
+    try:
+        for line in proc.stdout:
+            if not line.startswith("{"):
+                continue
+            recs.append(json.loads(line))
+            if renamed is None:
+                os.rename(prepared, os.path.join(root, "seqW2"))
+                renamed = time.perf_counter() - t0
+        rc = proc.wait(timeout=120)
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for rec in recs:
+        print("  watch " + json.dumps(rec), flush=True)
+    names = [r.get("sequence") for r in recs]
+    fails.check(rc == 0 and names == ["seqW0", "seqW1", "seqW2"]
+                and all("error" not in r for r in recs),
+                f"watch mode (--watch_interval 0.2 --max_batches 3): the "
+                f"third sequence renamed in {renamed:.2f} s after start, "
+                f"records {names}, exit code {rc} in "
+                f"{time.perf_counter() - t0:.1f} s"
+                + (f"; stderr {err[-400:]}" if rc else ""))
+
+
+def write_noise_sequence(root, name, n_chunks, n_frames, seed):
+    """A sequence of synthetic chunks whose maps are flat uniform noise:
+    the k=8 peak crops keep about 64 / (64 * 64) of their mass."""
+    import numpy as np
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
+    from globalegomocap_tpu_torch.data.test_data import save_test_chunk
+    rng = np.random.default_rng(seed)
+    for c in range(n_chunks):
+        chunk = synthetic_chunk(n_frames, seed=seed * 1000 + 500 + c)
+        chunk = chunk._replace(heatmaps=rng.random(
+            chunk.heatmaps.shape, dtype=np.float32))
+        start = c * n_frames
+        save_test_chunk(chunk, os.path.join(
+            root, name, f"data_start_{start}_end_{start + n_frames}"))
+
+
+def serve_defaults_phase(torch, seed, dev, fails, card, work,
+                         shape=(SEQUENCES_3H, CHUNKS, FRAMES), rounds=3):
+    """[3h] The serve CLI at the JAX serve's defaults (prefetch depth 2,
+    in-flight depth 3, guard policy 'first', host staging, bfloat16_delta)
+    with no flag but the paths, over `shape` sequences: the launch counts
+    reset just before and read just after (returned); its metrics against
+    an inline run; sustained windows/s at the defaults and inline, in
+    turns; a warm dispatch under set_sync_debug_mode('error'); prefetched
+    staging against inline staging with the device memory over the
+    submissions; device staging against host staging, in turns; watch
+    mode; the guard policy on a degraded second sequence; the dense and
+    shift decoders against conv."""
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.optimize.streaming import (
+        StagePrefetcher, StreamingOptimizer)
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    n_seq, n_chunks, n_frames = shape
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tmp, data, local_ckpt, global_ckpt = work
+    first_two = sorted(os.listdir(data))[:2]
+    root = os.path.join(tmp, "defaults")
+    t0 = time.perf_counter()
+    for s in range(n_seq):
+        if s < len(first_two):
+            link_sequence(os.path.join(data, first_two[s]),
+                          os.path.join(root, f"seq{s}"))
+    write_sequences(root, n_seq, n_chunks, n_frames, seed + 17,
+                    first=len(first_two))
+    print(f"  {n_seq} sequences under {root} ({time.perf_counter() - t0:.1f}"
+          f" s to write the new ones)", flush=True)
+    paths = ["--local_ckpt", local_ckpt, "--global_ckpt", global_ckpt]
+    base = ["--data_root", root] + paths + (
+        [] if cuda else ["--device", "cpu"])
+    cfg = serve.config_from_args(serve.build_parser().parse_args(base))
+    wins = num_windows(n_frames) * n_chunks
+    inline = ["--prefetch_depth", "0", "--max_in_flight", "1"]
+
+    # 1. the sequences at the defaults (the launch counts), then inline,
+    # then the rest of the rounds in turns
+    cb.reset_launches()
+    recs, rate, span = sustained_serve(serve, base)
+    launches = dict(cb.LAUNCHES)
+    rates = {"defaults": [rate], "inline": []}
+    per_seq = {"fused_stage_energy": 1 + cfg.solver.max_iter,
+               "fused_stage_energy_noreproj": 1 + cfg.solver.global_max_iter}
+    fails.check(len(recs) == n_seq and all(
+        set(r) == {"sequence", "chunks", "windows", "latency_ms",
+                   "windows_per_sec", "optimized_global_mpjpe",
+                   "original_global_mpjpe"} and r["windows"] == wins
+        for r in recs), f"serve at its defaults (prefetch "
+        f"{serve.build_parser().get_default('prefetch_depth')}, in flight "
+        f"{serve.build_parser().get_default('max_in_flight')}, "
+        f"{cfg.compute_dtype}): {len(recs)} of {n_seq} records with the "
+        f"JAX keys, {wins} windows each")
+    for name, n in per_seq.items():
+        fails.check(launches.get(name) == n * n_seq,
+                    f"{name}: {launches.get(name)} launches at the "
+                    f"defaults, {n * n_seq} expected")
+    irecs, irate, _ = sustained_serve(serve, base + inline)
+    rates["inline"].append(irate)
+    for r, q in zip(recs, irecs):
+        for key in ("optimized_global_mpjpe", "original_global_mpjpe"):
+            fails.check(r["sequence"] == q["sequence"]
+                        and abs(r[key] - q[key]) <= 0.01 * abs(q[key]),
+                        f"{r['sequence']} {key} {r[key]} at the defaults, "
+                        f"{q[key]} inline (1 %)")
+    order = ["inline", "defaults", "defaults", "inline"] * rounds
+    for way in order[:2 * (rounds - 1)]:
+        rates[way].append(sustained_serve(
+            serve, base + (inline if way == "inline" else []))[1])
+    ratio = (sum(rates["defaults"]) / len(rates["defaults"])) / (
+        sum(rates["inline"]) / len(rates["inline"]))
+    print(f"  sustained windows/s in turns (first staging or submission to "
+          f"the last record, {n_seq} x {wins} windows): defaults "
+          + "/".join(f"{x:.1f}" for x in rates["defaults"]) + ", inline "
+          + "/".join(f"{x:.1f}" for x in rates["inline"])
+          + f"; ratio of the means {ratio:.3f} [{card}]", flush=True)
+    print("  latency_ms at the defaults " + "/".join(
+        str(r["latency_ms"]) for r in recs) + ", inline " + "/".join(
+        str(r["latency_ms"]) for r in irecs), flush=True)
+
+    # 2. a warm dispatch at serve's defaults waits for nothing
+    opt = SequenceOptimizer(build_model(cfg), serve.load_state(local_ckpt),
+                            serve.load_state(global_ckpt), cfg, device=dev)
+    seq_dirs = [os.path.join(root, n) for n in sorted(os.listdir(root))]
+    requests = [[load_test_chunk(d) for d in list_chunk_dirs(q)]
+                for q in seq_dirs]
+    staged = opt.stage(requests[0], on_host=True)
+    for _ in range(2):
+        opt.optimize_chunks_batched(staged, mode="flat")
+    sync()
+    if cuda:
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            res = opt.optimize_chunks_batched(staged, mode="flat")
+            t_disp = time.perf_counter() - t0
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+        t_done = time.perf_counter() - t0
+        fails.check(err is None and bool(torch.isfinite(res.optimized).all()),
+                    "a warm optimize_chunks_batched(staged, mode='flat') at "
+                    "serve's defaults under set_sync_debug_mode('error'): "
+                    + (f"raised: {err}" if err else
+                       f"no synchronising call; returned after "
+                       f"{t_disp * 1e3:.3f} ms, done after "
+                       f"{t_done * 1e3:.3f} ms [{card}]"))
+
+    # 3. prefetched staging against inline staging; device memory over
+    # the submissions
+    service = StreamingOptimizer(opt, max_in_flight=3, stage_on_host=True)
+    mem, same = [], []
+    nbytes, first_cov = 0, None
+    for batch, pre in zip(requests, StagePrefetcher(opt, requests, depth=2,
+                                                    on_host=True)):
+        service.submit_batch(pre)          # waits on the staging event
+        # inline staging under the same guard policy: the first batch's
+        # coverage measured, then reused
+        ref = opt.stage(batch, coverage=first_cov, on_host=True)
+        first_cov = ref.crop_coverage
+        same.append(all(bool(torch.equal(a, b)) for a, b in
+                        zip(pre.tensors(), ref.tensors()))
+                    and pre.crop_coverage == ref.crop_coverage)
+        nbytes = max(nbytes, sum(t.numel() * t.element_size()
+                                 for t in ref.tensors()))
+        del ref
+        service._completed.clear()         # emitted, as serve does
+        if cuda:
+            mem.append(torch.cuda.memory_allocated())
+    out = service.drain()
+    fails.check(all(same) and len(same) == n_seq,
+                f"prefetched staging equals inline staging bit for bit "
+                f"({sum(same)} of {n_seq} batches)")
+    if cuda:
+        res_bytes = sum(x.numel() * x.element_size() for x in out[-1]) \
+            if out else 0
+        grow = max(mem[3:], default=mem[-1]) - mem[2]
+        fails.check(grow <= nbytes + res_bytes,
+                    f"device memory over {n_seq} prefetched submissions at "
+                    f"in-flight depth 3: " + "/".join(
+                        f"{m / 2**20:.1f}" for m in mem) + " MiB, growth "
+                    f"after the third {grow / 2**20:.2f} MiB (bound: one "
+                    f"staged batch {nbytes / 2**20:.2f} + one result "
+                    f"{res_bytes / 2**20:.2f} MiB)")
+
+    # 4. device staging against host staging, in turns
+    times, got = {"host": [], "device": []}, {}
+    for way in (["host", "device", "device", "host"] * rounds)[:2 * rounds]:
+        t0 = time.perf_counter()
+        got[way] = opt.stage(requests[0], on_host=way == "host")
+        sync()
+        times[way].append((time.perf_counter() - t0) * 1e3)
+    h, d = got["host"], got["device"]
+    fails.check(all(bool(torch.equal(a, b)) for a, b in
+                    zip(h.tensors(), d.tensors()))
+                and abs(h.crop_coverage - d.crop_coverage)
+                <= 1e-6 * abs(h.crop_coverage),
+                f"device staging equals host staging: crops, origins and "
+                f"fields bit for bit, coverage {d.crop_coverage} against "
+                f"{h.crop_coverage} (1e-6)")
+    print("  staging of one warm request in turns (ms): host "
+          + "/".join(f"{t:.3f}" for t in times["host"]) + ", device "
+          + "/".join(f"{t:.3f}" for t in times["device"]) + f" [{card}]",
+          flush=True)
+
+    # 5. the guard policy: a degraded second sequence takes the first's
+    # decision (a per-sequence guard would trip it into the robust tier)
+    groot = os.path.join(tmp, "guard")
+    link_sequence(seq_dirs[0], os.path.join(groot, "seqG0"))
+    write_noise_sequence(groot, "seqG1", 2, n_frames, seed)
+    noisy = [load_test_chunk(d) for d in
+             list_chunk_dirs(os.path.join(groot, "seqG1"))]
+    cov_noise = opt.stage(noisy, on_host=True).crop_coverage
+    cb.reset_launches()
+    grecs, _ = run_serve(serve, ["--data_root", groot] + paths
+                         + ([] if cuda else ["--device", "cpu"]))
+    glaunch = dict(cb.LAUNCHES)
+    want = 2 * per_seq["fused_stage_energy"] if cuda else 0
+    fails.check(len(grecs) == 2 and all("error" not in r for r in grecs)
+                and glaunch.get("fused_stage_energy", 0) == want
+                and cov_noise < cfg.heatmap_crop_min_mass,
+                f"guard policy 'first': the noise sequence (its own "
+                f"coverage {cov_noise:.4f}) solved at the first sequence's "
+                f"decision: {glaunch.get('fused_stage_energy')} stage-1 "
+                f"launches, {want} expected")
+
+    # 6. the dense and shift decoders against conv, one warm request each
+    solve_ms, metrics = {}, {}
+    for label, flags in (("conv", []), ("dense", ["--decoder_impl", "dense"]),
+                         ("shift", ["--decoder_impl", "shift"]),
+                         ("shift bf16", ["--decoder_impl", "shift",
+                                         "--decoder_dtype", "bfloat16"])):
+        c = serve.config_from_args(serve.build_parser().parse_args(
+            base + ["--compute_dtype", "float32"] + flags))
+        o = SequenceOptimizer(build_model(c), serve.load_state(local_ckpt),
+                              serve.load_state(global_ckpt), c, device=dev)
+        o.optimize_chunks_batched(staged, mode="flat")
+        sync()
+        t0 = time.perf_counter()
+        r = o.optimize_chunks_batched(staged, mode="flat")
+        sync()
+        solve_ms[label] = (time.perf_counter() - t0) * 1e3
+        errs = calculate_errors(r.estimated, r.mid, r.optimized, r.gt)
+        metrics[label] = {k: float(errs[k].mean()) for k in (
+            "optimized_global_mpjpe", "original_global_mpjpe",
+            "mid_global_mpjpe")}
+        n_launch, busy = device_launches(torch, lambda: o.optimize_chunks_batched(
+            staged, mode="flat")) if cuda else (0, 0.0)
+        print(f"  decoder {label}: solve {solve_ms[label]:.3f} ms, "
+              f"{n_launch} device launches, device busy {busy:.3f} ms, "
+              f"optimized_global_mpjpe "
+              f"{metrics[label]['optimized_global_mpjpe']:.6f} [{card}]",
+              flush=True)
+        if label != "conv":
+            bar = 0.05 if "bf16" in label else 0.01
+            fails.check(all(abs(metrics[label][k] - metrics["conv"][k])
+                            <= bar * abs(metrics["conv"][k])
+                            for k in metrics[label]),
+                        f"decoder {label} at float32 compute: metrics within "
+                        f"{bar:.0%} of conv's")
+        del o
+
+    # 7. watch mode, its own process
+    wroot = os.path.join(tmp, "watch")
+    for s in range(2):
+        link_sequence(seq_dirs[s], os.path.join(wroot, f"seqW{s}"))
+    prepared = os.path.join(tmp, "prepared_seqW2")
+    link_sequence(seq_dirs[2 % len(seq_dirs)], prepared)
+    watch_run(wroot, prepared, local_ckpt, global_ckpt, dev, fails)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2185,6 +2584,15 @@ def main(argv=None) -> int:
             torch, "cuda", fails, card, work, profile=args.profile)[
             "fused_decode_stage_energy"]
         phase_done("path C", t0)
+        # ---- 3h. serve at the JAX serve's defaults ---------------------------
+        print("[3h] serve at the JAX serve's defaults (prefetch 2, in flight "
+              "3, guard 'first', host staging)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in serve_defaults_phase(torch, args.seed, "cuda", fails,
+                                            card, work).items():
+            if name in ("fused_stage_energy", "fused_stage_energy_noreproj"):
+                launches[name] += n
+        phase_done("serve defaults", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

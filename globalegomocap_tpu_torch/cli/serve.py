@@ -1,36 +1,53 @@
-"""Serving CLI, one-shot mode: optimise every sequence directory under
+"""Serving CLI: optimise sequence directories as they arrive under
 --data_root and print one JSON line per sequence.
 
-Counterpart of `globalegomocap_tpu/cli/serve.py` with the same production
-solver stack (lbfgs_fixed with fused probes and the fused energy kernels,
-12 iterations / history 2 / step candidates 1.0,0.1, residual stage 2 at
-3 iterations, k=8 peak crops staged on the host as bf16, k=16
-estimate-centred crops and the robust tier when the crop-mass guard
-trips, folded BN, conv decoder, Gaussian final smoothing in the merge)
-at the JAX serve's default compute tier, bfloat16_delta (--compute_dtype
-takes the JAX tiers).  With --guard_crop 0 a tripped guard falls back to
-the full maps, sampled as --sampling says (pallas: the heatmap_sample
-CUDA kernel).  A sequence whose chunks differ in length goes through the
-per-chunk `optimize_sequence_dir`.  Each record carries the JAX serve's
-keys:
+Counterpart of `globalegomocap_tpu/cli/serve.py`, at its defaults: the
+streaming runtime (`optimize/streaming.py`) with up to --max_in_flight 3
+solves queued on the card and --prefetch_depth 2 sequences staged ahead
+on a worker thread (`StagePrefetcher`) while the card solves, the
+crop-mass guard resolved once per stream and reused (guard policy
+'first': at --prefetch_depth 0 once for the service's lifetime, else
+once per scan pass), host staging of the peak crops through
+`native/hostcrop.c` (--stage_on_host false stages on the device), and
+the same production solver stack (lbfgs_fixed with fused probes and the
+fused energy kernels, 12 iterations / history 2 / step candidates
+1.0,0.1, residual stage 2 at 3 iterations, k=8 peak crops staged as
+bf16, k=16 estimate-centred crops and the robust tier when the guard
+trips, folded BN, the conv decoder, Gaussian final smoothing in the
+merge) at the JAX serve's default compute tier, bfloat16_delta
+(--compute_dtype takes the JAX tiers; --decoder_impl dense|shift and
+--decoder_dtype take the JAX decoders).  With --guard_crop 0 a tripped
+guard falls back to the full maps, sampled as --sampling says (pallas:
+the heatmap_sample CUDA kernel).  A sequence whose chunks differ in
+length goes through the per-chunk `optimize_sequence_dir`.  Each record
+carries the JAX serve's keys:
 
   {"sequence", "chunks", "windows", "latency_ms", "windows_per_sec",
    "optimized_global_mpjpe", "original_global_mpjpe"}
 
-A sequence that fails to load, or one of whose chunks fails to solve in
-the per-chunk fallback, gets {"sequence", "error"} instead (the latter
-also with "failed_chunks").
+latency_ms runs, as the JAX serve's does, from just before the sequence
+is submitted to its emission: at --prefetch_depth > 0 it leaves out the
+staging, which the worker did ahead; at 0 it includes it.  Emission is
+in submission order, so a record may wait for in-flight solves ahead of
+it.  A sequence that fails to load gets {"sequence", "error"} and does
+not count towards --max_batches; in watch mode a load is retried on
+--max_load_retries scans first (a sequence still being written).  A
+sequence one of whose chunks fails to solve in the per-chunk fallback
+gets {"sequence", "error", "failed_chunks"}.
 
     python -m globalegomocap_tpu_torch.cli.serve --data_root incoming \\
-        --local_ckpt local.pth.tar --global_ckpt global.pth.tar
+        --local_ckpt local.pth.tar --global_ckpt global.pth.tar \\
+        [--watch_interval 2.0] [--max_batches 0]
 
-Checkpoints are ConvVAE state dicts in the reference's torch layout,
-saved with torch.save bare or under a 'state_dict' key, as the
+--watch_interval 0 processes what is present and exits (one-shot);
+> 0 rescans the root at that interval, finishing and emitting what is in
+flight before it sleeps.  --max_batches > 0 exits after that many
+sequences.  Checkpoints are ConvVAE state dicts in the reference's torch
+layout, saved with torch.save bare or under a 'state_dict' key, as the
 reference's .pth.tar training checkpoints hold them (tensors, plain
 containers and an argparse.Namespace: they load with weights_only=True).
-Runs on the card unless --device cpu.  latency_ms covers host staging
-(the peak crops through `native/hostcrop.c`), the solve and the device
-sync, as the JAX serve's does when it stages inline.
+Runs on the card unless --device cpu; a failed staging or solve raises,
+with no fall back to the CPU or to inline staging.
 """
 
 from __future__ import annotations
@@ -96,12 +113,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "bf16 around the float32-exact encoder mean, with a "
                         "float32 encode and output decode")
     p.add_argument("--fold_bn", default=True, type=str2bool)
+    p.add_argument("--dense_decoder", default=True, type=str2bool,
+                   help="with an empty --decoder_impl: the dense decoder")
+    p.add_argument("--decoder_impl", default="conv",
+                   choices=["", "conv", "dense", "shift"],
+                   help="the decoder of the solve: conv layers, banded "
+                        "matmuls (dense) or shifted-tap matmuls (shift)")
+    p.add_argument("--decoder_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="dense/shift decoder weight storage dtype")
     p.add_argument("--final_smooth", default=True, type=str2bool)
-    p.add_argument("--stage_on_host", default=True, type=str2bool)
+    p.add_argument("--stage_on_host", default=True, type=str2bool,
+                   help="crop the maps on the host before the transfer "
+                        "(false: move the full maps and crop on the card)")
     p.add_argument("--watch_interval", default=0.0, type=float,
-                   help="0 = one-shot (the only mode ported so far)")
-    p.add_argument("--prefetch_depth", default=0, type=int,
-                   help="0 = stage inline (prefetching is not ported yet)")
+                   help="seconds between directory scans; 0 = one-shot")
+    p.add_argument("--prefetch_depth", default=2, type=int,
+                   help="stage up to this many sequences ahead on a worker "
+                        "thread while the card solves (0 = stage inline)")
+    p.add_argument("--max_in_flight", default=3, type=int,
+                   help="solves queued on the card before a submission "
+                        "waits for the oldest")
+    p.add_argument("--max_load_retries", default=5, type=int,
+                   help="watch mode: scans that retry a sequence whose "
+                        "chunk load raises before its error record")
     p.add_argument("--max_batches", default=0, type=int,
                    help="stop after N sequences (0 = no limit)")
     p.add_argument("--with_metrics", default=True, type=str2bool)
@@ -132,7 +167,8 @@ def config_from_args(args) -> OptimizeConfig:
         sampling_impl=args.sampling, heatmap_dtype=args.heatmap_dtype,
         heatmap_crop=args.heatmap_crop, guard_crop=args.guard_crop,
         heatmap_crop_min_mass=args.heatmap_crop_min_mass,
-        fold_bn=args.fold_bn, dense_decoder=True, decoder_impl="conv",
+        fold_bn=args.fold_bn, dense_decoder=args.dense_decoder,
+        decoder_impl=args.decoder_impl, decoder_dtype=args.decoder_dtype,
         compute_dtype=args.compute_dtype, camera=args.camera,
         final_smooth=args.final_smooth)
 
@@ -166,23 +202,22 @@ def load_state(path: str, model=None) -> dict:
     return state
 
 
+LOAD_ERRORS = (OSError, EOFError, KeyError, ValueError,
+               pickle.UnpicklingError)
+
+
 def main(argv=None) -> int:
+    """Run the service; returns the number of sequences emitted (load
+    errors not counted)."""
     args = build_parser().parse_args(argv)
-    if args.watch_interval > 0:
-        raise NotImplementedError(
-            "--watch_interval > 0 (watch mode) is not ported yet")
-    if args.prefetch_depth > 0:
-        raise NotImplementedError(
-            "--prefetch_depth > 0 (stage prefetching) is not ported yet")
-    if not args.stage_on_host:
-        raise NotImplementedError(
-            "--stage_on_host false (device staging) is not ported yet")
 
     from globalegomocap_tpu_torch.data.test_data import (
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
     from globalegomocap_tpu_torch.optimize.driver import (
         SequenceOptimizer, build_model, optimize_sequence_dir)
+    from globalegomocap_tpu_torch.optimize.streaming import (
+        StagePrefetcher, StreamingOptimizer)
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
     cfg = config_from_args(args)
@@ -190,51 +225,17 @@ def main(argv=None) -> int:
     opt = SequenceOptimizer(model, load_state(args.local_ckpt, model),
                             load_state(args.global_ckpt, model), cfg,
                             device=args.device)
-    sync = (torch.cuda.synchronize if opt.device.type == "cuda"
-            else (lambda: None))
+    service = StreamingOptimizer(opt, max_in_flight=args.max_in_flight,
+                                 stage_on_host=args.stage_on_host)
 
+    done: set[str] = set()
+    pending: list[tuple[str, list, float]] = []  # (name, chunks, t_submit)
     emitted = 0
-    for name in sorted(os.listdir(args.data_root)):
-        if args.max_batches and emitted >= args.max_batches:
-            break
-        seq_dir = os.path.join(args.data_root, name)
-        if not os.path.isdir(seq_dir):
-            continue
-        chunk_dirs = list_chunk_dirs(seq_dir)
-        if not chunk_dirs:
-            continue
-        try:
-            chunks = [load_test_chunk(d) for d in chunk_dirs]
-        except (OSError, EOFError, KeyError, ValueError,
-                pickle.UnpicklingError) as e:
-            print(json.dumps({"sequence": name, "error": repr(e)}),
-                  flush=True)
-            emitted += 1
-            continue
-        if len({c.n_frames for c in chunks}) != 1:
-            # unequal chunk lengths: the per-chunk fallback
-            t0 = time.perf_counter()
-            _, avg, timing = optimize_sequence_dir(opt, seq_dir,
-                                                   verbose=False)
-            failed = timing["failed_chunks"]
-            if failed:
-                # a metric over the chunks that survived would hide them
-                rec = {"sequence": name, "error": failed[0][1],
-                       "failed_chunks": [d for d, _ in failed]}
-            else:
-                rec = {"sequence": name, "chunks": len(chunks),
-                       "latency_ms": round(
-                           1e3 * (time.perf_counter() - t0), 1),
-                       "optimized_global_mpjpe": round(float(
-                           avg["optimized_global_mpjpe"]), 5)}
-            print(json.dumps(rec), flush=True)
-            emitted += 1
-            continue
-        t0 = time.perf_counter()
-        staged = opt.stage(chunks, on_host=True)
-        res = opt.optimize_chunks_batched(staged, mode="flat")
-        sync()
-        latency = time.perf_counter() - t0
+
+    def emit(name, chunks, t_submit, res):
+        """One record for a completed submission (its event has fired)."""
+        nonlocal emitted
+        latency = time.perf_counter() - t_submit
         wins = sum(num_windows(c.n_frames, cfg.window.seq_len,
                                cfg.window.stride) for c in chunks)
         rec = {"sequence": name, "chunks": len(chunks), "windows": wins,
@@ -253,6 +254,98 @@ def main(argv=None) -> int:
                     res.optimized.cpu().numpy())
         print(json.dumps(rec), flush=True)
         emitted += 1
+
+    def emit_completed():
+        """Emit the submissions that have completed, in order."""
+        while service._completed:
+            name, chunks, t_submit = pending.pop(0)
+            emit(name, chunks, t_submit, service._completed.pop(0))
+
+    def drain_pending():
+        """Finish and emit everything in flight (watch mode's idle pass:
+        a finished sequence must not wait for the next arrival)."""
+        for res in service.drain():
+            name, chunks, t_submit = pending.pop(0)
+            emit(name, chunks, t_submit, res)
+
+    watch = args.watch_interval > 0
+    fail_counts: dict[str, int] = {}
+    while True:
+        progressed = False          # did this pass submit or emit anything?
+        ready: list[tuple[str, list]] = []   # this pass's batches
+        seqs = sorted(d for d in os.listdir(args.data_root)
+                      if os.path.isdir(os.path.join(args.data_root, d))
+                      and d not in done)
+        for name in seqs:
+            if args.max_batches and emitted + len(pending) + len(ready) \
+                    >= args.max_batches:
+                break
+            seq_dir = os.path.join(args.data_root, name)
+            chunk_dirs = list_chunk_dirs(seq_dir)
+            if not chunk_dirs:
+                continue      # an empty directory: rescanned, no progress
+            try:
+                chunks = [load_test_chunk(d) for d in chunk_dirs]
+            except LOAD_ERRORS as e:
+                fail_counts[name] = fail_counts.get(name, 0) + 1
+                if watch and fail_counts[name] < args.max_load_retries:
+                    continue                 # likely still being written
+                print(json.dumps({"sequence": name, "error": repr(e)}),
+                      flush=True)
+                done.add(name)
+                progressed = True
+                continue
+            done.add(name)
+            progressed = True
+            if len({c.n_frames for c in chunks}) != 1:
+                # unequal chunk lengths: the per-chunk fallback
+                t0 = time.perf_counter()
+                _, avg, timing = optimize_sequence_dir(opt, seq_dir,
+                                                       verbose=False)
+                failed = timing["failed_chunks"]
+                if failed:
+                    # a metric over the chunks that survived would hide
+                    # the failures
+                    rec = {"sequence": name, "error": failed[0][1],
+                           "failed_chunks": [d for d, _ in failed]}
+                else:
+                    rec = {"sequence": name, "chunks": len(chunks),
+                           "latency_ms": round(
+                               1e3 * (time.perf_counter() - t0), 1),
+                           "optimized_global_mpjpe": round(float(
+                               avg["optimized_global_mpjpe"]), 5)}
+                print(json.dumps(rec), flush=True)
+                emitted += 1
+                continue
+            ready.append((name, chunks))
+
+        # submit this pass's batches; with prefetch_depth > 0 the worker
+        # stages sequence t+1 while the card solves t
+        if ready:
+            if args.prefetch_depth > 0:
+                staged_iter = StagePrefetcher(
+                    opt, (cs for _, cs in ready),
+                    depth=args.prefetch_depth, on_host=args.stage_on_host)
+            else:
+                staged_iter = (cs for _, cs in ready)      # stage inline
+            for (name, chunks), staged in zip(ready, staged_iter):
+                t0 = time.perf_counter()
+                service.submit_batch(staged)
+                pending.append((name, chunks, t0))
+                emit_completed()
+
+        if args.max_batches and emitted + len(pending) >= args.max_batches:
+            break
+        if not watch:
+            break
+        if not progressed:
+            # an idle pass: finish and emit what is in flight, then sleep
+            # (gating on progress also keeps a root of empty or failing
+            # directories from spinning)
+            drain_pending()
+            time.sleep(args.watch_interval)
+
+    drain_pending()
     return emitted
 
 

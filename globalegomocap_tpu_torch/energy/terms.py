@@ -16,7 +16,8 @@ Counterpart of `globalegomocap_tpu/energy/terms.py`:
   per-chunk path and in numpy for host staging (argmax and origins on the
   float32 maps; crops are a pure gather, so both are bit-exact against
   the JAX package), the projected-estimate crop centres of the guard-trip
-  path and the crop-mass coverage.
+  path and the crop-mass coverage (numpy from host staging's sums, or on
+  the device for device staging).
 
 The fused stage energies live in ops/fused_energy.py (kernel and plain
 version).
@@ -238,6 +239,22 @@ def crop_heatmaps_at_centers_channels_last_np(heatmaps, k: int, centers):
     crops = _gather_crops_np(heatmaps, k, oy, ox)
     origins = np.stack([oy, ox], axis=-1).astype(np.float32)
     return crops, origins, (h, w)
+
+
+def crop_coverage_mean(heatmaps: torch.Tensor, k: int) -> torch.Tensor:
+    """The crop-mass guard's statistic on the device: the mean fraction of
+    non-negative map mass the k x k peak crops keep, over maps (..., H, W)
+    (argmax on the clipped float32 maps; a map with no mass counts as
+    covered).  A 0-d float32 tensor: the caller reads it back once.
+    Counterpart of the JAX package's `crop_coverage_mean`; the host
+    staging's `crop_coverage_np` is the same quantity."""
+    m = heatmaps.to(torch.float32).clamp_min(0.0)
+    crops, _, _ = crop_heatmaps_channels_last(m[..., None], k)
+    box = crops.sum((-3, -2, -1))
+    total = m.sum((-2, -1))
+    ratio = torch.where(total > 0, box / total.clamp_min(1e-30),
+                        torch.ones_like(total))
+    return ratio.mean()
 
 
 def crop_coverage_np(box, total) -> np.float32:

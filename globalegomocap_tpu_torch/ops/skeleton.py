@@ -6,6 +6,8 @@ batched over arbitrary leading axes.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -37,11 +39,18 @@ def mean3d_bone_lengths_mm() -> np.ndarray:
     return np.linalg.norm(mean3d - mean3d[_PARENTS, :], axis=1)
 
 
+@functools.lru_cache(maxsize=8)
+def _parents_on(device: torch.device) -> torch.Tensor:
+    """The parent table on `device`, copied there at the first call only
+    (a solve on the card then issues no host-to-device copy).  Read-only."""
+    return torch.as_tensor(_PARENTS, device=device)
+
+
 def bone_lengths(skeleton: torch.Tensor) -> torch.Tensor:
     """(..., 15, 3) -> (..., 15) distance of each joint to its parent
     (entry 0, the root, is 0).  Zero-safe: a zero-length bone has a zero
     gradient instead of NaN."""
-    parents = torch.as_tensor(_PARENTS, device=skeleton.device)
+    parents = _parents_on(skeleton.device)
     bones = skeleton - skeleton.index_select(-2, parents)
     sq = (bones * bones).sum(-1)
     nonzero = sq > 0
@@ -59,7 +68,7 @@ def skeleton_resize(skeleton: torch.Tensor,
                     lengths_in_mm: bool = True) -> torch.Tensor:
     """Rebuild each joint root-to-leaf at the target bone length along
     the original bone direction (the root keeps its position)."""
-    parents = torch.as_tensor(_PARENTS, device=skeleton.device)
+    parents = _parents_on(skeleton.device)
     est_bones = skeleton - skeleton.index_select(-2, parents)
     est_len = torch.linalg.vector_norm(est_bones, dim=-1)
     pos = est_len > 0

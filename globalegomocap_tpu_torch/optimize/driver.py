@@ -4,13 +4,22 @@ guard, host staging, the flat batched solve and the per-chunk solve.
 Counterpart of `globalegomocap_tpu/optimize/driver.py`:
 `SequenceOptimizer` (BN folding at construction, the guard on raw maps
 `_crop_coverage`/`_effective_cfg`, `_cfg_for_coverage` with its
-`guard_crop` = 0 full-map fallback, `stage(on_host=True)` through the
-native host crop, `optimize_chunks_batched(mode="flat")`,
-`optimize_chunk`, `run`), and
+`guard_crop` = 0 full-map fallback, `stage` on the host through the
+native host crop or on the device, `optimize_chunks_batched(mode=
+"flat")`, `optimize_chunk`, `run`), and
 `optimize_sequence_dir` (its per-chunk loop, with the per-chunk fault
 isolation; the batched variant waits for the port of `evaluate_all`) and
 `print_summary`.  Every derived configuration is built from the full
 resolved config, so nothing keys a cache on a partial view of it.
+
+On the card a warm `optimize_chunks_batched(staged)` waits for nothing:
+the solve's constants (the camera, the weight rows, the window and merge
+tables, the step lengths) are built on the device once, so the call only
+queues work and request t+1 can be dispatched while request t solves.
+Staging copies through pinned host buffers without blocking, on the
+caller's current stream; a batch staged on another stream (the
+`streaming.StagePrefetcher`'s) carries an event that the solve's stream
+waits on.
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ from globalegomocap_tpu_torch.data.test_data import (
     TestChunk, list_chunk_dirs, load_test_chunk)
 from globalegomocap_tpu_torch.device import resolve_device
 from globalegomocap_tpu_torch.energy.terms import (
-    crop_coverage_np, crop_heatmaps_at_centers_channels_last_np,
+    crop_coverage_mean, crop_coverage_np,
+    crop_heatmaps_at_centers_channels_last,
+    crop_heatmaps_at_centers_channels_last_np, crop_heatmaps_channels_last,
     crop_heatmaps_channels_last_np, projected_estimate_centers)
 from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
@@ -65,7 +76,9 @@ class StagedBatch:
     """Equal-length chunks staged for the solve: tensors on the solve
     device, heat as FLAT (C, F, k*k*J) peak crops (or the full maps
     (C, F, H, W, J) when no crops are used), the crop-guard coverage
-    resolved on the host."""
+    resolved to a host scalar.  `ready`: None when the tensors were
+    written on the stream that solves them, else a CUDA event recorded on
+    the staging stream after the last write."""
     est: Any              # (C, F, 15, 3)
     cams: Any             # (C, F, 4, 4)
     heat: Any             # crops or maps (float32 or bfloat16)
@@ -74,6 +87,11 @@ class StagedBatch:
     crop_coverage: float | None
     origins: Any = None   # (C, F, J, 2) crop origins (oy, ox)
     full_hw: tuple | None = None
+    ready: Any = None     # torch.cuda.Event | None
+
+    def tensors(self) -> tuple:
+        return tuple(t for t in (self.est, self.cams, self.heat, self.gt,
+                                 self.origins) if t is not None)
 
 
 class SequenceOptimizer:
@@ -91,6 +109,7 @@ class SequenceOptimizer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._camera = resolve_camera(cfg)
+        self._camera_dev = self._camera.to(self.device)
         use_bn = model.use_bn
         if cfg.fold_bn and use_bn:
             local_state = fold_batchnorm(local_state)
@@ -100,11 +119,11 @@ class SequenceOptimizer:
         self.global_model = self._make(model, global_state, use_bn)
         # the priors at cfg.compute_dtype, cast (and, for fused_decode,
         # folded into kernel 5's layout) once here, not once per stage
-        tier = cfg.compute_dtype
+        tier, impl = cfg.compute_dtype, pipeline.decoder_impl(cfg)
         self._stages = (
             pipeline.stage_models(self.local_model, tier,
-                                  cfg.solver.fused_decode),
-            pipeline.stage_models(self.global_model, tier))
+                                  cfg.solver.fused_decode, impl),
+            pipeline.stage_models(self.global_model, tier, impl=impl))
 
     def _make(self, model: ConvVAE, state: dict, use_bn: bool) -> ConvVAE:
         m = ConvVAE(model.in_channels, model.out_channels,
@@ -156,23 +175,30 @@ class SequenceOptimizer:
         return self._cfg_for_coverage(self._crop_coverage(heatmaps))
 
     def stage(self, chunks: list[TestChunk], coverage: float | None = None,
-              on_host: bool = True) -> StagedBatch:
-        """Crop the maps on the host with the native kernel
-        (`native/hostcrop.c`: one pass a chunk, argmax on the float32
-        maps), resolve the crop-mass guard from its box and total sums (or
-        take `coverage`), cast the staged heat to bf16 when
-        cfg.heatmap_dtype asks, and move the stacked fields to the solve
-        device once.  Without crops (heatmap_crop = 0, reproj = 0, or a
-        tripped guard with guard_crop = 0) the full maps are staged."""
-        if not on_host:
-            raise NotImplementedError(
-                "stage(on_host=False) (device staging) is not ported yet")
+              on_host: bool = False) -> StagedBatch:
+        """Stage equal-length chunks for the solve, on the caller's current
+        stream: the peak crops (argmax on the float32 maps), the crop-mass
+        guard resolved from them (or `coverage`, taken as given), the
+        estimate-centred re-crop of a tripped guard, the cast of the
+        staged heat to bf16 when cfg.heatmap_dtype asks, and the stacked
+        fields on the solve device.  Without crops (heatmap_crop = 0,
+        reproj = 0, or a tripped guard with guard_crop = 0) the full maps
+        are staged.
+
+        on_host=True crops on the host with the native kernel
+        (`native/hostcrop.c`), so only the crops cross to the device.
+        on_host=False (the JAX default) moves each chunk's full maps to
+        the device once and crops there (`_stage_device`); the two are
+        bit-identical (crops and origins; the coverage within float32
+        rounding, 1e-6 relative)."""
         if not chunks:
             raise ValueError("stage() needs at least one chunk")
         if len({c.n_frames for c in chunks}) != 1:
             raise ValueError("stage() requires equal-length chunks; use "
                              "optimize_chunk per chunk or "
                              "optimize_sequence_dir for mixed lengths")
+        if not on_host:
+            return self._stage_device(chunks, coverage)
         cfg = self.cfg
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
@@ -200,11 +226,9 @@ class SequenceOptimizer:
             hh, ww = np.asarray(chunks[0].heatmaps).shape[-3:-1]
             crops_l, orgs_l = [], []
             for c in chunks:
-                cen = projected_estimate_centers(
-                    torch.from_numpy(np.asarray(c.estimated_local)),
-                    self._camera, hh, ww).numpy()
                 cr, org, full_hw = crop_heatmaps_at_centers_channels_last_np(
-                    np.asarray(c.heatmaps), k, cen)
+                    np.asarray(c.heatmaps), k,
+                    self._estimate_centers(c, hh, ww))
                 crops_l.append(cr.reshape(cr.shape[0], -1))
                 orgs_l.append(org)
         if k > 0:
@@ -217,18 +241,101 @@ class SequenceOptimizer:
             origins, full_hw = None, None
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
-        stack = lambda name: torch.from_numpy(np.stack(  # noqa: E731
-            [np.asarray(getattr(c, name), dtype=np.float32)
-             for c in chunks]))
-        dev = self.device
         return StagedBatch(
-            est=stack("estimated_local").to(dev),
-            cams=stack("camera_poses").to(dev),
-            heat=heat.to(dev),
-            gt=stack("gt_global").to(dev),
+            est=self._put(_stack(chunks, "estimated_local")),
+            cams=self._put(_stack(chunks, "camera_poses")),
+            heat=self._put(heat), gt=self._put(_stack(chunks, "gt_global")),
             n_chunks=len(chunks), crop_coverage=cov,
-            origins=None if origins is None else origins.to(dev),
+            origins=None if origins is None else self._put(origins),
             full_hw=full_hw)
+
+    def _stage_device(self, chunks: list[TestChunk],
+                      coverage: float | None) -> StagedBatch:
+        """stage(on_host=False): each chunk's full maps go to the device
+        once; the crops are cut there (`crop_heatmaps_channels_last`, a
+        gather: the JAX package's `stage_crop_impl="onehot"` is a TPU
+        matmul trick for the same selection) over segments of
+        cfg.stage_segment_chunks chunks, as the JAX driver segments its
+        staging program; the guard's coverage is computed on the device
+        (`crop_coverage_mean`) and read back once for the batch.  The
+        estimate centres of a tripped guard come from the host estimates,
+        as in host staging, so both stagings cut the same crops."""
+        cfg = self.cfg
+        kk = cfg.heatmap_crop
+        use_reproj = cfg.energy.reproj != 0.0
+        maps = [self._put(np.asarray(c.heatmaps, dtype=np.float32))
+                for c in chunks]
+        seg = cfg.stage_segment_chunks
+        n = len(chunks)
+        parts = ([list(range(i, min(i + seg, n))) for i in range(0, n, seg)]
+                 if seg and n > seg else [list(range(n))])
+        cov = coverage
+        if coverage is None and self._guard_on():
+            # equal-length chunks: the mean of the segments' means,
+            # weighted by their sizes, is the mean over every map
+            cov = float(sum(
+                crop_coverage_mean(torch.stack([maps[i] for i in p])
+                                   .movedim(-1, -3), kk) * len(p)
+                for p in parts) / n)
+        eff = self._cfg_for_coverage(cov)
+        k = eff.heatmap_crop if use_reproj else 0
+        full_hw = tuple(maps[0].shape[-3:-1]) if k > 0 else None
+        crops_l, orgs_l = [], []
+        for p in parts:
+            if k <= 0:
+                crops_l.append(torch.stack([maps[i] for i in p]))
+                continue
+            if eff.crop_center == "peak":
+                cr, org, _ = crop_heatmaps_channels_last(
+                    torch.stack([maps[i] for i in p]), k)
+            else:
+                hh, ww = full_hw
+                cen = torch.from_numpy(np.stack([
+                    self._estimate_centers(chunks[i], hh, ww) for i in p]))
+                cr, org, _ = crop_heatmaps_at_centers_channels_last(
+                    torch.stack([maps[i] for i in p]), k,
+                    self._put(cen))
+            crops_l.append(cr.reshape(cr.shape[:2] + (-1,)))
+            orgs_l.append(org)
+        heat = torch.cat(crops_l)
+        if cfg.heatmap_dtype == "bfloat16":
+            heat = heat.to(torch.bfloat16)     # after the f32 argmax
+        return StagedBatch(
+            est=self._put(_stack(chunks, "estimated_local")),
+            cams=self._put(_stack(chunks, "camera_poses")),
+            heat=heat, gt=self._put(_stack(chunks, "gt_global")),
+            n_chunks=n, crop_coverage=cov,
+            origins=torch.cat(orgs_l) if orgs_l else None, full_hw=full_hw)
+
+    def _estimate_centers(self, chunk: TestChunk, h: int, w: int):
+        """The guard-trip crop centres (F, J, 2) of one chunk, from its
+        host estimates on the host camera (numpy)."""
+        return projected_estimate_centers(
+            torch.from_numpy(np.asarray(chunk.estimated_local,
+                                        dtype=np.float32)),
+            self._camera, h, w).numpy()
+
+    def _put(self, x) -> torch.Tensor:
+        """A host array or tensor on the solve device: on the card through
+        pinned memory, without blocking, on the current stream (the
+        caching host allocator keeps the pinned block until the copy is
+        done)."""
+        t = torch.from_numpy(np.ascontiguousarray(x)) \
+            if isinstance(x, np.ndarray) else x
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _consume(self, staged: StagedBatch) -> None:
+        """Make the current stream wait for a batch staged on another
+        stream, and tell the caching allocator that this stream reads its
+        tensors."""
+        if staged.ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(staged.ready)
+        for t in staged.tensors():
+            t.record_stream(stream)
 
     def optimize_chunks_batched(self, chunks, mode: str = "flat"
                                 ) -> ChunkResult:
@@ -240,12 +347,13 @@ class SequenceOptimizer:
                 f"mode={mode!r}: only the flat batched path is ported")
         staged = chunks if isinstance(chunks, StagedBatch) \
             else self.stage(chunks)
+        self._consume(staged)
         cfg = self._cfg_for_coverage(staged.crop_coverage)
         with torch.no_grad():
             return pipeline.optimize_chunks_flat(
                 *self._stages, staged.est,
                 staged.cams, staged.heat, staged.gt,
-                self._camera.to(self.device), cfg, origins=staged.origins,
+                self._camera_dev, cfg, origins=staged.origins,
                 full_hw=staged.full_hw)
 
     def optimize_chunk(self, chunk: TestChunk,
@@ -263,7 +371,7 @@ class SequenceOptimizer:
                 *self._stages, f32(chunk.estimated_local),
                 f32(chunk.camera_poses), f32(chunk.heatmaps),
                 f32(chunk.gt_global),
-                self._camera.to(dev), cfg)
+                self._camera_dev, cfg)
 
     def run(self, chunk: TestChunk, with_metrics: bool = True):
         """Optimise one chunk (`optimize_chunk`) and optionally evaluate
@@ -279,6 +387,12 @@ class SequenceOptimizer:
                 res.estimated, res.mid, res.optimized, res.gt).items()}
         return (errors, _numpy(res.estimated), _numpy(res.mid_local),
                 _numpy(res.optimized), _numpy(res.gt))
+
+
+def _stack(chunks: list[TestChunk], name: str) -> np.ndarray:
+    """One float32 field of every chunk, stacked on the host."""
+    return np.stack([np.asarray(getattr(c, name), dtype=np.float32)
+                     for c in chunks])
 
 
 def _numpy(x: torch.Tensor) -> np.ndarray:

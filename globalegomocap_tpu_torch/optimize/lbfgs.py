@@ -42,6 +42,7 @@ made (each evaluates every lane), where `n_evals` counts one lane's.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -78,6 +79,16 @@ def _value_and_grad(loss_fn: Callable) -> Callable:
     return value_and_grad
 
 
+@functools.lru_cache(maxsize=64)
+def _step_lengths(step_candidates: tuple, lr: float, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """lr * the step candidates, in the state's dtype on its device, made
+    at the first call only: a solve on the card then issues no
+    host-to-device copy, which would wait for the work already queued.
+    Read-only."""
+    return torch.tensor(step_candidates, dtype=dtype, device=device) * lr
+
+
 def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
                 step_candidates, c1, direction):
     """The shared iteration.  value_and_grad: (R, B, d) -> ((R, B),
@@ -85,7 +96,7 @@ def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
     (value-and-grad at every candidate, the accepted one's (f, g) kept)."""
     b, dim = x0.shape
     dtype, dev = x0.dtype, x0.device
-    cands = torch.tensor(step_candidates, dtype=dtype, device=dev) * lr
+    cands = _step_lengths(tuple(step_candidates), lr, dtype, dev)
 
     f0, g0 = value_and_grad(x0[None])
     x, f, g = x0, f0[0], g0[0]

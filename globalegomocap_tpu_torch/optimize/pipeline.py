@@ -23,7 +23,10 @@ runs the decoder's conv chain too), the fused no-reproj kernel for stage
 2, else the plain PyTorch energy (`energy/terms.py`), whose full-map
 sampling runs the `heatmap_sample` kernel with `sampling_impl="pallas"`.
 Each objective eval decodes all (probe, window) latents in one batch and
-takes dE/dz with autograd through the decoder.  `cfg.compute_dtype`
+takes dE/dz with autograd through the decoder: the conv layers, or with
+`decoder_impl` "dense" / "shift" the matmul decoders of
+`models/dense_decoder.py` (as JAX's `_make_decode_batch` wires them, at
+`decoder_dtype` storage).  `cfg.compute_dtype`
 selects the JAX package's bf16 solve tiers: the priors come in as
 `StageModels`, cast for the tier once (`stage_models`), or as plain
 ConvVAEs, converted per stage.
@@ -31,8 +34,9 @@ ConvVAEs, converted per stage.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +47,8 @@ from globalegomocap_tpu_torch.energy.terms import (
     crop_heatmaps_channels_last, projected_estimate_centers,
     total_energy_from_pose)
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
+from globalegomocap_tpu_torch.models.dense_decoder import (
+    make_dense_decoder, make_shift_decoder)
 from globalegomocap_tpu_torch.ops import fisheye
 from globalegomocap_tpu_torch.ops.fused_decode_energy import (
     decoder_layers, fused_decode_stage_energy)
@@ -60,6 +66,7 @@ from globalegomocap_tpu_torch.optimize.window import (
 J = 15
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32enc",
                   "bfloat16_f32head", "bfloat16_delta", "bfloat16_pure")
+DECODER_IMPLS = ("conv", "dense", "shift")
 
 
 class ChunkResult(NamedTuple):
@@ -84,8 +91,8 @@ def check_supported(cfg: OptimizeConfig) -> None:
         (s.init != "mu", f"solver.init={s.init!r}"),
         (cfg.compute_dtype not in COMPUTE_DTYPES,
          f"compute_dtype={cfg.compute_dtype!r}"),
-        (impl != "conv", f"decoder_impl={impl!r} (dense/shift decoders)"),
-        (cfg.decoder_dtype != "float32",
+        (impl not in DECODER_IMPLS, f"decoder_impl={impl!r}"),
+        (cfg.decoder_dtype not in ("float32", "bfloat16"),
          f"decoder_dtype={cfg.decoder_dtype!r}"),
         (cfg.sampling_impl not in ("gather", "dense", "pallas"),
          f"sampling_impl={cfg.sampling_impl!r}"),
@@ -151,14 +158,25 @@ def _stage2_cfg(cfg: OptimizeConfig) -> OptimizeConfig:
                                        max_iter=cfg.solver.global_max_iter))
 
 
+@functools.lru_cache(maxsize=64)
+def _weight_row(vals: tuple, device: torch.device) -> torch.Tensor:
+    """(1, 8) float32 [*vals, 0, 0, 0] on `device`, copied there at the
+    first call only (a solve on the card then issues no host-to-device
+    copy, which would wait for the work already queued).  Read-only."""
+    return torch.tensor([list(vals) + [0.0, 0.0, 0.0]], dtype=torch.float32,
+                        device=device)
+
+
 def _wvec(weights: EnergyWeights, center, device) -> torch.Tensor:
-    """[w3d, smooth, bone, vae, reproj, cx, cy, 0] as a (1, 8) tensor."""
-    vals = [weights.weight_3d, weights.smooth, weights.bone_length,
-            weights.vae, weights.reproj]
-    row = torch.tensor(vals + [0.0, 0.0, 0.0], dtype=torch.float32)
-    if center is not None:
-        row[5:7] = center.to(torch.float32).cpu()
-    return row[None].to(device)
+    """[w3d, smooth, bone, vae, reproj, cx, cy, 0] as a (1, 8) tensor on
+    `device`; the camera centre `center` (2,) joins on the device."""
+    row = _weight_row((weights.weight_3d, weights.smooth,
+                       weights.bone_length, weights.vae, weights.reproj),
+                      device)
+    if center is None:
+        return row
+    return torch.cat([row[:, :5], center.to(device, torch.float32)[None],
+                      row[:, 7:]], dim=1)
 
 
 def _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
@@ -201,17 +219,29 @@ def _fused_energy(init_pose, heatmaps, mean_bl, camera, weights,
 class StageModels(NamedTuple):
     """One prior as the stages of a compute tier use it (`stage_models`):
     the encode, eval and output models, each holding its weights in its
-    compute dtypes, and, for solver.fused_decode, kernel 5's float32
-    decoder (`decoder_layers`)."""
+    compute dtypes; for solver.fused_decode, kernel 5's float32 decoder
+    (`decoder_layers`); and the eval and output decodes z (B, latent) ->
+    (B, T, 15, 3) of the decoder implementation `impl` = (decoder_impl,
+    decoder_dtype)."""
     tier: str
     enc: ConvVAE
     evals: ConvVAE
     out: ConvVAE
     decoder: tuple | None
+    decode_eval: Callable
+    decode_out: Callable
+    impl: tuple
 
 
-def stage_models(model: ConvVAE, tier: str,
-                 fused_decode: bool = False) -> StageModels:
+def decoder_impl(cfg: OptimizeConfig) -> tuple:
+    """(decoder_impl, decoder_dtype) as the JAX pipeline resolves them:
+    an empty decoder_impl follows dense_decoder."""
+    return (cfg.decoder_impl or ("dense" if cfg.dense_decoder else "conv"),
+            cfg.decoder_dtype)
+
+
+def stage_models(model: ConvVAE, tier: str, fused_decode: bool = False,
+                 impl: tuple = ("conv", "float32")) -> StageModels:
     """`model`'s weights cast and converted for the stages of `tier`.
     `model` carries float32 weights and the tier's dtype
     (`driver.build_model`); the weights are constants from here on, and
@@ -220,7 +250,14 @@ def stage_models(model: ConvVAE, tier: str,
     float32: all float32.  bfloat16 (the mixed tier) and bfloat16_delta:
     float32 encode and output decode, bf16 evals.  bfloat16_f32enc: float32
     encode, bf16 evals and output.  bfloat16_f32head: bf16 encoder with a
-    float32 fc_mu, bf16 evals and output.  bfloat16_pure: all bf16."""
+    float32 fc_mu, bf16 evals and output.  bfloat16_pure: all bf16.
+
+    impl = ("dense" | "shift", decoder_dtype) decodes through
+    `models/dense_decoder.py`, as JAX's `_make_decode_batch` does: the
+    eval decode stores its matrices in bf16 when decoder_dtype or the
+    tier's eval dtype is bf16, and the output decode is a float32 one
+    at the tiers whose output decode is float32 and whose evals are not
+    (bfloat16, bfloat16_delta), else the eval decode itself."""
     def at(dtype, head_dtype=None):
         """`model` at these compute dtypes, its weights stored in them."""
         stored = (model.dtype, model.head_dtype,
@@ -238,8 +275,18 @@ def stage_models(model: ConvVAE, tier: str,
     else:
         enc = f32
     out = f32 if tier in ("float32", "bfloat16", "bfloat16_delta") else evals
+    kind, ddtype = impl
+    if kind == "conv":
+        dec_eval, dec_out = evals.decode_to_bodypose, out.decode_to_bodypose
+    else:
+        make = make_dense_decoder if kind == "dense" else make_shift_decoder
+        dt = torch.bfloat16 if ddtype == "bfloat16" else evals.dtype
+        dec_eval = make(f32, dt)
+        dec_out = (make(f32, torch.float32)
+                   if tier in ("bfloat16", "bfloat16_delta") else dec_eval)
     return StageModels(tier, enc, evals, out,
-                       decoder_layers(model) if fused_decode else None)
+                       decoder_layers(model) if fused_decode else None,
+                       dec_eval, dec_out, tuple(impl))
 
 
 def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
@@ -276,22 +323,22 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
             heatmaps = heatmaps.to(torch.bfloat16)
         heatmaps = heatmaps.contiguous()   # once per stage, not per eval
     sm = model if isinstance(model, StageModels) else stage_models(
-        model, cfg.compute_dtype, s.fused_decode and use_reproj)
-    if sm.tier != cfg.compute_dtype:
-        raise ValueError(f"stage models built for {sm.tier!r}, the config "
-                         f"asks for {cfg.compute_dtype!r}")
-    enc_model, eval_model, out_model = sm.enc, sm.evals, sm.out
+        model, cfg.compute_dtype, s.fused_decode and use_reproj,
+        decoder_impl(cfg))
+    if (sm.tier, sm.impl) != (cfg.compute_dtype, decoder_impl(cfg)):
+        raise ValueError(f"stage models built for {sm.tier!r} with decoder "
+                         f"{sm.impl}, the config asks for "
+                         f"{cfg.compute_dtype!r} with {decoder_impl(cfg)}")
+    eval_decode, out_decode = sm.decode_eval, sm.decode_out
     with torch.no_grad():
-        mu, _ = enc_model.encode(init_pose.reshape(w, t, 3 * J))
-        offset = (init_pose - out_model.decode_to_bodypose(mu)) if residual \
-            else None
+        mu, _ = sm.enc.encode(init_pose.reshape(w, t, 3 * J))
+        offset = (init_pose - out_decode(mu)) if residual else None
     latent = mu.shape[-1]
 
-    def decode(mdl, z):
+    def decode(dec, z):
         """(..., W, latent) -> (..., W, T, 15, 3), plus the offset."""
         lead = z.shape[:-1]
-        pose = mdl.decode_to_bodypose(z.reshape(-1, latent)).reshape(
-            lead + (t, J, 3))
+        pose = dec(z.reshape(-1, latent)).reshape(lead + (t, J, 3))
         return pose if offset is None else pose + offset
 
     use_batched = (s.method == "lbfgs_fixed"
@@ -324,13 +371,13 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
 
         def batch_energy(z3):
             rr, bb = z3.shape[0], z3.shape[1]
-            pose = decode(eval_model, z_eff(z3)).to(torch.float32)
+            pose = decode(eval_decode, z_eff(z3)).to(torch.float32)
             return energy(pose.reshape(rr * bb, L, 3).permute(0, 2, 1)
                           .reshape(rr, bb, 3, L).contiguous())
     else:
         def batch_energy(z):
             return total_energy_from_pose(
-                decode(eval_model, z_eff(z)).to(torch.float32), init_pose,
+                decode(eval_decode, z_eff(z)).to(torch.float32), init_pose,
                 mean_bl, heatmaps, camera, weights, use_reproj,
                 sampling_impl=cfg.sampling_impl, origins=origins,
                 full_hw=full_hw)
@@ -350,7 +397,7 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
                 step_candidates=tuple(s.step_candidates), unroll=s.unroll)
         else:
             res = _solve(cfg, batch_energy, mu)
-        return decode(out_model, z_eff(res.x))
+        return decode(out_decode, z_eff(res.x))
 
 
 def _unflatten_staged_crops(heatmap_seq, origins, cfg: OptimizeConfig):

@@ -32,10 +32,30 @@ def window_indices(n_frames: int, seq_len: int = 10,
 def slice_windows(seq: torch.Tensor, seq_len: int = 10, stride: int = 8,
                   dim: int = 0) -> torch.Tensor:
     """Frame axis `dim` of length N -> (..., W, T, ...) windows."""
-    idx = window_indices(seq.shape[dim], seq_len, stride)
-    out = seq.index_select(dim, torch.as_tensor(idx.reshape(-1),
-                                                device=seq.device))
-    return out.reshape(seq.shape[:dim] + idx.shape + seq.shape[dim + 1:])
+    n = seq.shape[dim]
+    idx = _window_index_on(n, seq_len, stride, seq.device)
+    out = seq.index_select(dim, idx)
+    return out.reshape(seq.shape[:dim] + (num_windows(n, seq_len, stride),
+                                          seq_len) + seq.shape[dim + 1:])
+
+
+@functools.lru_cache(maxsize=64)
+def _window_index_on(n: int, seq_len: int, stride: int,
+                     device: torch.device) -> torch.Tensor:
+    """`window_indices` flattened, on `device`, copied there at the first
+    call only: a solve on the card then issues no host-to-device copy,
+    which would wait for the work already queued.  Read-only."""
+    return torch.as_tensor(window_indices(n, seq_len, stride).reshape(-1),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _merge_matrix_on(w: int, t: int, stride: int, smooth_sigma: float,
+                     device: torch.device) -> torch.Tensor:
+    """`merge_matrix` on `device`, copied there at the first call only.
+    Read-only."""
+    return torch.as_tensor(merge_matrix(w, t, stride, smooth_sigma),
+                           device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,8 +94,7 @@ def merge_windows_matmul(windows: torch.Tensor, stride: int = 8,
     lead = windows.shape[:batch_dims]
     w, t = windows.shape[batch_dims], windows.shape[batch_dims + 1]
     feat = windows.shape[batch_dims + 2:]
-    m = torch.as_tensor(merge_matrix(w, t, stride, smooth_sigma),
-                        device=windows.device)
+    m = _merge_matrix_on(w, t, stride, float(smooth_sigma), windows.device)
     flat = windows.reshape(lead + (w * t, -1)).to(torch.float32)
     out = torch.matmul(m, flat)
     return out.reshape(lead + (m.shape[0],) + feat).to(windows.dtype)

@@ -1,6 +1,9 @@
 """The CUDA kernels of the port on the card: each against its plain
 PyTorch version (tolerances of chip_smoke.compare_case), the launch
-counter, the autograd backward and the wrapper's argument checks.
+counter, the autograd backward and the wrapper's argument checks; and
+the streamed serve on the card: a sync-free warm dispatch, device
+staging, the prefetcher's stream hand-off and chip_smoke's phase 3h at a
+small size.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -338,3 +341,93 @@ def test_path_d_at_a_small_size(gen, tmp_path):
                                        iters=3)
     assert fails.items == []
     assert launches["heatmap_sample"] > 0
+
+
+def _small_optimizer(tier="bfloat16_delta", **flags):
+    """Serve's configuration at the tiny prior with random weights, on the
+    card, and two 26-frame synthetic chunks."""
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
+    from globalegomocap_tpu_torch.models.conv_vae import init_random
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    argv = ["--data_root", ".", "--local_ckpt", "-", "--global_ckpt", "-",
+            "--latent_dim", "32", "--hidden_dims", "8,8,16,16,32",
+            "--compute_dtype", tier]
+    for k, v in flags.items():
+        argv += ["--" + k, str(v)]
+    cfg = serve.config_from_args(serve.build_parser().parse_args(argv))
+    model = build_model(cfg)
+    sd = init_random(model, torch.Generator().manual_seed(0)).state_dict()
+    opt = SequenceOptimizer(model, sd, sd, cfg, device="cuda")
+    return opt, [synthetic_chunk(26, seed=s) for s in (1, 2)]
+
+
+def test_serve_defaults_phase_at_a_small_size(gen, tmp_path):
+    """chip_smoke's phase 3h on 3 sequences of two 26-frame chunks: the
+    CLI at its defaults against inline, a sync-free dispatch, prefetched
+    and device staging, the guard policy, the decoders and watch mode,
+    every check passing."""
+    fails = chip_smoke.Failures()
+    work = chip_smoke.make_work(torch, 0, str(tmp_path), shape=(2, 2, 26))
+    launches = chip_smoke.serve_defaults_phase(
+        torch, 0, "cuda", fails, "test", work, shape=(3, 2, 26), rounds=1)
+    assert fails.items == []
+    assert launches["fused_stage_energy"] == 3 * 13
+
+
+def test_warm_dispatch_is_sync_free(gen):
+    """A warm optimize_chunks_batched only queues work: no synchronising
+    call under set_sync_debug_mode('error'), at every tier serve runs."""
+    for tier in ("bfloat16_delta", "float32"):
+        opt, cs = _small_optimizer(tier)
+        staged = opt.stage(cs, on_host=True)
+        opt.optimize_chunks_batched(staged, mode="flat")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = opt.optimize_chunks_batched(staged, mode="flat")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(res.optimized).all()
+
+
+@pytest.mark.parametrize("coverage", [None, 0.1])
+@pytest.mark.parametrize("guard_crop", [16, 0])
+def test_device_staging_equals_host_staging_on_the_card(gen, coverage,
+                                                        guard_crop):
+    opt, cs = _small_optimizer(guard_crop=guard_crop)
+    dev = opt.stage(cs, coverage=coverage, on_host=False)
+    host = opt.stage(cs, coverage=coverage, on_host=True)
+    for a, b in zip(dev.tensors(), host.tensors()):
+        assert a.is_cuda and torch.equal(a, b)
+    assert abs(dev.crop_coverage - host.crop_coverage) <= \
+        1e-6 * abs(host.crop_coverage)
+
+
+def test_prefetcher_hands_batches_over_by_event(gen):
+    """StagePrefetcher stages on its own stream: each batch carries an
+    event, equals inline staging bit for bit, and solves to inline
+    staging's answer; the device memory stays bounded by the in-flight
+    depth over the submissions."""
+    from globalegomocap_tpu_torch.optimize.streaming import (
+        StagePrefetcher, StreamingOptimizer)
+    opt, cs = _small_optimizer()
+    batches = [cs] * 6
+    service = StreamingOptimizer(opt, max_in_flight=2, stage_on_host=True)
+    mem = []
+    for staged in StagePrefetcher(opt, batches, depth=2, on_host=True):
+        assert isinstance(staged.ready, torch.cuda.Event)
+        service.submit_batch(staged)
+        ref = opt.stage(cs, coverage=staged.crop_coverage, on_host=True)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(staged.tensors(), ref.tensors()))
+        service._completed.clear()
+        mem.append(torch.cuda.memory_allocated())
+    out = service.drain()
+    direct = opt.optimize_chunks_batched(opt.stage(cs, on_host=True))
+    torch.testing.assert_close(out[-1].optimized, direct.optimized,
+                               rtol=1e-5, atol=1e-6)
+    assert max(mem[2:]) <= mem[1] + sum(
+        t.numel() * t.element_size() for t in ref.tensors()) + sum(
+        x.numel() * x.element_size() for x in direct)

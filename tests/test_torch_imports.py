@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                 "ops.heatmap_sample",
                 "ops.lbfgs_direction", "ops.sampling", "optimize.driver",
                 "optimize.pipeline", "optimize.lbfgs", "models.convert",
-                "data.synthetic", "native.hostcrop"):
+                "data.synthetic", "native.hostcrop", "optimize.streaming",
+                "utils.profiling", "models.dense_decoder"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 

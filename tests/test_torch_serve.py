@@ -1,9 +1,12 @@
-"""The port's serve CLI in one-shot mode on a temporary data root with
---device cpu: one JSON line per sequence with the JAX serve's keys, and
-the same answers as the JAX serve on the same priors at float32 compute
-and at both serves' default tier, bfloat16_delta (metrics within 5 %, the
-precedent of test_fused_energy.py:297-308)."""
+"""The port's serve CLI on a temporary data root with --device cpu: one
+JSON line per sequence with the JAX serve's keys, and the same answers
+as the JAX serve on the same priors at float32 compute and at both
+serves' default tier, bfloat16_delta (metrics within 5 %, the precedent
+of test_fused_energy.py:297-308); and watch mode, stage prefetching and
+device staging against the JAX serve."""
 
+import contextlib
+import io
 import json
 
 import numpy as np
@@ -94,14 +97,83 @@ def test_serve_default_tier_matches_jax_serve_default(served, capsys):
             assert abs(rec[key] - ref[name][key]) <= 0.05 * ref[name][key]
 
 
-@pytest.mark.parametrize("flag,value,name", [
-    ("--watch_interval", "2.0", "watch_interval"),
-    ("--prefetch_depth", "2", "prefetch_depth"),
-    ("--stage_on_host", "false", "stage_on_host")])
-def test_serve_rejects_options_of_later_slices(served, flag, value, name):
+@pytest.fixture(scope="module")
+def jax_float32(served):
+    """The JAX serve's records at float32 compute and its streaming
+    defaults (prefetch depth 2, in-flight depth 3, host staging)."""
+    root, tmp = served
+    jck = str(tmp / "prior.msgpack")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jserve.main(["--data_root", str(root), "--local_ckpt", jck,
+                     "--global_ckpt", jck, "--compute_dtype", "float32",
+                     "--unroll", "1"] + PRIOR)
+    return {r["sequence"]: r for r in (
+        json.loads(x) for x in buf.getvalue().splitlines()
+        if x.startswith("{"))}
+
+
+class _Idle(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--watch_interval", "0.5"), ("--prefetch_depth", "2"),
+    ("--stage_on_host", "false")])
+def test_serve_runs_the_streaming_options(served, jax_float32, capsys,
+                                          monkeypatch, flag, value):
+    """Watch mode, stage prefetching and device staging run (earlier
+    slices rejected them) and answer as the JAX serve does.  Watch mode
+    ends at its first idle sleep, patched to raise: every sequence must
+    be emitted before it."""
     root, tmp = served
     ck = str(tmp / "prior.pt")
-    with pytest.raises(NotImplementedError, match=name):
-        tserve.main(["--data_root", str(root), "--local_ckpt", ck,
-                     "--global_ckpt", ck, "--device", "cpu", flag, value]
-                    + PRIOR)
+    sleeps = []
+
+    def idle(t):
+        sleeps.append(t)
+        raise _Idle
+    monkeypatch.setattr(tserve.time, "sleep", idle)
+    argv = ["--data_root", str(root), "--local_ckpt", ck, "--global_ckpt",
+            ck, "--device", "cpu", "--compute_dtype", "float32", flag,
+            value] + PRIOR
+    if flag == "--watch_interval":
+        with pytest.raises(_Idle):
+            tserve.main(argv)
+        assert sleeps == [0.5]
+    else:
+        assert tserve.main(argv) == 2 and sleeps == []
+    port = {r["sequence"]: r for r in _lines(capsys)}
+    assert set(port) == set(jax_float32) == {"seqA", "seqB"}
+    for name, rec in port.items():
+        assert set(rec) == JAX_KEYS
+        ref = jax_float32[name]
+        assert (rec["chunks"], rec["windows"]) == (ref["chunks"],
+                                                   ref["windows"])
+        for key in ("optimized_global_mpjpe", "original_global_mpjpe"):
+            assert abs(rec[key] - ref[key]) <= 0.05 * ref[key]
+
+
+@pytest.mark.parametrize("flags", [
+    ("--decoder_impl", "dense", "--decoder_dtype", "bfloat16"),
+    ("--decoder_impl", "shift")], ids=["dense-bf16", "shift"])
+def test_serve_decoder_flags_match_jax_serve(served, capsys, flags):
+    """The JAX serve's decoder flags (each value of --decoder_impl and
+    --decoder_dtype in one of the cases) run in the port, which rejected
+    them before, and answer as the JAX serve does with the same flags, at
+    float32 compute."""
+    root, tmp = served
+    ck, jck = str(tmp / "prior.pt"), str(tmp / "prior.msgpack")
+    tserve.main(["--data_root", str(root), "--local_ckpt", ck,
+                 "--global_ckpt", ck, "--device", "cpu", "--compute_dtype",
+                 "float32", *flags] + PRIOR)
+    port = {r["sequence"]: r for r in _lines(capsys)}
+    jserve.main(["--data_root", str(root), "--local_ckpt", jck,
+                 "--global_ckpt", jck, "--compute_dtype", "float32",
+                 "--unroll", "1", *flags] + PRIOR)
+    ref = {r["sequence"]: r for r in _lines(capsys)}
+    assert set(port) == set(ref) == {"seqA", "seqB"}
+    for name, rec in port.items():
+        assert set(rec) == JAX_KEYS
+        for key in ("optimized_global_mpjpe", "original_global_mpjpe"):
+            assert abs(rec[key] - ref[name][key]) <= 0.05 * ref[name][key]

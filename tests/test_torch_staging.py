@@ -101,3 +101,92 @@ def test_degraded_maps_trip_the_guard(optimizers):
     assert ts.crop_coverage < 0.9
     assert ts.heat.shape[-1] == 16 * 16 * 15
     _assert_same_staging(js, ts, len(cs))
+
+
+def _stage_device_and_host(opt, cs, coverage=None):
+    return (opt.stage(cs, coverage=coverage, on_host=False),
+            opt.stage(cs, coverage=coverage, on_host=True))
+
+
+@pytest.mark.parametrize("case", ["peak", "guard_trip", "degraded",
+                                  "full_maps"])
+def test_device_staging_equals_host_staging(optimizers, case):
+    """stage(on_host=False) cuts the crops on the device from the full
+    maps: the same crops, origins and fields as host staging bit for bit
+    (the crop is a gather; the JAX package's stage_crop_impl='onehot' is
+    a TPU matmul for the same selection), the coverage within 1e-6, at
+    the peak crops, at the estimate-centred crops of a tripped guard
+    (injected or measured) and at the guard_crop 0 full-map fallback;
+    and against the JAX package's own device staging."""
+    from dataclasses import replace
+    jopt, topt = optimizers["bfloat16"]
+    cs = chunks()
+    cov = {"guard_trip": 0.1, "full_maps": 0.1}.get(case)
+    if case == "degraded":
+        cs = [synthetic_chunk_v2(26, seed=5), synthetic_chunk(26, seed=6)]
+    if case == "full_maps":
+        jc = replace(jopt.cfg, guard_crop=0)
+        tc = replace(topt.cfg, guard_crop=0)
+        jopt = jdriver.SequenceOptimizer(jopt.model, jopt.local_variables,
+                                         jopt.global_variables, jc)
+        sd = topt.local_model.state_dict()
+        topt = tdriver.SequenceOptimizer(tdriver.build_model(
+            replace(tc, fold_bn=False)), sd, sd, tc, device="cpu")
+    dev, host = _stage_device_and_host(topt, [port_chunk(c) for c in cs],
+                                       cov)
+    assert dev.ready is None and dev.n_chunks == host.n_chunks
+    assert len(dev.tensors()) == len(host.tensors())
+    for a, b in zip(dev.tensors(), host.tensors()):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert dev.full_hw == host.full_hw
+    # the native crop sums each map's 4,096 cells one after another in
+    # float32; on maps with a background floor that order alone moves the
+    # mean by up to 4096 * 2**-24 relative (the JAX package's device sums,
+    # below, are held at 1e-6)
+    np.testing.assert_allclose(dev.crop_coverage, host.crop_coverage,
+                               rtol=1e-6 if case != "degraded"
+                               else 4096 * 2.0 ** -24)
+    width = {"peak": 8 * 8 * 15, "guard_trip": 16 * 16 * 15,
+             "degraded": 16 * 16 * 15}.get(case)
+    if width is None:
+        assert dev.origins is None and dev.heat.shape == (2, 26, 64, 64, 15)
+    else:
+        assert dev.heat.shape == (2, 26, width)
+    js = jopt.stage(cs, coverage=cov, on_host=False)
+    c = len(cs)
+    np.testing.assert_array_equal(_f32(dev.heat), _f32(js.heat)[:c])
+    if dev.origins is not None:
+        np.testing.assert_array_equal(dev.origins.numpy(),
+                                      np.asarray(js.origins)[:c])
+    if cov is None:
+        np.testing.assert_allclose(dev.crop_coverage, js.crop_coverage,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(host.crop_coverage,
+                                   jopt.stage(cs, on_host=True).crop_coverage,
+                                   rtol=1e-6)
+
+
+def test_device_staging_segments_as_one(optimizers):
+    """stage_segment_chunks=1 crops chunk by chunk: the same batch as one
+    segment, the coverage recombined within float32 rounding."""
+    from dataclasses import replace
+    _, topt = optimizers["bfloat16"]
+    cs = [port_chunk(c) for c in chunks(26, (1, 2, 3))]
+    whole = topt.stage(cs, on_host=False)
+    seg = tdriver.SequenceOptimizer.__new__(tdriver.SequenceOptimizer)
+    seg.__dict__.update(topt.__dict__)
+    seg.cfg = replace(topt.cfg, stage_segment_chunks=1)
+    parts = seg.stage(cs, on_host=False)
+    for a, b in zip(whole.tensors(), parts.tensors()):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(parts.crop_coverage, whole.crop_coverage,
+                               rtol=1e-6)
+
+
+def test_staging_defaults_to_the_device(optimizers):
+    """JAX's default: `stage` and a chunk list given to
+    `optimize_chunks_batched` stage on the device."""
+    import inspect
+    _, topt = optimizers["bfloat16"]
+    assert inspect.signature(topt.stage).parameters["on_host"].default \
+        is False
