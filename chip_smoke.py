@@ -99,6 +99,23 @@ Phases (any failure exits non-zero and prints no result line):
               the CLI in watch mode as its own process, a third sequence
               renamed into the root after the first record (3 records,
               exit 0).
+3i. evaluate_all - `cli/evaluate_all.py` over 3 sequences x 4 chunks x
+              100 frames (path A's kind of traffic), with both priors
+              written as flax msgpack files by the port's own coder: at
+              its defaults with --sampling pallas (strong-Wolfe L-BFGS,
+              25/25, one staged flat solve a sequence; kernel 3 launched
+              once per stage-1 call the solver reports, no skipped
+              chunk), a shadow run of one sequence and a plain-version
+              run against a kernel run, both with cuDNN's deterministic
+              algorithms (overall averages, 1 %); --solver lbfgs_fixed
+              --fused_energy true --heatmap_crop 8 (kernels 1 and 2,
+              their launch counts), and the same with --camera <egosyn
+              calibration JSON> against a rerun at the built-in camera,
+              both with cuDNN's deterministic algorithms (metrics
+              equal); the library's mode='vmap' with
+              pallas_direction=True against optimize_chunk per chunk
+              (kernel 4, equal fields); the parity CLI with --save true
+              --profile_dir (PLY files and a trace).
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -2480,6 +2497,284 @@ def serve_phase(torch, seed, dev, fails, card, work, profile=False,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: evaluate_all at its own defaults
+# ---------------------------------------------------------------------------
+
+EVAL_SHAPE = (3, PATH_A_CHUNKS, FRAMES)      # sequences, chunks, frames
+
+
+def write_eval_inputs(torch, root, work):
+    """The two priors of `work` as flax msgpack files (the JAX trainer's
+    format, written by the port's own coder) and the egosyn camera as a
+    calibration JSON.  Returns (local, global, camera JSON) paths."""
+    from globalegomocap_tpu_torch.models.checkpoint import save_msgpack
+    from globalegomocap_tpu_torch.models.convert import params_to_flax
+    from globalegomocap_tpu_torch.ops.fisheye import default_camera
+    paths = []
+    for name, path in (("local", work[2]), ("global", work[3])):
+        out = os.path.join(root, f"{name}.msgpack")
+        save_msgpack(params_to_flax(torch.load(path, weights_only=True)),
+                     out)
+        paths.append(out)
+    cam = default_camera("egosyn")
+    (cx, cy), size = cam.center.tolist(), cam.img_size.tolist()
+    calib = {"intrinsic": [[0.0, 0.0, cx, 0.0], [0.0, 0.0, cy, 0.0],
+                           [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]],
+             "size": size, "polynomialC2W": cam.poly_c2w.tolist(),
+             "polynomialW2C": cam.poly_w2c.tolist()}
+    paths.append(os.path.join(root, "egosyn_calibration.json"))
+    with open(paths[-1], "w") as f:
+        json.dump(calib, f)
+    return paths
+
+
+def run_cli(main, argv):
+    """main(argv) with its printout captured; (result, printout, wall s)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms inside the block."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def worst_relative(a: dict, b: dict, keys) -> float:
+    return max(abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+               for k in keys)
+
+
+def evaluate_all_phase(torch, seed, dev, fails, card, work,
+                       shape=EVAL_SHAPE, iters=None, profile=False):
+    """Phase 3i: `cli/evaluate_all.py` over a data root of `shape` (each
+    sequence path A's kind of traffic) with msgpack priors at full width:
+    at its defaults with --sampling pallas (strong-Wolfe L-BFGS, 25 + 25,
+    one staged flat solve a sequence; kernel 3's launches equal to the
+    stage-1 calls the solver reports, no skipped chunk), a shadow run of
+    one sequence and a plain-version run against a kernel run, both with
+    cuDNN's deterministic algorithms (overall averages within 1 %);
+    with --solver lbfgs_fixed --fused_energy true --heatmap_crop 8
+    (kernels 1 and 2), then the same with --camera <calibration JSON>
+    (equal metrics, cuDNN deterministic in both runs); the library's
+    mode='vmap' with pallas_direction=True against `optimize_chunk` per
+    chunk (kernel 4); the parity CLI with --save true --profile_dir.
+    `iters` and `shape` are cut only in a rehearsal on the CPU.  Returns
+    the launches of the runs that count in the kernels line."""
+    from dataclasses import replace
+
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import evaluate_all as ev
+    from globalegomocap_tpu_torch.cli import optimize_sequence as cli
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import (
+        METRIC_KEYS, calculate_errors)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.ops.fisheye import (
+        default_camera, load_calibration)
+    from globalegomocap_tpu_torch.optimize import pipeline
+    from globalegomocap_tpu_torch.optimize.driver import (
+        optimize_sequence_dir)
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    keys = METRIC_KEYS[:17]
+    fields = ("estimated", "mid", "optimized", "gt")
+    n_seq, n_chunks, n_frames = shape
+    base = os.path.join(work[0], "evaluate_all")
+    data = os.path.join(base, "data")
+    write_sequences(data, n_seq, n_chunks, n_frames, seed + 7)  # path A's
+    local_ckpt, global_ckpt, calib = write_eval_inputs(torch, base, work)
+    argv = ["--data_root", data, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--device", dev]
+    cut = [] if iters is None else ["--max_iter", str(iters),
+                                    "--global_max_iter", str(iters)]
+    launches = {name: 0 for name in cb.LAUNCHES}
+
+    def counted(run_launches, names):
+        for name in names:
+            launches[name] += run_launches[name]
+
+    # 1. the defaults, --sampling pallas: one flat strong-Wolfe solve a
+    # sequence; kernel 3 forward and backward once per batched stage-1
+    # call (value and gradient at every line-search point)
+    calls = []
+    cb.reset_launches()
+    with solver_calls(pipeline, calls):
+        per_seq, out, wall = run_cli(ev.main, argv + ["--sampling",
+                                                      "pallas"] + cut)
+    sync()
+    got = dict(cb.LAUNCHES)
+    counted(got, ("heatmap_sample", "heatmap_sample_bwd"))
+    for line in out.splitlines()[-19:]:
+        print("  evaluate_all | " + line, flush=True)
+    stage1 = sum(calls[0::2])
+    expect = {name: 0 for name in cb.LAUNCHES}
+    expect.update(heatmap_sample=stage1, heatmap_sample_bwd=stage1)
+    print(f"  defaults: {n_seq} sequences x {n_chunks} chunks x {n_frames} "
+          f"frames in {wall:.3f} s, {wall * 1e3 / (n_seq * n_chunks):.3f} ms "
+          f"per chunk; batched calls per stage {calls} [{card}]", flush=True)
+    fails.check(len(per_seq) == n_seq and "overall averages" in out
+                and all(len(v) == len(METRIC_KEYS) for v in per_seq.values()),
+                f"evaluate_all at its defaults: per-sequence and overall "
+                f"averages of {len(per_seq)} sequences")
+    fails.check("SKIPPED" not in out and "falling back" not in out,
+                "evaluate_all skipped no chunk and solved each sequence in "
+                "one flat solve")
+    fails.check(len(calls) == 2 * n_seq and got == expect,
+                f"evaluate_all launches {got}, expected {expect}")
+
+    # 2. a shadow run and 3. a plain-version run of the first sequence
+    args = ev.build_parser().parse_args(argv + ["--sampling", "pallas"]
+                                        + cut)
+    opt = cli.load_optimizer(args, cli.config_from_args(args))
+    seq0 = os.path.join(data, "seq0")
+    log, sh_calls = [], []
+    with shadowed_new(torch, hs, ld, cb, log), solver_calls(pipeline,
+                                                             sh_calls):
+        _, sh_avg, t_sh = optimize_sequence_dir(opt, seq0, verbose=False,
+                                                batched=True)
+    fails.check(t_sh["failed_chunks"] == [],
+                f"shadow run: no failed chunk ({t_sh['failed_chunks']})")
+    check_shadow(fails, log, {"heatmap_sample": sh_calls[0],
+                              "heatmap_sample_bwd": sh_calls[0]},
+                 "evaluate_all")
+    # the plain versions against the kernels, both runs with cuDNN's
+    # deterministic algorithms, so that only the kernels differ
+    with cudnn_deterministic(torch):
+        k_seq, _, _ = run_cli(ev.main, argv + ["--sampling", "pallas"] + cut)
+        with cb.plain_versions_on_cuda():
+            p_seq, out, p_wall = run_cli(ev.main, argv + ["--sampling",
+                                                          "pallas"] + cut)
+
+    def overall(d):
+        return {k: np.mean([float(v[k]) for v in d.values()]) for k in keys}
+    worst = worst_relative(overall(k_seq), overall(p_seq), keys)
+    by_seq = [round(worst_relative(k_seq[q], p_seq[q], keys), 6)
+              for q in p_seq]
+    main = worst_relative(overall(per_seq), overall(p_seq), keys)
+    fails.check("SKIPPED" not in out and worst <= 0.01,
+                f"evaluate_all's overall averages (17 metrics) with the "
+                f"kernels vs the plain versions: worst relative difference "
+                f"{worst:.3e} (bound 1 %; per sequence {by_seq}; the main run "
+                f"against the plain versions {main:.3e}); "
+                f"{p_wall * 1e3 / (n_seq * n_chunks):.3f} ms per chunk with "
+                f"the plain versions")
+
+    # 4. the fused energy kernels (1, 2), then 5. the calibration JSON
+    fused = ["--solver", "lbfgs_fixed", "--fused_energy", "true",
+             "--heatmap_crop", "8"] + cut
+    cb.reset_launches()
+    fz, out, wall = run_cli(ev.main, argv + fused)
+    sync()
+    got = dict(cb.LAUNCHES)
+    counted(got, ("fused_stage_energy", "fused_stage_energy_noreproj"))
+    f_args = ev.build_parser().parse_args(argv + fused)
+    s = cli.config_from_args(f_args).solver
+    expect = {name: 0 for name in cb.LAUNCHES}
+    expect.update(fused_stage_energy=n_seq * (1 + s.max_iter),
+                  fused_stage_energy_noreproj=n_seq * (
+                      1 + (s.global_max_iter or s.max_iter)))
+    per_chunk_ms = wall * 1e3 / (n_seq * n_chunks)
+    fails.check("SKIPPED" not in out and len(fz) == n_seq and got == expect,
+                f"evaluate_all {' '.join(fused)}: {per_chunk_ms:.3f} ms per "
+                f"chunk, launches {got}, expected {expect} [{card}]")
+    # the calibration JSON: the built-in camera bit for bit, and the same
+    # metrics, both runs with cuDNN's deterministic algorithms (its
+    # default transposed-convolution algorithms add in a varying order on
+    # the card, and so do two runs of one configuration)
+    cam_a, cam_b = load_calibration(calib), default_camera("egosyn")
+    same_cam = all(torch.equal(getattr(cam_a, f), getattr(cam_b, f)) for f in
+                   ("center", "poly_c2w", "poly_w2c", "img_size"))
+    with cudnn_deterministic(torch):
+        ref, _, _ = run_cli(ev.main, argv + fused)
+        cb.reset_launches()
+        fc, out, _ = run_cli(ev.main, argv + fused + ["--camera", calib])
+        sync()
+    same = all(np.array_equal(np.asarray(fc[q][k]), np.asarray(ref[q][k]))
+               for q in ref for k in METRIC_KEYS)
+    fails.check(same_cam and same and dict(cb.LAUNCHES) == expect,
+                f"evaluate_all --camera {os.path.basename(calib)}: the "
+                f"built-in egosyn camera bit for bit ({same_cam}), metrics "
+                f"equal to its run's ({same}; against the main run, worst "
+                f"relative difference "
+                f"{max(worst_relative(fc[q], fz[q], keys) for q in fz):.3e}),"
+                f" launches {dict(cb.LAUNCHES)}")
+
+    # 6. mode='vmap' with the direction kernel against optimize_chunk
+    cfg = cli.config_from_args(ev.build_parser().parse_args(
+        argv + ["--solver", "lbfgs_fixed", "--sampling", "pallas"] + cut))
+    cfg = replace(cfg, solver=replace(cfg.solver, pallas_direction=True))
+    vargs = ev.build_parser().parse_args(argv)
+    vopt = cli.load_optimizer(vargs, cfg)
+    chunks = [load_test_chunk(d) for d in list_chunk_dirs(seq0)]
+    it1 = cfg.solver.max_iter
+    it2 = cfg.solver.global_max_iter or it1
+    expect = {name: 0 for name in cb.LAUNCHES}
+    expect.update(heatmap_sample=n_chunks * (1 + 2 * it1),
+                  heatmap_sample_bwd=n_chunks * (1 + it1),
+                  lbfgs_direction=n_chunks * (it1 + it2))
+    staged = vopt.stage(chunks)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    res = vopt.optimize_chunks_batched(staged, mode="vmap")
+    sync()
+    wall = time.perf_counter() - t0
+    got = dict(cb.LAUNCHES)
+    counted(got, ("lbfgs_direction",))
+    per = [vopt.optimize_chunk(c) for c in chunks]
+    diff = max(float((getattr(res, f)[i] - getattr(r, f)).abs().max())
+               for i, r in enumerate(per) for f in res._fields)
+    worst = max(worst_relative(
+        calculate_errors(*(getattr(res, f)[i] for f in fields)),
+        calculate_errors(*(getattr(r, f) for f in fields)), keys)
+        for i, r in enumerate(per))
+    fails.check(got == expect and worst <= 0.01,
+                f"mode='vmap' with pallas_direction: "
+                f"{wall * 1e3 / n_chunks:.3f} ms per chunk, launches {got} "
+                f"(expected {expect}); against "
+                f"optimize_chunk per chunk: 17 metrics worst relative "
+                f"difference {worst:.3e} (bound 1 %), fields max|d| "
+                f"{diff:.3e} [{card}]")
+
+    # 7. the parity CLI's --save and --profile_dir
+    out_dir, trace_dir = os.path.join(base, "out"), os.path.join(base,
+                                                                 "trace")
+    short = ["--solver", "lbfgs_fixed", "--max_iter", "2",
+             "--global_max_iter", "1"]
+    _, out, wall = run_cli(cli.main, [
+        "--data_path", seq0, "--local_ckpt", local_ckpt, "--global_ckpt",
+        global_ckpt, "--device", dev, "--save", "true", "--out_dir",
+        out_dir, "--profile_dir", trace_dir] + short)
+    plys = [f for _, _, fs in os.walk(out_dir) for f in fs
+            if f.endswith(".ply")]
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")] \
+        if os.path.isdir(trace_dir) else []
+    covered = (num_windows(n_frames) - 1) * (T - 2) + T   # merged frames
+    size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces)
+    fails.check(len(plys) == 3 * n_chunks * covered and len(traces) == 1,
+                f"optimize_sequence --save true --profile_dir "
+                f"({' '.join(short)}, {wall:.2f} s): {len(plys)} PLY files "
+                f"({3 * n_chunks * covered} expected), traces {traces} "
+                f"({size} bytes)")
+    if profile:
+        print("[3i'] profile of one evaluate_all sequence", flush=True)
+        profile_phase(torch, lambda: optimize_sequence_dir(
+            opt, seq0, verbose=False, batched=True))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2593,6 +2888,15 @@ def main(argv=None) -> int:
             if name in ("fused_stage_energy", "fused_stage_energy_noreproj"):
                 launches[name] += n
         phase_done("serve defaults", t0)
+        # ---- 3i. evaluate_all at its defaults ------------------------------
+        print("[3i] evaluate_all at its defaults (batched sequence sweep, "
+              "msgpack priors, calibration file)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in evaluate_all_phase(torch, args.seed, "cuda", fails,
+                                          card, work,
+                                          profile=args.profile).items():
+            launches[name] += n
+        phase_done("evaluate_all", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -13,15 +13,19 @@ With no --solver flag it runs the reference's solver, L-BFGS with a
 strong-Wolfe line search (`optimize/lbfgs.py::lbfgs_minimize`); --solver
 lbfgs_fixed and adam select the JAX package's other two.  Checkpoints are
 the reference's .pth.tar training checkpoints or bare ConvVAE state dicts
-saved with torch.save (`cli/serve.py::load_state`).  Options of later
-slices raise NotImplementedError naming the option: --circular_history
-true, --save true, --profile_dir, flax msgpack checkpoints, and the
-configurations that `optimize/pipeline.check_supported` names.
+saved with torch.save (`cli/serve.py::load_state`), or, under any other
+suffix, flax msgpack files as the JAX package's trainer writes them.
+--camera takes a built-in name or a calibration JSON.  --save true
+writes PLY meshes of the globally aligned sequences under
+--out_dir/<chunk>/; --profile_dir writes a torch.profiler Chrome trace of
+the solve there.  --init sample raises NotImplementedError
+(`optimize/pipeline.check_supported`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import pickle
 
@@ -140,42 +144,60 @@ def config_from_args(args):
         final_smooth_method=args.final_smooth_method, merge=args.merge)
 
 
+TORCH_SUFFIXES = (".pth.tar", ".pth", ".tar", ".pt")
+
+
 def load_variables(path: str, model) -> dict:
-    """A prior's state dict, checked against `model` (`serve.load_state`:
-    .pth.tar training checkpoints or bare state dicts); flax msgpack waits
-    for a later slice."""
-    from globalegomocap_tpu_torch.cli.serve import load_state
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: flax msgpack checkpoints are not ported yet")
-    return load_state(path, model)
+    """A prior's state dict, checked against `model`: a torch file
+    (.pth.tar, .pth, .tar, .pt) through `serve.load_state` (the
+    reference's training checkpoints or bare state dicts), any other path
+    as a flax msgpack file of {'params', 'batch_stats'}
+    (`models/checkpoint.py`), converted by `models/convert.py`."""
+    from globalegomocap_tpu_torch.cli.serve import check_state, load_state
+    if path.endswith(TORCH_SUFFIXES):
+        return load_state(path, model)
+    from globalegomocap_tpu_torch.models.checkpoint import load_msgpack
+    from globalegomocap_tpu_torch.models.convert import params_from_flax
+    blob = load_msgpack(path)
+    if not isinstance(blob, dict) or "params" not in blob:
+        raise ValueError(f"{path}: not a flax variables file (no 'params')")
+    state = params_from_flax({"params": blob["params"],
+                              "batch_stats": blob.get("batch_stats", {})})
+    return check_state(state, model, path)
 
 
-def _reject_later_slices(args) -> None:
-    for flag, on in (("--circular_history true", args.circular_history),
-                     ("--save true", args.save),
-                     ("--profile_dir", args.profile_dir is not None)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
+def load_optimizer(args, cfg):
+    """The SequenceOptimizer of `cfg` on the priors the arguments name,
+    on --device."""
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.optimize.pipeline import check_supported
+    check_supported(cfg)
+    model = build_model(cfg)
+    return SequenceOptimizer(model, load_variables(args.local_ckpt, model),
+                             load_variables(args.global_ckpt, model), cfg,
+                             device=args.device)
+
+
+def trace_context(profile_dir):
+    """A torch.profiler trace into `profile_dir`, or nothing."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from globalegomocap_tpu_torch.utils.profiling import device_trace
+    return device_trace(profile_dir)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _reject_later_slices(args)
 
     from globalegomocap_tpu_torch.data.test_data import (
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.optimize.driver import (
-        SequenceOptimizer, build_model, optimize_sequence_dir)
-    from globalegomocap_tpu_torch.optimize.pipeline import check_supported
+        optimize_sequence_dir)
 
-    cfg = config_from_args(args)
-    check_supported(cfg)
-    model = build_model(cfg)
-    opt = SequenceOptimizer(model, load_variables(args.local_ckpt, model),
-                            load_variables(args.global_ckpt, model), cfg,
-                            device=args.device)
-    errors, averages, _ = optimize_sequence_dir(opt, args.data_path)
+    opt = load_optimizer(args, config_from_args(args))
+    with trace_context(args.profile_dir):
+        errors, averages, _ = optimize_sequence_dir(opt, args.data_path)
 
     if args.save_pose and errors:
         for chunk_dir in list_chunk_dirs(args.data_path):
@@ -190,6 +212,26 @@ def main(argv=None):
                              "optimized_pose": opt_seq,
                              "mid_optimized_pose": mid_local,
                              "gt_pose": gt}, f)
+
+    if args.save and errors:
+        import torch
+        from globalegomocap_tpu_torch.evaluation.metrics import (
+            align_sequence_globally)
+        from globalegomocap_tpu_torch.tools.ply import save_skeleton_sequence
+
+        def aligned(seq, gt):
+            return align_sequence_globally(
+                torch.from_numpy(seq), torch.from_numpy(gt)).numpy()
+        for chunk_dir in list_chunk_dirs(args.data_path):
+            _, est, _, opt_seq, gt = opt.run(load_test_chunk(chunk_dir),
+                                             with_metrics=False)
+            base = os.path.join(args.out_dir, os.path.basename(chunk_dir))
+            save_skeleton_sequence(aligned(opt_seq, gt), os.path.join(
+                base, "optimized_global_aligned"))
+            save_skeleton_sequence(aligned(est, gt), os.path.join(
+                base, "input_global_aligned"))
+            save_skeleton_sequence(gt, os.path.join(base,
+                                                    "gt_global_aligned"))
     return averages
 
 

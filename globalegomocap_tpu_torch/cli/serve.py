@@ -45,9 +45,13 @@ flight before it sleeps.  --max_batches > 0 exits after that many
 sequences.  Checkpoints are ConvVAE state dicts in the reference's torch
 layout, saved with torch.save bare or under a 'state_dict' key, as the
 reference's .pth.tar training checkpoints hold them (tensors, plain
-containers and an argparse.Namespace: they load with weights_only=True).
-Runs on the card unless --device cpu; a failed staging or solve raises,
-with no fall back to the CPU or to inline staging.
+containers and an argparse.Namespace: they load with weights_only=True),
+or flax msgpack files under any other suffix
+(`cli/optimize_sequence.py::load_variables`).  As the JAX serve, it takes
+every flag of the parity CLI (`cli/optimize_sequence.py`), with the
+production defaults above.  Runs on the card unless --device cpu; a
+failed staging or solve raises, with no fall back to the CPU or to
+inline staging.
 """
 
 from __future__ import annotations
@@ -61,8 +65,7 @@ import time
 import numpy as np
 import torch
 
-from globalegomocap_tpu_torch.config import (
-    EnergyConfig, OptimizeConfig, PriorConfig, SolverConfig)
+from globalegomocap_tpu_torch.config import OptimizeConfig
 
 
 def str2bool(x: str) -> bool:
@@ -70,39 +73,18 @@ def str2bool(x: str) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The parity CLI's parser (`cli/optimize_sequence.py`: every flag of
+    the JAX serve, which takes the same parent) with --data_root, the
+    streaming flags and serve's production defaults."""
+    from globalegomocap_tpu_torch.cli.optimize_sequence import (
+        build_parser as sequence_parser)
     p = argparse.ArgumentParser(description=__doc__,
+                                parents=[sequence_parser()],
+                                conflict_handler="resolve", add_help=False,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--data_root", required=True,
                    help="directory whose subdirectories are sequences")
-    p.add_argument("--local_ckpt", required=True)
-    p.add_argument("--global_ckpt", required=True)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--camera", default="egosyn")
-    p.add_argument("--latent_dim", default=2048, type=int)
-    p.add_argument("--seq_len", default=10, type=int)
-    p.add_argument("--hidden_dims", default="64,64,128,256,512")
-    p.add_argument("--vae", default=0.0, type=float)
-    p.add_argument("--smooth", default=0.001, type=float)
-    p.add_argument("--bone_length", default=0.01, type=float)
-    p.add_argument("--weight_3d", default=0.01, type=float)
-    p.add_argument("--reproj_weight", default=0.01, type=float)
-    p.add_argument("--global_weight_3d", default=None, type=float)
-    p.add_argument("--global_smooth", default=None, type=float)
-    p.add_argument("--global_residual", default=True, type=str2bool)
-    p.add_argument("--max_iter", default=12, type=int)
-    p.add_argument("--history_size", default=2, type=int)
-    p.add_argument("--step_candidates", default="1.0,0.1")
-    p.add_argument("--global_max_iter", default=3, type=int)
-    p.add_argument("--heatmap_crop", default=8, type=int)
-    p.add_argument("--sampling", default="dense",
-                   choices=["gather", "dense", "pallas"],
-                   help="full-map sampling (the guard_crop 0 fallback)")
-    p.add_argument("--guard_crop", default=16, type=int,
-                   help="k of the estimate-centred crops of a tripped "
-                        "guard; 0 = the full-map fallback")
-    p.add_argument("--heatmap_crop_min_mass", default=0.90, type=float)
-    p.add_argument("--heatmap_dtype", default="bfloat16",
-                   choices=["float32", "bfloat16"])
+    p.add_argument("--data_path", required=False, default=None)
     p.add_argument("--compute_dtype", default="bfloat16_delta",
                    choices=["float32", "bfloat16", "bfloat16_f32enc",
                             "bfloat16_f32head", "bfloat16_delta",
@@ -112,17 +94,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "decoder evals and iterates the solver state in "
                         "bf16 around the float32-exact encoder mean, with a "
                         "float32 encode and output decode")
-    p.add_argument("--fold_bn", default=True, type=str2bool)
-    p.add_argument("--dense_decoder", default=True, type=str2bool,
-                   help="with an empty --decoder_impl: the dense decoder")
-    p.add_argument("--decoder_impl", default="conv",
-                   choices=["", "conv", "dense", "shift"],
-                   help="the decoder of the solve: conv layers, banded "
-                        "matmuls (dense) or shifted-tap matmuls (shift)")
-    p.add_argument("--decoder_dtype", default="float32",
+    p.add_argument("--heatmap_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"],
-                   help="dense/shift decoder weight storage dtype")
-    p.add_argument("--final_smooth", default=True, type=str2bool)
+                   help="staged heat-crop storage dtype")
+    p.add_argument("--guard_crop", default=16, type=int,
+                   help="k of the estimate-centred crops of a tripped "
+                        "guard; 0 = the full-map fallback")
     p.add_argument("--stage_on_host", default=True, type=str2bool,
                    help="crop the maps on the host before the transfer "
                         "(false: move the full maps and crop on the card)")
@@ -140,37 +117,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_batches", default=0, type=int,
                    help="stop after N sequences (0 = no limit)")
     p.add_argument("--with_metrics", default=True, type=str2bool)
-    p.add_argument("--save_pose", default=False, type=str2bool)
-    p.add_argument("--out_dir", default="results")
+    # the production solver stack, as the JAX serve sets it
+    p.set_defaults(solver="lbfgs_fixed", fused_probes=True,
+                   fused_energy=True, unroll=5, max_iter=12, history_size=2,
+                   step_candidates="1.0,0.1", global_residual=True,
+                   global_max_iter=3, heatmap_crop=8, sampling="dense",
+                   fold_bn=True, dense_decoder=True, decoder_impl="conv",
+                   out_dir="results")
     return p
 
 
 def config_from_args(args) -> OptimizeConfig:
-    return OptimizeConfig(
-        energy=EnergyConfig(vae=args.vae, smooth=args.smooth,
-                            bone_length=args.bone_length,
-                            weight_3d=args.weight_3d,
-                            reproj=args.reproj_weight,
-                            global_weight_3d=args.global_weight_3d,
-                            global_smooth=args.global_smooth,
-                            global_residual=args.global_residual),
-        prior=PriorConfig(latent_dim=args.latent_dim, seq_len=args.seq_len,
-                          hidden_dims=tuple(
-                              int(x) for x in args.hidden_dims.split(","))),
-        solver=SolverConfig(method="lbfgs_fixed", max_iter=args.max_iter,
-                            history_size=args.history_size,
-                            step_candidates=tuple(
-                                float(x) for x in
-                                args.step_candidates.split(",")),
-                            fused_probes=True, fused_energy=True,
-                            global_max_iter=args.global_max_iter),
-        sampling_impl=args.sampling, heatmap_dtype=args.heatmap_dtype,
-        heatmap_crop=args.heatmap_crop, guard_crop=args.guard_crop,
-        heatmap_crop_min_mass=args.heatmap_crop_min_mass,
-        fold_bn=args.fold_bn, dense_decoder=args.dense_decoder,
-        decoder_impl=args.decoder_impl, decoder_dtype=args.decoder_dtype,
-        compute_dtype=args.compute_dtype, camera=args.camera,
-        final_smooth=args.final_smooth)
+    from globalegomocap_tpu_torch.cli import optimize_sequence
+    return optimize_sequence.config_from_args(args)
 
 
 def load_state(path: str, model=None) -> dict:
@@ -188,17 +147,23 @@ def load_state(path: str, model=None) -> dict:
         raise ValueError(f"{path}: holds a {type(blob).__name__}, not a "
                          "state dict or a training checkpoint")
     state = blob.get("state_dict", blob)
-    if model is not None:
-        want = model.state_dict()
-        missing = sorted(set(want) - set(state))
-        unexpected = sorted(set(state) - set(want))
-        shapes = [k for k in want if k in state and (
-            not isinstance(state[k], torch.Tensor)
-            or state[k].shape != want[k].shape)]
-        if missing or unexpected or shapes:
-            raise ValueError(
-                f"{path}: not a state dict of this prior: missing "
-                f"{missing}, unexpected {unexpected}, mis-shaped {shapes}")
+    return state if model is None else check_state(state, model, path)
+
+
+def check_state(state: dict, model, path: str) -> dict:
+    """`state` if it is a state dict of `model`: a key the model lacks, a
+    key of the model the state lacks, or a value of another shape raises
+    ValueError naming them."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(state))
+    unexpected = sorted(set(state) - set(want))
+    shapes = [k for k in want if k in state and (
+        not isinstance(state[k], torch.Tensor)
+        or state[k].shape != want[k].shape)]
+    if missing or unexpected or shapes:
+        raise ValueError(
+            f"{path}: not a state dict of this prior: missing "
+            f"{missing}, unexpected {unexpected}, mis-shaped {shapes}")
     return state
 
 
@@ -215,16 +180,15 @@ def main(argv=None) -> int:
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
     from globalegomocap_tpu_torch.optimize.driver import (
-        SequenceOptimizer, build_model, optimize_sequence_dir)
+        optimize_sequence_dir)
     from globalegomocap_tpu_torch.optimize.streaming import (
         StagePrefetcher, StreamingOptimizer)
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
+    from globalegomocap_tpu_torch.cli.optimize_sequence import (
+        load_optimizer)
     cfg = config_from_args(args)
-    model = build_model(cfg)
-    opt = SequenceOptimizer(model, load_state(args.local_ckpt, model),
-                            load_state(args.global_ckpt, model), cfg,
-                            device=args.device)
+    opt = load_optimizer(args, cfg)
     service = StreamingOptimizer(opt, max_in_flight=args.max_in_flight,
                                  stage_on_host=args.stage_on_host)
 

@@ -2,8 +2,8 @@
 
 A copy of the fields of `globalegomocap_tpu/config.py` that the optimizer
 reads, with the same names and defaults, so one set of values configures
-both packages.  Options the port does not run yet are kept as fields and
-rejected by name where they would change behaviour
+both packages.  The one option the port does not run, solver.init =
+'sample', is kept as a field and rejected by name
 (optimize/pipeline.py `check_supported`).
 """
 

@@ -79,6 +79,25 @@ def vae_energy(pose):
     return pose.square().sum((-3, -2, -1))
 
 
+def soft_smooth_energy(pose, smoothed_pose):
+    """Squared distance to the pre-smoothed input window (the reference's
+    soft_smooth_energy)."""
+    return (smoothed_pose - pose).square().sum((-3, -2, -1))
+
+
+def overlap_consistency_energy(poses, stride: int):
+    """Cross-window coupling: adjacent windows of one chunk agree on their
+    T - stride shared frames.  poses (..., W, T, 15, 3), all windows of a
+    chunk -> (...)."""
+    w, t = poses.shape[-4], poses.shape[-3]
+    overlap = t - stride
+    if overlap <= 0 or w < 2:
+        return poses.new_zeros(poses.shape[:-4])
+    tail = poses[..., :-1, stride:, :, :]    # last frames of window i
+    head = poses[..., 1:, :overlap, :, :]    # first frames of window i+1
+    return (tail - head).square().sum((-4, -3, -2, -1))
+
+
 def project_to_heatmap_grid(pose: torch.Tensor,
                             camera: fisheye.FisheyeParams) -> torch.Tensor:
     """(..., 3) camera-frame points -> (..., 2) grid coordinates in [-1, 1]
@@ -122,19 +141,28 @@ def heatmap_energy(pose, heatmaps, camera: fisheye.FisheyeParams,
 def total_energy_from_pose(pose, initial_pose, mean_bone_length, heatmaps,
                            camera: fisheye.FisheyeParams,
                            weights: EnergyWeights, use_reproj: bool,
-                           sampling_impl: str = "gather", origins=None,
-                           full_hw=None):
+                           gmm_score_fn=None, sampling_impl: str = "gather",
+                           origins=None, full_hw=None, smoothed_pose=None):
     """The total loss of a stage given decoded pose windows (*P, *B, T,
     15, 3); the context is (*B, ...).  `use_reproj` False leaves the
-    heatmap term out altogether (the global stage)."""
+    heatmap term out altogether (the global stage).  The soft-smooth term
+    joins with `smoothed_pose` (*B, T, 15, 3), the GMM term with
+    `gmm_score_fn`, a log-likelihood (N, T*45) -> (N,) of flattened
+    windows (no entry point passes one, in either package)."""
     w = weights
     e = (w.weight_3d * pose_energy_3d(pose, initial_pose)
          + w.smooth * smooth_acceleration_energy(pose)
          + w.bone_length * bone_length_energy(pose, mean_bone_length)
          + w.vae * vae_energy(pose))
+    if smoothed_pose is not None:
+        e = e + w.soft_smooth * soft_smooth_energy(pose, smoothed_pose)
     if use_reproj:
         e = e + w.reproj * heatmap_energy(pose, heatmaps, camera,
                                           sampling_impl, origins, full_hw)
+    if gmm_score_fn is not None:
+        lead, t = pose.shape[:-3], pose.shape[-3]
+        score = gmm_score_fn(pose.reshape(-1, t * 45))
+        e = e - w.gmm * score.reshape(lead + (-1,)).sum(-1)
     return e
 
 

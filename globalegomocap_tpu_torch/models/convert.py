@@ -14,6 +14,7 @@ The port's own jax-free code, following the layout rules of
 Variables are the Flax {'params', 'batch_stats'} tree with numpy (or
 array-like) leaves; BN-folded trees (empty 'batch_stats', no 'bn'
 entries) convert to state dicts for `ConvVAE(use_bn=False)`.
+`params_to_flax` is the inverse, for priors the port writes as msgpack.
 """
 
 from __future__ import annotations
@@ -71,3 +72,48 @@ def params_from_flax(variables) -> dict:
         a(params["final_conv"]["kernel"]), (2, 1, 0))
     out["final_layer.3.bias"] = a(params["final_conv"]["bias"])
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def params_to_flax(state: dict) -> dict:
+    """The port's ConvVAE state dict -> Flax {'params', 'batch_stats'}
+    with float32 numpy leaves: the inverse of `params_from_flax`, so that
+    the port writes priors the JAX package reads
+    (`models/checkpoint.py::save_msgpack`)."""
+    a = lambda k: state[k].detach().to(torch.float32).cpu().numpy()  # noqa
+    n_enc = len({k.split(".")[1] for k in state if k.startswith("encoder.")})
+    c_last = state[f"encoder.{n_enc - 1}.0.weight"].shape[0]
+    seq_len = state["fc_mu.weight"].shape[1] // c_last
+    perm = _perm_ct_to_tc(c_last, seq_len)
+    params: dict = {}
+    stats: dict = {}
+
+    def block(src_conv, src_bn, dst, transposed):
+        w = a(f"{src_conv}.weight")
+        params[dst] = {"conv": {
+            "kernel": np.ascontiguousarray(
+                np.transpose(w[:, :, ::-1], (2, 0, 1)) if transposed
+                else np.transpose(w, (2, 1, 0))),
+            "bias": a(f"{src_conv}.bias")}}
+        if f"{src_bn}.weight" in state:
+            params[dst]["bn"] = {"bias": a(f"{src_bn}.bias"),
+                                 "scale": a(f"{src_bn}.weight")}
+            stats[dst] = {"bn": {"mean": a(f"{src_bn}.running_mean"),
+                                 "var": a(f"{src_bn}.running_var")}}
+
+    for i in range(n_enc):
+        block(f"encoder.{i}.0", f"encoder.{i}.1", f"enc_{i}", False)
+    for name in ("fc_mu", "fc_var"):
+        params[name] = {
+            "kernel": np.ascontiguousarray(a(f"{name}.weight").T[perm, :]),
+            "bias": a(f"{name}.bias")}
+    params["decoder_input"] = {
+        "kernel": np.ascontiguousarray(a("decoder_input.weight").T[:, perm]),
+        "bias": a("decoder_input.bias")[perm]}
+    for i in range(n_enc - 1):
+        block(f"decoder.{i}.0", f"decoder.{i}.1", f"dec_{i}", True)
+    block("final_layer.0", "final_layer.1", "final_block", True)
+    params["final_conv"] = {
+        "kernel": np.ascontiguousarray(
+            np.transpose(a("final_layer.3.weight"), (2, 1, 0))),
+        "bias": a("final_layer.3.bias")}
+    return {"params": params, "batch_stats": stats}

@@ -1,12 +1,14 @@
 """Calibrated omnidirectional (Scaramuzza-style) fisheye camera.
 
 Counterpart of `globalegomocap_tpu/ops/fisheye.py`: the W2C projection
-with the reference's z-flip convention and the two built-in calibration
-tables (published constants of the two egocentric rigs).
+with the reference's z-flip convention, the two built-in calibration
+tables (published constants of the two egocentric rigs) and calibration
+JSON files (`load_calibration`).
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +26,21 @@ class FisheyeParams:
     def to(self, device) -> "FisheyeParams":
         return FisheyeParams(*(t.to(device) for t in (
             self.center, self.poly_c2w, self.poly_w2c, self.img_size)))
+
+
+CALIBRATION_KEYS = ("intrinsic", "size", "polynomialC2W", "polynomialW2C")
+
+
+def load_calibration(path: str) -> FisheyeParams:
+    """A fisheye calibration JSON (keys intrinsic, size, polynomialC2W,
+    polynomialW2C: the reference's calibration file contract).  A file
+    without one of them raises ValueError naming it."""
+    with open(path) as f:
+        data = json.load(f)
+    missing = [k for k in CALIBRATION_KEYS if k not in data]
+    if missing:
+        raise ValueError(f"{path}: calibration lacks {missing}")
+    return params_from_dict(data)
 
 
 def params_from_dict(data: dict) -> FisheyeParams:

@@ -16,6 +16,12 @@ NUM_JOINTS = 15
 # parent joint index of each joint (joint 0 is its own parent / root)
 KINEMATIC_PARENTS = (0, 0, 1, 2, 0, 4, 5, 1, 7, 8, 9, 4, 11, 12, 13)
 
+# bone edges used for rendering (tools/ply.py)
+BONE_LINES = (
+    (0, 1), (0, 4), (1, 2), (2, 3), (4, 5), (5, 6), (1, 7), (4, 11),
+    (7, 8), (8, 9), (9, 10), (11, 12), (12, 13), (13, 14), (7, 11),
+)
+
 # mean reference skeleton in millimetres, joints as columns (3, 15)
 MEAN3D_MM = np.array([
     [6.12454847, 145.97761, 258.72083056, 281.27554815, -130.58758154,

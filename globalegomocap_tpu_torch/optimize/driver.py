@@ -5,12 +5,13 @@ Counterpart of `globalegomocap_tpu/optimize/driver.py`:
 `SequenceOptimizer` (BN folding at construction, the guard on raw maps
 `_crop_coverage`/`_effective_cfg`, `_cfg_for_coverage` with its
 `guard_crop` = 0 full-map fallback, `stage` on the host through the
-native host crop or on the device, `optimize_chunks_batched(mode=
-"flat")`, `optimize_chunk`, `run`), and
-`optimize_sequence_dir` (its per-chunk loop, with the per-chunk fault
-isolation; the batched variant waits for the port of `evaluate_all`) and
-`print_summary`.  Every derived configuration is built from the full
-resolved config, so nothing keys a cache on a partial view of it.
+native host crop or on the device, `optimize_chunks_batched` in its
+modes 'flat' and 'vmap', `optimize_chunk`, `run`), and
+`optimize_sequence_dir` (its per-chunk loop with the per-chunk fault
+isolation, or with batched=True one staged flat solve a sequence, as
+`cli/evaluate_all.py` runs it) and `print_summary`.  Every derived
+configuration is built from the full resolved config, so nothing keys a
+cache on a partial view of it.
 
 On the card a warm `optimize_chunks_batched(staged)` waits for nothing:
 the solve's constants (the camera, the weight rows, the window and merge
@@ -51,12 +52,10 @@ from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
 
 
 def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
-    """A built-in camera by name (calibration files wait for a later
-    slice)."""
+    """The camera from a built-in name or a calibration JSON path."""
     if cfg.camera in ("egosyn", "pose_fisheye"):
         return fisheye.default_camera(cfg.camera)
-    raise NotImplementedError(
-        f"camera={cfg.camera!r}: calibration files are not ported yet")
+    return fisheye.load_calibration(cfg.camera)
 
 
 def build_model(cfg: OptimizeConfig, use_bn: bool = True) -> ConvVAE:
@@ -337,24 +336,25 @@ class SequenceOptimizer:
         for t in staged.tensors():
             t.record_stream(stream)
 
-    def optimize_chunks_batched(self, chunks, mode: str = "flat"
+    def optimize_chunks_batched(self, chunks, mode: str = "vmap"
                                 ) -> ChunkResult:
         """Solve a StagedBatch (or a list of equal-length chunks, staged
-        here) as one flat batch of windows.  Returns a ChunkResult with a
-        leading chunk axis."""
-        if mode != "flat":
-            raise NotImplementedError(
-                f"mode={mode!r}: only the flat batched path is ported")
+        here): mode='flat' as one flat batch of windows (the serving
+        path), mode='vmap' (the JAX default) chunk by chunk through the
+        per-chunk pipeline (`pipeline.optimize_chunks_batched`).  Returns
+        a ChunkResult with a leading chunk axis."""
+        if mode not in ("flat", "vmap"):
+            raise ValueError(f"mode={mode!r}: 'flat' or 'vmap'")
         staged = chunks if isinstance(chunks, StagedBatch) \
             else self.stage(chunks)
         self._consume(staged)
         cfg = self._cfg_for_coverage(staged.crop_coverage)
+        solve = (pipeline.optimize_chunks_flat if mode == "flat"
+                 else pipeline.optimize_chunks_batched)
         with torch.no_grad():
-            return pipeline.optimize_chunks_flat(
-                *self._stages, staged.est,
-                staged.cams, staged.heat, staged.gt,
-                self._camera_dev, cfg, origins=staged.origins,
-                full_hw=staged.full_hw)
+            return solve(*self._stages, staged.est, staged.cams, staged.heat,
+                         staged.gt, self._camera_dev, cfg,
+                         origins=staged.origins, full_hw=staged.full_hw)
 
     def optimize_chunk(self, chunk: TestChunk,
                        cfg: OptimizeConfig | None = None) -> ChunkResult:
@@ -410,13 +410,40 @@ def _regression_tripwire(errors: dict) -> None:
         print(errors)
 
 
+def _report(errors: dict, chunk_dir: str, verbose: bool) -> None:
+    if verbose:
+        print(f"running data: {chunk_dir}")
+        _regression_tripwire(errors)
+
+
+def _summarise(all_errors: list, timing: dict, verbose: bool):
+    """(all_errors, averages, timing), the averages printed."""
+    averages = {}
+    if all_errors:
+        for k in all_errors[0]:
+            averages[k] = np.mean([e[k] for e in all_errors], axis=0)
+    if verbose and averages:
+        print_summary(averages)
+        print(f"total optimization time: {timing['total_s']:.2f}s")
+    return all_errors, averages, timing
+
+
 def optimize_sequence_dir(opt: SequenceOptimizer, data_dir: str,
-                          verbose: bool = True):
-    """Optimise every chunk directory of a sequence, one chunk at a time,
-    and average the metrics.  A chunk that fails to load or solve is
+                          verbose: bool = True, batched: bool = False):
+    """Optimise every chunk directory of a sequence and average the
+    metrics.  A chunk that fails to load (or, one at a time, to solve) is
     skipped and listed in timing["failed_chunks"], so one bad chunk does
-    not end the sequence.  Returns (per_chunk_errors, averages,
-    timing)."""
+    not end the sequence.  batched=True solves the sequence's chunks in
+    one staged flat solve (`stage` and `optimize_chunks_batched(mode=
+    'flat')`), and falls back to the per-chunk loop where their lengths
+    differ.  Returns (per_chunk_errors, averages, timing)."""
+    if batched:
+        res = _optimize_sequence_dir_batched(opt, data_dir, verbose)
+        if res is not None:
+            return res
+        if verbose:
+            print("batched path unavailable (unequal chunk lengths); "
+                  "falling back to per-chunk")
     all_errors, timings, failures = [], [], []
     for chunk_dir in list_chunk_dirs(data_dir):
         try:
@@ -431,21 +458,45 @@ def optimize_sequence_dir(opt: SequenceOptimizer, data_dir: str,
             continue
         timings.append(dt)
         all_errors.append(errors)
-        if verbose:
-            print(f"running data: {chunk_dir}")
-            _regression_tripwire(errors)
+        _report(errors, chunk_dir, verbose)
+    return _summarise(all_errors, {
+        "total_s": float(np.sum(timings)),
+        "per_chunk_s": float(np.mean(timings)) if timings else 0.0,
+        "failed_chunks": failures}, verbose)
 
-    averages = {}
-    if all_errors:
-        for k in all_errors[0]:
-            averages[k] = np.mean([e[k] for e in all_errors], axis=0)
-    timing = {"total_s": float(np.sum(timings)),
-              "per_chunk_s": float(np.mean(timings)) if timings else 0.0,
-              "failed_chunks": failures}
-    if verbose and averages:
-        print_summary(averages)
-        print(f"total optimization time: {timing['total_s']:.2f}s")
-    return all_errors, averages, timing
+
+def _optimize_sequence_dir_batched(opt: SequenceOptimizer, data_dir: str,
+                                   verbose: bool = True):
+    """One staged flat solve over a sequence directory's chunks (those
+    that load; the others are listed as failed).  None where their
+    lengths differ (the caller falls back to the per-chunk loop)."""
+    dirs, chunks, failures = [], [], []
+    for chunk_dir in list_chunk_dirs(data_dir):
+        try:
+            chunks.append(load_test_chunk(chunk_dir))
+            dirs.append(chunk_dir)
+        except Exception as e:  # noqa: BLE001 - isolate a corrupt chunk
+            failures.append((chunk_dir, repr(e)))
+            if verbose:
+                print(f"SKIPPED corrupt chunk {chunk_dir}: {e!r}")
+    if not chunks:
+        return [], {}, {"total_s": 0.0, "per_chunk_s": 0.0,
+                        "failed_chunks": failures}
+    if len({c.n_frames for c in chunks}) != 1:
+        return None
+    t0 = time.perf_counter()
+    res = opt.optimize_chunks_batched(opt.stage(chunks), mode="flat")
+    errs = {k: _numpy(v) for k, v in calculate_errors(
+        res.estimated, res.mid, res.optimized, res.gt).items()}  # synced
+    total = time.perf_counter() - t0
+    all_errors = []
+    for i, chunk_dir in enumerate(dirs):
+        errors = {k: v[i] for k, v in errs.items()}
+        all_errors.append(errors)
+        _report(errors, chunk_dir, verbose)
+    return _summarise(all_errors, {
+        "total_s": float(total), "per_chunk_s": float(total) / len(chunks),
+        "failed_chunks": failures}, verbose)
 
 
 def print_summary(avg: dict):

@@ -49,7 +49,7 @@ import torch
 
 from globalegomocap_tpu_torch.ops import lbfgs_direction as direction_ops
 from globalegomocap_tpu_torch.ops.lbfgs_direction import (
-    two_loop_direction as _two_loop_direction)
+    _dot, two_loop_direction as _two_loop_direction)
 
 
 class LBFGSResult(NamedTuple):
@@ -89,11 +89,81 @@ def _step_lengths(step_candidates: tuple, lr: float, dtype: torch.dtype,
     return torch.tensor(step_candidates, dtype=dtype, device=device) * lr
 
 
+def _two_loop_direction_circular(grad, s_hist, y_hist, rho_hist, valid,
+                                 ptr):
+    """`two_loop_direction` over a pointer-indexed circular history: the
+    buffers are never rotated, ptr (B,) is each lane's next write slot, so
+    its newest pair sits at (ptr - 1) mod m (JAX's
+    `_two_loop_direction_circular`, same arithmetic as the rolled
+    recursion)."""
+    b, m, _ = s_hist.shape
+    lane = torch.arange(b, device=grad.device)
+    q = grad
+    alphas = []
+    for i in range(m):
+        idx = (ptr - 1 - i) % m                          # newest first
+        a = rho_hist[lane, idx] * _dot(s_hist[lane, idx], q)
+        a = torch.where(valid[lane, idx], a, torch.zeros_like(a))
+        q = q - a[:, None] * y_hist[lane, idx]
+        alphas.append(a)
+    newest = (ptr - 1) % m
+    sy = (s_hist[lane, newest] * y_hist[lane, newest]).sum(-1)
+    yy = (y_hist[lane, newest] * y_hist[lane, newest]).sum(-1)
+    gamma = torch.where(valid[lane, newest] & (yy > 0), sy / yy,
+                        torch.ones_like(sy))
+    r = gamma[:, None] * q
+    for i in range(m):
+        idx = (ptr + i) % m                              # oldest first
+        bb = rho_hist[lane, idx] * _dot(y_hist[lane, idx], r)
+        upd = s_hist[lane, idx] * (alphas[m - 1 - i] - bb)[:, None]
+        r = r + torch.where(valid[lane, idx][:, None], upd,
+                            torch.zeros_like(upd))
+    return -r
+
+
+def _compact_direction(grad, s_hist, y_hist, rho_hist, valid):
+    """The L-BFGS direction through the compact representation (Byrd,
+    Nocedal and Schnabel 1994), JAX's `_compact_direction` with a lane
+    axis: with H0 = gamma I,
+    H g = gamma g + [S  gamma Y] W [S'g; gamma Y'g], W from R = triu(S'Y)
+    and D = diag(S'Y); invalid slots carry zero rows and a unit R and D
+    diagonal.  Algebraically the two-loop recursion (rho_hist is unused).
+    The triangular solves run in float32 for a bf16 state."""
+    del rho_hist
+    dtype = grad.dtype
+    v = valid.to(dtype)[..., None]
+    s, y = s_hist * v, y_hist * v                          # (B, m, d)
+    sy = s @ y.transpose(1, 2)                             # s_i . y_j
+    d = torch.diagonal(sy, dim1=1, dim2=2)                 # (B, m)
+    unit = torch.where(valid, torch.zeros_like(d), torch.ones_like(d))
+    r = torch.triu(sy) + torch.diag_embed(unit)
+    yy = y @ y.transpose(1, 2)
+    gamma = torch.where(valid[:, -1] & (yy[:, -1, -1] > 0),
+                        sy[:, -1, -1] / yy[:, -1, -1],
+                        torch.ones_like(d[:, -1]))[:, None]  # (B, 1)
+    a = (s @ grad[..., None])[..., 0]                      # (B, m)
+    b = (y @ grad[..., None])[..., 0]
+    r32 = r.to(torch.float32)
+    p1 = torch.linalg.solve_triangular(
+        r32, a.to(torch.float32)[..., None], upper=True)[..., 0].to(dtype)
+    q = (torch.where(valid, d, torch.ones_like(d)) * p1
+         + gamma * (yy @ p1[..., None])[..., 0])
+    alpha = torch.linalg.solve_triangular(
+        r32.transpose(1, 2), (q - gamma * b).to(torch.float32)[..., None],
+        upper=False)[..., 0].to(dtype)
+    hg = (gamma * grad + (alpha[:, None, :] @ s)[:, 0]
+          - gamma * (p1[:, None, :] @ y)[:, 0])
+    return -hg
+
+
 def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
-                step_candidates, c1, direction):
+                step_candidates, c1, direction, circular=False):
     """The shared iteration.  value_and_grad: (R, B, d) -> ((R, B),
     (R, B, d)); value: (R, B, d) -> (R, B), or None for fused probes
-    (value-and-grad at every candidate, the accepted one's (f, g) kept)."""
+    (value-and-grad at every candidate, the accepted one's (f, g) kept).
+    circular=True keeps the history buffers in place and writes each
+    accepted pair at the lane's pointer slot (`direction` then takes the
+    pointer as a sixth argument); else the buffers roll."""
     b, dim = x0.shape
     dtype, dev = x0.dtype, x0.device
     cands = _step_lengths(tuple(step_candidates), lr, dtype, dev)
@@ -108,8 +178,11 @@ def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
     y_hist = torch.zeros_like(s_hist)
     rho_hist = torch.zeros((b, history_size), dtype=dtype, device=dev)
     valid = torch.zeros((b, history_size), dtype=torch.bool, device=dev)
+    ptr = torch.zeros((b,), dtype=torch.long, device=dev)
+    lane = torch.arange(b, device=dev)
     for it in range(max_iter):
-        d = direction(g, s_hist, y_hist, rho_hist, valid)
+        d = (direction(g, s_hist, y_hist, rho_hist, valid, ptr) if circular
+             else direction(g, s_hist, y_hist, rho_hist, valid))
         good = ((d * g).sum(-1) < 0) & torch.isfinite(d).all(-1)
         d = torch.where(good[:, None], d, -g)
         dphi0 = (d * g).sum(-1)                             # (B,)
@@ -145,10 +218,22 @@ def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
         y = g_new - g
         ys = (y * step_vec).sum(-1)
         do_update = ys > 1e-10
-        s_hist = _roll_in(s_hist, step_vec, do_update)
-        y_hist = _roll_in(y_hist, y, do_update)
-        rho_hist = _roll_in(rho_hist, 1.0 / ys, do_update)
-        valid = _roll_in(valid, torch.ones_like(do_update), do_update)
+        if circular:
+            # one row write a lane at its pointer slot (the old row where
+            # the pair is skipped), instead of rolling the buffers
+            keep = do_update[:, None]
+            s_hist[lane, ptr] = torch.where(keep, step_vec,
+                                            s_hist[lane, ptr])
+            y_hist[lane, ptr] = torch.where(keep, y, y_hist[lane, ptr])
+            rho_hist[lane, ptr] = torch.where(do_update, 1.0 / ys,
+                                              rho_hist[lane, ptr])
+            valid[lane, ptr] = valid[lane, ptr] | do_update
+            ptr = torch.where(do_update, (ptr + 1) % history_size, ptr)
+        else:
+            s_hist = _roll_in(s_hist, step_vec, do_update)
+            y_hist = _roll_in(y_hist, y, do_update)
+            rho_hist = _roll_in(rho_hist, 1.0 / ys, do_update)
+            valid = _roll_in(valid, torch.ones_like(do_update), do_update)
         f, g = f_new, g_new
     return x, f, g
 
@@ -168,16 +253,28 @@ def lbfgs_minimize_fixed(loss_fn: Callable, x0: torch.Tensor,
     probes all candidates in one call: value-only under no_grad, then a
     value-and-grad at the accepted point (fused_probes=False, the JAX
     default), or value-and-grad at every candidate (fused_probes=True).
-    pallas_direction=True takes the direction from the `lbfgs_direction`
-    kernel (the plain two-loop on the CPU).  `unroll` is accepted for
-    signature parity and ignored."""
+    The direction: the `lbfgs_direction` kernel with pallas_direction
+    (its plain version on the CPU), the compact representation with
+    compact_direction, the two-loop recursion over a circular history
+    with circular_history (the same trajectory as the rolled history),
+    else the plain two-loop recursion.  circular_history with either of
+    the first two raises ValueError, as in JAX: their readers take the
+    rolled layout.  `unroll` is accepted for signature parity and
+    ignored."""
     del unroll
-    if compact_direction:
-        raise NotImplementedError(
-            "solver.compact_direction=True is not ported yet")
-    if circular_history:
-        raise NotImplementedError(
-            "solver.circular_history=True is not ported yet")
+    if circular_history and (pallas_direction or compact_direction):
+        raise ValueError(
+            "circular_history is incompatible with pallas_direction / "
+            "compact_direction (those readers assume the rolled history "
+            "layout, newest at m-1)")
+    if pallas_direction:
+        direction = direction_ops.lbfgs_direction
+    elif compact_direction:
+        direction = _compact_direction
+    elif circular_history:
+        direction = _two_loop_direction_circular
+    else:
+        direction = _two_loop_direction
 
     def value(x3):
         with torch.no_grad():
@@ -185,9 +282,8 @@ def lbfgs_minimize_fixed(loss_fn: Callable, x0: torch.Tensor,
 
     x, f, g = _fixed_loop(
         _value_and_grad(loss_fn), None if fused_probes else value, x0,
-        max_iter, history_size, lr, step_candidates, c1,
-        direction_ops.lbfgs_direction if pallas_direction
-        else _two_loop_direction)
+        max_iter, history_size, lr, step_candidates, c1, direction,
+        circular=circular_history)
     k = len(step_candidates)
     n_evals = max_iter * k + 1 if fused_probes else max_iter * (k + 1) + 1
     return LBFGSResult(x=x, f=f, grad_norm=g.abs().amax(-1),

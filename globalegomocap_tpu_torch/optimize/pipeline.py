@@ -2,12 +2,14 @@
 
 Counterpart of `globalegomocap_tpu/optimize/pipeline.py`: stage 1
 optimises the local pose in the local prior's latent space with the
-heatmap reprojection term; the result is lifted through the SLAM cameras;
-stage 2 optimises the global pose (reprojection off, optionally the
-residual p(z) = mid + decode(z) - decode(z0)); overlapping windows merge
-with one matrix that also applies the final Gaussian smoothing.
+heatmap reprojection term (optionally the residual form, as stage 2);
+the result is lifted through the SLAM cameras; stage 2 optimises the
+global pose (reprojection off, optionally the residual p(z) = mid +
+decode(z) - decode(z0)); overlapping windows merge with one matrix that
+also applies the final Gaussian smoothing (or by a scatter mean, and
+with a one-euro smoothing, as the configuration asks).
 
-Two entry points, as in the JAX package:
+Three entry points, as in the JAX package:
 
 - `optimize_chunk`: one chunk, per-window solves (`solver.method`'s
   solver with the window axis written out: strong-Wolfe `lbfgs_minimize`,
@@ -15,13 +17,19 @@ Two entry points, as in the JAX package:
   device before windowing when `heatmap_crop` > 0, else full maps;
 - `optimize_chunks_flat`: many equal-length chunks with all windows in
   one flat batch (`lbfgs_minimize_fixed_batched`), on staged crops or on
-  full maps (the guard-trip fallback with `guard_crop` = 0).
+  full maps (the guard-trip fallback with `guard_crop` = 0);
+- `optimize_chunks_batched`: many equal-length chunks, `optimize_chunk`
+  on each (the JAX package's mode="vmap").
 
 `optimize_stage` picks the energy as the JAX one does: the fused stage-1
 kernel on staged crops (or, with `solver.fused_decode`, kernel 5, which
 runs the decoder's conv chain too), the fused no-reproj kernel for stage
 2, else the plain PyTorch energy (`energy/terms.py`), whose full-map
 sampling runs the `heatmap_sample` kernel with `sampling_impl="pallas"`.
+The soft-smooth term (an anchor to the input smoothed over time) and the
+cross-window coupling (one joint solve over a chunk's window latents)
+turn the batched solver off, as in JAX; `solver.remat` recomputes the
+decoder in the backward pass of those solves.
 Each objective eval decodes all (probe, window) latents in one batch and
 takes dE/dz with autograd through the decoder: the conv layers, or with
 `decoder_impl` "dense" / "shift" the matmul decoders of
@@ -29,8 +37,7 @@ takes dE/dz with autograd through the decoder: the conv layers, or with
 `decoder_dtype` storage).  `cfg.compute_dtype`
 selects the JAX package's bf16 solve tiers: the priors come in as
 `StageModels`, cast for the tier once (`stage_models`), or as plain
-ConvVAEs, converted per stage.
-"""
+ConvVAEs, converted per stage."""
 
 from __future__ import annotations
 
@@ -40,18 +47,21 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from globalegomocap_tpu_torch.config import OptimizeConfig
 from globalegomocap_tpu_torch.energy.terms import (
     EnergyWeights, crop_heatmaps_at_centers_channels_last,
-    crop_heatmaps_channels_last, projected_estimate_centers,
-    total_energy_from_pose)
+    crop_heatmaps_channels_last, overlap_consistency_energy,
+    projected_estimate_centers, total_energy_from_pose)
 from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.models.dense_decoder import (
     make_dense_decoder, make_shift_decoder)
 from globalegomocap_tpu_torch.ops import fisheye
 from globalegomocap_tpu_torch.ops.fused_decode_energy import (
     decoder_layers, fused_decode_stage_energy)
+from globalegomocap_tpu_torch.ops.filtering import (
+    gaussian_filter1d, one_euro_filter)
 from globalegomocap_tpu_torch.ops.fused_energy import (
     fused_stage_energy, fused_stage_energy_noreproj)
 from globalegomocap_tpu_torch.ops.skeleton import mean_bone_lengths
@@ -61,7 +71,7 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (
     adam_minimize, lbfgs_minimize, lbfgs_minimize_fixed,
     lbfgs_minimize_fixed_batched)
 from globalegomocap_tpu_torch.optimize.window import (
-    merge_windows_matmul, slice_windows)
+    merge_windows, merge_windows_matmul, slice_windows)
 
 J = 15
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32enc",
@@ -80,15 +90,17 @@ class ChunkResult(NamedTuple):
 
 
 def check_supported(cfg: OptimizeConfig) -> None:
-    """Raise, naming the option, for configurations this port does not
-    run yet (they wait for later slices)."""
-    s, e = cfg.solver, cfg.energy
+    """Raise for what the port does not run: solver.init='sample' (the
+    port would need JAX's threefry stream to draw the JAX package's sample
+    from init_seed), NotImplementedError; an option value neither package
+    knows, ValueError."""
+    if cfg.solver.init != "mu":
+        if cfg.solver.init == "sample":
+            raise NotImplementedError(
+                "not yet ported to the PyTorch package: solver.init='sample'")
+        raise ValueError(f"solver.init={cfg.solver.init!r}")
     impl = cfg.decoder_impl or ("dense" if cfg.dense_decoder else "conv")
-    unsupported = [
-        (s.compact_direction, "solver.compact_direction=True"),
-        (s.circular_history, "solver.circular_history=True"),
-        (s.remat, "solver.remat=True"),
-        (s.init != "mu", f"solver.init={s.init!r}"),
+    unknown = [
         (cfg.compute_dtype not in COMPUTE_DTYPES,
          f"compute_dtype={cfg.compute_dtype!r}"),
         (impl not in DECODER_IMPLS, f"decoder_impl={impl!r}"),
@@ -96,21 +108,14 @@ def check_supported(cfg: OptimizeConfig) -> None:
          f"decoder_dtype={cfg.decoder_dtype!r}"),
         (cfg.sampling_impl not in ("gather", "dense", "pallas"),
          f"sampling_impl={cfg.sampling_impl!r}"),
-        (e.soft_smooth != 0.0, "energy.soft_smooth"),
-        (e.overlap_consistency != 0.0, "energy.overlap_consistency"),
-        (e.gmm != 0.0, "energy.gmm"),
-        (e.local_residual, "energy.local_residual=True"),
         (cfg.heatmap_dtype not in ("float32", "bfloat16"),
          f"heatmap_dtype={cfg.heatmap_dtype!r}"),
-        (not cfg.matmul_merge, "matmul_merge=False"),
-        (not cfg.merge, "merge=False"),
-        (cfg.final_smooth and cfg.final_smooth_method != "gaussian",
+        (cfg.final_smooth_method not in ("gaussian", "one_euro"),
          f"final_smooth_method={cfg.final_smooth_method!r}"),
     ]
-    bad = [name for cond, name in unsupported if cond]
+    bad = [name for cond, name in unknown if cond]
     if bad:
-        raise NotImplementedError(
-            "not yet ported to the PyTorch package: " + ", ".join(bad))
+        raise ValueError("unknown option values: " + ", ".join(bad))
 
 
 def stage_weights(cfg: OptimizeConfig):
@@ -334,6 +339,12 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
         mu, _ = sm.enc.encode(init_pose.reshape(w, t, 3 * J))
         offset = (init_pose - out_decode(mu)) if residual else None
     latent = mu.shape[-1]
+    smoothed = None
+    if cfg.energy.soft_smooth > 0.0:
+        # the soft-smooth term's anchor: the stage's input smoothed over
+        # time, window by window
+        smoothed = gaussian_filter1d(init_pose, cfg.input_smooth_sigma, dim=1)
+    coupling = float(cfg.energy.overlap_consistency)
 
     def decode(dec, z):
         """(..., W, latent) -> (..., W, T, 15, 3), plus the offset."""
@@ -341,8 +352,16 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
         pose = dec(z.reshape(-1, latent)).reshape(lead + (t, J, 3))
         return pose if offset is None else pose + offset
 
+    def solve_decode(z):
+        """The per-window and joint solves' decode: recomputed in the
+        backward pass with solver.remat (the activations are not kept)."""
+        if s.remat and torch.is_grad_enabled():
+            return checkpoint(decode, eval_decode, z, use_reentrant=False)
+        return decode(eval_decode, z)
+
     use_batched = (s.method == "lbfgs_fixed"
-                   and (s.fused_energy or s.batched_solver))
+                   and (s.fused_energy or s.batched_solver)
+                   and smoothed is None and coupling == 0.0)
     # the delta state: the solver iterates dz from 0 in bf16 around the
     # float32 mu; z_eff recentres every probe batch before the decode
     z_init, delta = mu, None
@@ -375,12 +394,15 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
             return energy(pose.reshape(rr * bb, L, 3).permute(0, 2, 1)
                           .reshape(rr, bb, 3, L).contiguous())
     else:
-        def batch_energy(z):
+        def pose_energy(pose):
             return total_energy_from_pose(
-                decode(eval_decode, z_eff(z)).to(torch.float32), init_pose,
-                mean_bl, heatmaps, camera, weights, use_reproj,
-                sampling_impl=cfg.sampling_impl, origins=origins,
-                full_hw=full_hw)
+                pose.to(torch.float32), init_pose, mean_bl, heatmaps, camera,
+                weights, use_reproj, sampling_impl=cfg.sampling_impl,
+                origins=origins, full_hw=full_hw, smoothed_pose=smoothed)
+
+        def batch_energy(z):
+            return pose_energy(decode(eval_decode, z_eff(z)) if use_batched
+                               else solve_decode(z))
 
     with torch.no_grad():
         if use_batched:
@@ -395,6 +417,19 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
                 vg_batch, z_init, max_iter=s.max_iter,
                 history_size=s.history_size, lr=s.lr,
                 step_candidates=tuple(s.step_candidates), unroll=s.unroll)
+        elif coupling > 0.0:
+            # the joint solve: one problem over the concatenated window
+            # latents (one lane of W * latent), the windows coupled on
+            # their shared frames
+            def joint_loss(zf):
+                poses = solve_decode(zf.reshape(zf.shape[:-2] + (w, latent)))
+                e = pose_energy(poses).sum(-1) + coupling * \
+                    overlap_consistency_energy(poses.to(torch.float32),
+                                               cfg.window.stride)
+                return e[..., None]
+
+            res = _solve(cfg, joint_loss, mu.reshape(1, w * latent))
+            return decode(out_decode, res.x.reshape(w, latent))
         else:
             res = _solve(cfg, batch_energy, mu)
         return decode(out_decode, z_eff(res.x))
@@ -480,7 +515,8 @@ def solve_windows(local_model: ConvVAE | StageModels,
     use_reproj = cfg.energy.reproj != 0.0
     mid_local = optimize_stage(local_model, win_local, win_heat, win_bl,
                                camera, local_w, use_reproj, cfg,
-                               origins=win_org, full_hw=full_hw)
+                               origins=win_org, full_hw=full_hw,
+                               residual=cfg.energy.local_residual)
     # world lifts go straight through the per-frame cameras
     # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs the
     # relative hop
@@ -495,24 +531,42 @@ def solve_windows(local_model: ConvVAE | StageModels,
     return WindowFields(est_world, mid_world, mid_local, opt_world, win_gt)
 
 
-def _final_sigma(cfg: OptimizeConfig) -> float:
-    """The Gaussian smoothing folded into the optimized field's merge."""
-    return cfg.final_smooth_sigma if cfg.final_smooth else 0.0
-
-
-def merge_window_fields(fields: WindowFields,
-                        cfg: OptimizeConfig) -> ChunkResult:
-    """Overlap-merge the solved window fields of one chunk into per-frame
-    sequences, the final smoothing folded into the optimized field's
-    merge matrix."""
+def merge_window_fields(fields: WindowFields, cfg: OptimizeConfig,
+                        batch_dims: int = 0) -> ChunkResult:
+    """Overlap-merge the solved window fields (*batch, W, T, 15, 3) into
+    per-frame sequences: one matrix a field (matmul_merge, the final
+    Gaussian smoothing folded into the optimized field's) or the scatter
+    mean (`merge_windows`); a smoothing not folded in (one_euro, with
+    timestamps (1..n) / 25 in the field's dtype, or a Gaussian after a
+    scatter merge) follows the merge, as in the JAX package."""
     stride = cfg.window.stride
-    return ChunkResult(
-        estimated=merge_windows_matmul(fields.est_world, stride),
-        mid=merge_windows_matmul(fields.mid_world, stride),
-        mid_local=merge_windows_matmul(fields.mid_local, stride),
-        optimized=merge_windows_matmul(fields.opt_world, stride,
-                                       _final_sigma(cfg)),
-        gt=merge_windows_matmul(fields.gt, stride))
+    fold = (cfg.final_smooth_sigma
+            if (cfg.matmul_merge and cfg.final_smooth
+                and cfg.final_smooth_method == "gaussian") else 0.0)
+
+    def mg(x, sigma=0.0):
+        if cfg.matmul_merge:
+            return merge_windows_matmul(x, stride, sigma,
+                                        batch_dims=batch_dims)
+        return merge_windows(x, stride, batch_dims=batch_dims)
+
+    merged = ChunkResult(
+        estimated=mg(fields.est_world), mid=mg(fields.mid_world),
+        mid_local=mg(fields.mid_local),
+        optimized=mg(fields.opt_world, fold), gt=mg(fields.gt))
+    if cfg.final_smooth and fold == 0.0:
+        opt = merged.optimized
+        if cfg.final_smooth_method == "one_euro":
+            n = opt.shape[batch_dims]
+            ts = torch.arange(1, n + 1, dtype=opt.dtype,
+                              device=opt.device) / 25.0
+            opt = one_euro_filter(ts, opt.movedim(batch_dims, 0)).movedim(
+                0, batch_dims)
+        else:
+            opt = gaussian_filter1d(opt, cfg.final_smooth_sigma,
+                                    dim=batch_dims)
+        merged = merged._replace(optimized=opt)
+    return merged
 
 
 def optimize_chunk(local_model: ConvVAE | StageModels,
@@ -547,6 +601,11 @@ def optimize_chunks_flat(local_model: ConvVAE | StageModels,
     or staged crops (flat (C, N, k*k*J) or (C, N, k, k, J)) with origins
     (C, N, J, 2) and full_hw.  Returns (C, covered, 15, 3) fields."""
     check_supported(cfg)
+    if cfg.energy.overlap_consistency != 0.0:
+        raise ValueError(
+            "the flat path concatenates the windows of several chunks, so "
+            "energy.overlap_consistency would couple chunk boundaries: "
+            "solve per chunk (optimize_chunk, or mode='vmap')")
     if (origins is None) != (full_hw is None):
         raise ValueError("origins and full_hw must be supplied together")
     use_reproj = cfg.energy.reproj != 0.0
@@ -580,15 +639,27 @@ def optimize_chunks_flat(local_model: ConvVAE | StageModels,
                            flat(win_cam), f_heat, flat(win_gt), bl_flat,
                            camera, cfg, win_org=f_org, full_hw=full_hw)
 
-    def unflat_merge(x, smooth=0.0):
-        per_chunk = x.reshape((c, w_per) + x.shape[1:])
-        return merge_windows_matmul(per_chunk, stride, smooth,
-                                    batch_dims=1)
+    return merge_window_fields(
+        WindowFields(*(x.reshape((c, w_per) + x.shape[1:]) for x in fields)),
+        cfg, batch_dims=1)
 
-    return ChunkResult(
-        estimated=unflat_merge(fields.est_world),
-        mid=unflat_merge(fields.mid_world),
-        mid_local=unflat_merge(fields.mid_local),
-        optimized=unflat_merge(fields.opt_world, _final_sigma(cfg)),
-        gt=unflat_merge(fields.gt),
-    )
+
+def optimize_chunks_batched(local_model: ConvVAE | StageModels,
+                            global_model: ConvVAE | StageModels,
+                            estimated_local, camera_seq, heatmap_seq,
+                            gt_seq, camera: fisheye.FisheyeParams,
+                            cfg: OptimizeConfig, origins=None,
+                            full_hw=None) -> ChunkResult:
+    """Many equal-length chunks, each through the per-chunk pipeline
+    (`optimize_chunk`, per-window solves, its own merge and smoothing),
+    the fields stacked on a leading chunk axis: what the JAX package's
+    vmap over the chunk axis computes, as a loop over chunks.  Inputs as
+    for `optimize_chunks_flat`.  The mode that runs
+    energy.overlap_consistency, whose coupling stays inside a chunk."""
+    per_chunk = [
+        optimize_chunk(local_model, global_model, estimated_local[i],
+                       camera_seq[i], heatmap_seq[i], gt_seq[i], camera, cfg,
+                       origins=None if origins is None else origins[i],
+                       full_hw=full_hw)
+        for i in range(estimated_local.shape[0])]
+    return ChunkResult(*(torch.stack(f) for f in zip(*per_chunk)))

@@ -1,8 +1,10 @@
 """Sliding windows and the overlap merge as one matrix.
 
 Counterpart of `globalegomocap_tpu/optimize/window.py`: 10-frame windows
-at stride 8 (overlap 2); the merge averages overlapping frames and, when
-asked, folds the final Gaussian time-smoothing into the same matrix.
+at stride 8 (overlap 2); the merge averages overlapping frames as one
+matrix that, when asked, folds in the final Gaussian time-smoothing
+(`merge_windows_matmul`), or as a scatter-mean (`merge_windows`, the
+configuration's matmul_merge=False).
 """
 
 from __future__ import annotations
@@ -98,3 +100,20 @@ def merge_windows_matmul(windows: torch.Tensor, stride: int = 8,
     flat = windows.reshape(lead + (w * t, -1)).to(torch.float32)
     out = torch.matmul(m, flat)
     return out.reshape(lead + (m.shape[0],) + feat).to(windows.dtype)
+
+
+def merge_windows(windows: torch.Tensor, stride: int = 8,
+                  batch_dims: int = 0) -> torch.Tensor:
+    """(*batch, W, T, *feat) windows -> (*batch, covered, *feat): the
+    overlapping frames averaged by a scatter-add of every window frame
+    and a division by each frame's count (the reference's merge)."""
+    lead = windows.shape[:batch_dims]
+    w, t = windows.shape[batch_dims], windows.shape[batch_dims + 1]
+    feat = windows.shape[batch_dims + 2:]
+    n = (w - 1) * stride + t
+    idx = _window_index_on(n, t, stride, windows.device)
+    flat = windows.reshape(lead + (w * t,) + feat)
+    acc = flat.new_zeros(lead + (n,) + feat).index_add_(batch_dims, idx,
+                                                        flat)
+    cnt = flat.new_zeros((n,)).index_add_(0, idx, flat.new_ones((w * t,)))
+    return acc / cnt.reshape((n,) + (1,) * len(feat))

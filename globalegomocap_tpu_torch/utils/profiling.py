@@ -1,17 +1,36 @@
-"""Throughput accounting.
+"""Throughput accounting and the device trace.
 
-Counterpart of `ThroughputMeter` in `globalegomocap_tpu/utils/profiling.py`
-(the span timer and the device trace of that module wait for a later
-slice).
+Counterparts of `ThroughputMeter` and `device_trace` in
+`globalegomocap_tpu/utils/profiling.py` (its span timer waits for a later
+slice).  The trace is torch.profiler's Chrome trace, where the JAX
+package writes jax.profiler's TensorBoard trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass
 
 import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the block with torch.profiler (host operators, and the card's
+    kernels where CUDA is available) and write it as a Chrome trace,
+    `log_dir`/trace_<pid>.json (open it in chrome://tracing or
+    Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}.json"))
 
 
 @dataclass

@@ -119,7 +119,8 @@ def test_delta_tier_solver_state_is_bf16(prior, monkeypatch):
     opt = tdriver.SequenceOptimizer(tdriver.build_model(cfg), sd, sd, cfg,
                                     device="cpu")
     res = opt.optimize_chunks_batched(
-        opt.stage([port_chunk(c) for c in chunks()], on_host=True))
+        opt.stage([port_chunk(c) for c in chunks()], on_host=True),
+        mode="flat")
     assert seen == [(torch.bfloat16, torch.bfloat16, 0.0)] * 2
     assert res.mid_local.dtype == torch.float32
 
@@ -170,7 +171,7 @@ def test_fused_decode_at_the_delta_tier_matches_jax(prior):
     topt = tdriver.SequenceOptimizer(tdriver.build_model(tc), sd, sd, tc,
                                      device="cpu")
     tres = topt.optimize_chunks_batched(
-        topt.stage([port_chunk(c) for c in cs], on_host=True))
+        topt.stage([port_chunk(c) for c in cs], on_host=True), mode="flat")
     assert tres.optimized.dtype == torch.float32
     assert torch.isfinite(tres.optimized).all()
     terr = t_errors(tres.estimated, tres.mid, tres.optimized, tres.gt)
@@ -209,7 +210,7 @@ def test_priors_are_cast_once_per_optimizer(prior, monkeypatch,
         calls.append("clone"), clone(self, **kw))[1])
     monkeypatch.setattr(tpipe, "decoder_layers", lambda m: (
         calls.append("decoder_layers"), layers(m))[1])
-    res = opt.optimize_chunks_batched(staged)
+    res = opt.optimize_chunks_batched(staged, mode="flat")
     assert torch.isfinite(res.optimized).all()
     assert calls == []
 

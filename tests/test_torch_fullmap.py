@@ -6,8 +6,7 @@ package on the same chunks and weights (tiny prior, CPU):
   staging) and solves them with the batched solver over the plain
   energy, sampled by `sampling_impl`;
 - the port's `cli/optimize_sequence` (per-chunk path) at --solver
-  lbfgs_fixed against the JAX CLI: the 17-metric summary within 5 %, and
-  the options of later slices rejected by name;
+  lbfgs_fixed against the JAX CLI: the 17-metric summary within 5 %;
 - the port's serve CLI with --guard_crop 0 and an unmeetable
   --heatmap_crop_min_mass, and with unequal chunk lengths (the per-chunk
   fallback through `optimize_sequence_dir`).
@@ -169,19 +168,6 @@ def test_optimize_sequence_cli_bf16_tier_matches_jax(files, capsys):
     for key in METRIC_KEYS[:17]:
         a, b = float(tavg[key]), float(javg[key])
         assert abs(a - b) <= 0.05 * abs(b), (key, a, b)
-
-
-@pytest.mark.parametrize("extra,ckpt,name", [
-    (["--solver", "lbfgs_fixed", "--circular_history", "true"], "prior.pt",
-     "--circular_history"),
-    (["--solver", "lbfgs_fixed", "--save", "true"], "prior.pt", "--save"),
-    (["--solver", "lbfgs_fixed", "--profile_dir", "p"], "prior.pt",
-     "--profile_dir"),
-    (["--solver", "lbfgs_fixed"], "prior.msgpack", "msgpack")])
-def test_optimize_sequence_cli_rejects_later_slices(files, extra, ckpt,
-                                                    name):
-    with pytest.raises(NotImplementedError, match=name):
-        tcli.main(_cli_args(files, files / ckpt, "--device", "cpu", *extra))
 
 
 def _serve_lines(capsys):

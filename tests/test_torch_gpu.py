@@ -3,7 +3,8 @@ PyTorch version (tolerances of chip_smoke.compare_case), the launch
 counter, the autograd backward and the wrapper's argument checks; and
 the streamed serve on the card: a sync-free warm dispatch, device
 staging, the prefetcher's stream hand-off and chip_smoke's phase 3h at a
-small size.
+small size; chip_smoke's phase 3i (evaluate_all) at a small size and the
+device trace.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -343,6 +344,39 @@ def test_path_d_at_a_small_size(gen, tmp_path):
     assert launches["heatmap_sample"] > 0
 
 
+def test_evaluate_all_phase_at_a_small_size(gen, tmp_path):
+    """chip_smoke's phase 3i on 2 sequences of two 26-frame chunks at
+    3 + 3 iterations: evaluate_all at its defaults on msgpack priors
+    (kernel 3 once per stage-1 call), a shadow and a plain-version run,
+    kernels 1 and 2 with and without the calibration JSON, mode='vmap'
+    with the direction kernel, and the CLI's --save and --profile_dir,
+    every check passing."""
+    fails = chip_smoke.Failures()
+    work = chip_smoke.make_work(torch, 0, str(tmp_path), shape=(1, 1, 26))
+    launches = chip_smoke.evaluate_all_phase(
+        torch, 0, "cuda", fails, "test", work, shape=(2, 2, 26), iters=3)
+    assert fails.items == []
+    assert launches["fused_stage_energy"] == 2 * 4
+    assert launches["lbfgs_direction"] == 2 * (3 + 3)
+    assert launches["heatmap_sample"] > 0
+
+
+def test_device_trace_records_the_card(gen, tmp_path):
+    """utils/profiling.device_trace on the card: the Chrome trace holds
+    the kernel's launch."""
+    import json
+    from globalegomocap_tpu_torch.utils.profiling import device_trace
+    maps, pts = chip_smoke.sampler_inputs(2, 50, torch.float32, gen, torch)
+    with device_trace(str(tmp_path)):
+        hs.heatmap_sample(maps, pts)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("heatmap_sample" in e.get("name", "") and
+               e.get("cat") == "kernel" for e in events)
+
+
 def _small_optimizer(tier="bfloat16_delta", **flags):
     """Serve's configuration at the tiny prior with random weights, on the
     card, and two 26-frame synthetic chunks."""
@@ -425,7 +459,8 @@ def test_prefetcher_hands_batches_over_by_event(gen):
         service._completed.clear()
         mem.append(torch.cuda.memory_allocated())
     out = service.drain()
-    direct = opt.optimize_chunks_batched(opt.stage(cs, on_host=True))
+    direct = opt.optimize_chunks_batched(opt.stage(cs, on_host=True),
+                                         mode="flat")
     torch.testing.assert_close(out[-1].optimized, direct.optimized,
                                rtol=1e-5, atol=1e-6)
     assert max(mem[2:]) <= mem[1] + sum(

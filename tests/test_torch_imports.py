@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
-`globalegomocap_tpu_torch` loads neither `jax` nor anything of the JAX
-package, and its entry points run on the card unless told otherwise."""
+`globalegomocap_tpu_torch` loads neither `jax`, `flax`, `msgpack` nor
+anything of the JAX package, and its entry points run on the card unless
+told otherwise."""
 
 import json
 import os
@@ -27,8 +28,7 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (  # noqa: F401
 from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
     crop_peak_native)
 bad = [m for m in sys.modules
-       if m == "jax" or m.startswith("jax.")
-       or m == "globalegomocap_tpu" or m.startswith("globalegomocap_tpu.")]
+       if m.split(".")[0] in ("jax", "flax", "msgpack", "globalegomocap_tpu")]
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -46,12 +46,14 @@ def test_port_imports_no_jax():
                 "ops.lbfgs_direction", "ops.sampling", "optimize.driver",
                 "optimize.pipeline", "optimize.lbfgs", "models.convert",
                 "data.synthetic", "native.hostcrop", "optimize.streaming",
-                "utils.profiling", "models.dense_decoder"):
+                "utils.profiling", "models.dense_decoder",
+                "cli.evaluate_all", "models.checkpoint", "tools.ply"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
-    from globalegomocap_tpu_torch.cli import optimize_sequence, serve
+    from globalegomocap_tpu_torch.cli import (
+        evaluate_all, optimize_sequence, serve)
     from globalegomocap_tpu_torch.optimize import driver
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -79,6 +81,11 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
             str(ckpt), "--global_ckpt", str(ckpt), "--solver",
             "lbfgs_fixed", "--latent_dim", "32", "--hidden_dims",
             "8,8,16,16,32"])
+    with pytest.raises(RuntimeError):
+        evaluate_all.main(["--data_root", str(tmp_path / "data"),
+                           "--local_ckpt", str(ckpt), "--global_ckpt",
+                           str(ckpt), "--latent_dim", "32", "--hidden_dims",
+                           "8,8,16,16,32"])
 
 
 def test_device_module_pins_float32():

@@ -272,12 +272,3 @@ def test_fused_probes_off_calls_the_loss_as_the_jax_solver_does():
     assert calls == [((1, B, D), True), ((2, B, D), False),
                      ((1, B, D), True), ((2, B, D), False),
                      ((1, B, D), True)]
-
-
-@pytest.mark.parametrize("option", ["circular_history",
-                                    "compact_direction"])
-def test_later_slice_options_raise(option):
-    a, rhs, x0 = _problem()
-    with pytest.raises(NotImplementedError, match=option):
-        tl.lbfgs_minimize_fixed(lambda v: v.square().sum(-1),
-                                torch.from_numpy(x0), **{option: True})

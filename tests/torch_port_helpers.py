@@ -8,6 +8,16 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
+import torch
+
+# One intra-op thread per test process.  The suite runs in several
+# processes on one host (pytest-xdist), and each process's PyTorch would
+# otherwise start a full-width OpenMP pool: the pools' spinning threads
+# then wait on each other at every parallel region (mkldnn convolutions,
+# BLAS), and a test that takes 20 s alone took 500 s in the suite.  Every
+# test file is imported by every worker at collection, so this holds for
+# the whole run.
+torch.set_num_threads(1)
 
 from globalegomocap_tpu import config as jcfg
 from globalegomocap_tpu.data.synthetic import synthetic_chunk
