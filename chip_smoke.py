@@ -116,6 +116,24 @@ Phases (any failure exits non-zero and prints no result line):
               pallas_direction=True against optimize_chunk per chunk
               (kernel 4, equal fields); the parity CLI with --save true
               --profile_dir (PLY files and a trace).
+3j. training - `cli/train.py` at its own defaults (latent 2048, hidden
+              64,64,128,256,512, batch 64, lr 1e-4, float32) on a
+              synthetic AMASS corpus of 40 pkls x 300 frames (8,700 train
+              windows, 135 steps an epoch; 2,900 test windows): the local
+              and the relative-global prior, 3 epochs each (the windows
+              line, finite and falling evals, checkpoints 0-2 with
+              motion_stats); --resume from the local prior's epoch 2 (the
+              eval right after loading against the sidecar's within 1e-5,
+              cuDNN deterministic; the step count continuing from 405);
+              one epoch at --compute_dtype bfloat16, --epoch_scan true
+              (within 0.3 of the eager epoch's eval) and --lr_schedule
+              cosine with AdamW; a warm train step on a device batch under
+              set_sync_debug_mode('error'); ms a step at float32 and bf16
+              in turns with windows/s and peak memory, beside the step's
+              bound; the trained epoch-2 priors through the serve CLI at
+              --compute_dtype float32 on one of phase 3's sequences
+              (kernels 1 and 2 launched as phase 3 counts a request),
+              beside the random priors' run.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -155,8 +173,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# dense TF32 on the tensor cores (the same data sheet)
+# dense TF32 and bf16 on the tensor cores (the same data sheet)
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 # float32 operations the energies do, counted from csrc/fused_energy.cu:
 # per crop cell and point (two triangle weights, their derivatives, three
 # multiply-adds, the bf16/f32 load), and per point outside the cell loop
@@ -1528,6 +1547,17 @@ def link_sequence(src, dst):
         os.symlink(d, os.path.join(dst, os.path.basename(d)))
 
 
+def device_rows(prof):
+    """The profile's device rows (kernels, copies), without the device
+    spans of host annotations such as torch.optim's
+    'Optimizer.step#Adam.step', which cover kernels counted on their
+    own: a device row whose name is also a host row's is such a span."""
+    rows = prof.key_averages()
+    host = {e.key for e in rows if str(e.device_type).endswith("CPU")}
+    return [e for e in rows if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0 and e.key not in host]
+
+
 def device_launches(torch, fn):
     """(device launches, device busy ms) of one call of `fn` under
     torch.profiler (a warm call runs first)."""
@@ -1537,9 +1567,7 @@ def device_launches(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     return (sum(e.count for e in rows),
             sum(e.self_device_time_total for e in rows) / 1e3)
 
@@ -2257,9 +2285,7 @@ def profile_phase(torch, solve):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side rows only (kernels, copies): the aten rows repeat them
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
+    events = device_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  profile: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
@@ -2775,13 +2801,308 @@ def evaluate_all_phase(torch, seed, dev, fails, card, work,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: prior training at full width
+# ---------------------------------------------------------------------------
+
+# the train CLI's defaults (latent 2048, hidden 64,64,128,256,512, seq 10,
+# batch 64, fps 25, kl 0.5, lr 1e-4 constant, float32) on a synthetic
+# corpus of 40 sequences x 300 frames: 30 train files make 8,700 windows
+# (135 steps an epoch), the last 10 make the 2,900 test windows
+TRAIN_CORPUS = (40, 300)
+TRAIN_BATCH = 64
+
+
+def write_corpus(root, n_seq, n_frames, seed):
+    """`synthetic_amass(n_seq, n_frames, seed)` as AMASS pkls under
+    `root`."""
+    import pickle
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+    os.makedirs(root)
+    for i, seq in enumerate(synthetic_amass(n_seq, n_frames, seed=seed)):
+        with open(os.path.join(root, f"seq_{i:03d}.pkl"), "wb") as f:
+            pickle.dump(seq, f)
+
+
+def train_cli(main, argv, cwd):
+    """The train CLI's main(argv) run from `cwd` (its checkpoints go to
+    `cwd`/logs/<log_dir>/checkpoints): (trainer, printout, wall s)."""
+    with contextlib.chdir(cwd):
+        return run_cli(main, argv)
+
+
+def step_bound(model, batch, dtype_bytes=4, peak=F32_FLOP_PER_S):
+    """(bound ms, 'bytes' or 'operations', GFLOP, GB) of one train step of
+    `model` at `batch`: the products of the conv stack (k=3 over T
+    frames) and the dense layers, forward and twice that backward,
+    against `peak`; and Adam's read of the parameters, gradients and two
+    moments and write of the parameters and moments (float32)."""
+    import torch.nn as nn
+    t = model.seq_len
+    fwd = 0
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d)):
+            fwd += 2 * batch * t * mod.weight.numel()
+        elif isinstance(mod, nn.Linear):
+            fwd += 2 * batch * mod.weight.numel()
+    ops = 3 * fwd
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = 7 * 4 * n
+    ms_ops, ms_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if ms_bytes >= ms_ops else "operations"
+    return max(ms_ops, ms_bytes), by, ops / 1e9, nbytes / 1e9
+
+
+def epoch_steps(torch, trainer, rng_seed, sync, max_steps=None):
+    """One epoch of `trainer`'s eager train loop (its batches copied to
+    the device step by step; the first `max_steps` of it), no eval:
+    (steps, seconds to synchronize, the summed metrics)."""
+    import itertools
+
+    import numpy as np
+    rng = np.random.default_rng(rng_seed)
+    zero = torch.zeros((), device=trainer.device)
+    running = {"loss": zero, "recon_loss": zero}
+    sync()
+    t0 = time.perf_counter()
+    steps = 0
+    for batch in itertools.islice(trainer.train_ds.epoch_batches(
+            rng, trainer.cfg.batch_size), max_steps):
+        steps += trainer._run([trainer._device_batch(batch)], running)
+    sync()
+    return steps, time.perf_counter() - t0, running
+
+
+def train_phase(torch, seed, dev, fails, card, work, corpus=TRAIN_CORPUS,
+                latent=LATENT, batch=TRAIN_BATCH, profile=False):
+    """Phase 3j: both priors trained through `cli/train.py` at its own
+    defaults (3 epochs each; the windows line, finite and falling evals,
+    epoch checkpoints with motion_stats); --resume from the local prior's
+    epoch 2 (the eval right after loading against the sidecar's, cuDNN
+    deterministic; the step count continuing); one epoch at
+    --compute_dtype bfloat16, at --epoch_scan true and at a cosine
+    schedule with AdamW; a warm train step under
+    set_sync_debug_mode('error'); ms a step at float32 and bf16 in turns
+    beside the step's bound; the trained priors through serve at
+    --compute_dtype float32 on one of phase 3's sequences, with kernels 1
+    and 2's launches (returned), beside the random priors' run.
+    `corpus`, `latent` and `batch` are cut only in a rehearsal on the
+    CPU."""
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli import train as cli
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.ops import fused_energy as fe
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    base = os.path.join(work[0], "train")
+    data = os.path.join(base, "amass")
+    t0 = time.perf_counter()
+    write_corpus(data, corpus[0], corpus[1], seed + 11)
+    print(f"  wrote {corpus[0]} AMASS pkls of {corpus[1]} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_train = (corpus[0] - 10) * (corpus[1] - 10)
+    n_test = 10 * (corpus[1] - 10)
+    steps = n_train // batch
+    common = ["--train_data_path", data, "--device", dev, "--latent_dim",
+              str(latent), "--batch_size", str(batch)]
+    ckpt = os.path.join(base, "logs", "{}", "checkpoints", "{}.{}")
+
+    # 1. the two priors, 3 epochs each, through the CLI at its defaults
+    trained = {}
+    for kind, flags in (("local", ["--local_pose", "true"]), ("global", [])):
+        tr, out, wall = train_cli(cli.main, common + flags + [
+            "--epoch", "3", "--log_dir", kind], base)
+        trained[kind] = tr
+        evals = [h["eval_mpjpe"] for h in tr.history if "eval_mpjpe" in h]
+        losses = [h["loss"] for h in tr.history if "loss" in h]
+        files = [os.path.exists(ckpt.format(kind, e, ext))
+                 for e in range(3) for ext in ("msgpack", "json")]
+        metas = []
+        for e in range(3):
+            if os.path.exists(ckpt.format(kind, e, "json")):
+                with open(ckpt.format(kind, e, "json")) as f:
+                    metas.append(json.load(f))
+        print(f"  {kind} prior: evals "
+              + ", ".join(f"{v:.6f}" for v in evals)
+              + f"; {len(losses)} loss lines, last "
+              f"{losses[-1] if losses else float('nan'):.6f}; {wall:.2f} s",
+              flush=True)
+        fails.check(f"train windows: {n_train}, test windows: {n_test}"
+                    in out, f"{kind}: the windows line ({n_train}, "
+                    f"{n_test}) in {out.splitlines()[:1]}")
+        fails.check(len(evals) == 3 and all(np.isfinite(evals + losses))
+                    and evals[-1] < evals[0] and tr.step == 3 * steps,
+                    f"{kind}: 3 finite evals falling {evals}, finite "
+                    f"losses, {tr.step} steps ({3 * steps} expected)")
+        fails.check(all(files) and len(metas) == 3 and all(
+            "accel_mean" in m.get("motion_stats", {}) for m in metas),
+            f"{kind}: checkpoints 0-2 (.msgpack, .json) with motion_stats: "
+            f"{files}")
+
+    # 2. --resume from the local prior's epoch 2
+    with open(ckpt.format("local", 2, "json")) as f:
+        saved = json.load(f)["eval_result"]
+    read = []
+    load = Trainer.load_checkpoint
+
+    def load_and_read(self, path):
+        step = load(self, path)
+        with cudnn_deterministic(torch):
+            read.append((step, self.evaluate()))
+        return step
+    Trainer.load_checkpoint = load_and_read
+    try:
+        tr, _, wall = train_cli(cli.main, common + [
+            "--local_pose", "true", "--epoch", "1", "--log_dir", "resumed",
+            "--resume", ckpt.format("local", 2, "msgpack")], base)
+    finally:
+        Trainer.load_checkpoint = load
+    step0, ev0 = read[0]
+    fails.check(step0 == 3 * steps and tr.step == 4 * steps
+                and abs(ev0 - saved) <= 1e-5 * abs(saved),
+                f"--resume: loaded step {step0} ({3 * steps} expected), "
+                f"eval right after loading {ev0:.8f} against the sidecar's "
+                f"{saved:.8f} (1e-5), then {tr.step} steps ({4 * steps} "
+                f"expected), {wall:.2f} s")
+
+    # 3. one epoch each: bf16, epoch_scan, cosine with AdamW
+    eager0 = trained["local"].history
+    eager0 = next(h["eval_mpjpe"] for h in eager0 if "eval_mpjpe" in h)
+    for name, flags in (
+            ("bf16", ["--compute_dtype", "bfloat16"]),
+            ("epoch_scan", ["--epoch_scan", "true"]),
+            ("cosine_adamw", ["--lr_schedule", "cosine", "--lr_warmup_steps",
+                              "50", "--lr_final", "1e-6",
+                              "--weight_decay", "1e-4"])):
+        tr, _, wall = train_cli(cli.main, common + flags + [
+            "--local_pose", "true", "--epoch", "1", "--log_dir", name], base)
+        ev = [h["eval_mpjpe"] for h in tr.history if "eval_mpjpe" in h]
+        ok = len(ev) == 1 and bool(np.isfinite(ev[0])) and tr.step == steps
+        if name == "epoch_scan":
+            ok = ok and abs(ev[0] - eager0) <= 0.3 * eager0
+        fails.check(ok and all(p.dtype == torch.float32
+                               for p in tr.model.parameters()),
+                    f"{name}: one epoch, eval {ev} (eager epoch 0: "
+                    f"{eager0:.6f}; within 0.3 for epoch_scan), {tr.step} "
+                    f"steps ({steps} expected), {wall:.2f} s")
+
+    # 4. a warm train step given a device batch makes no synchronising call
+    tr = trained["local"]
+    dev_batch = torch.from_numpy(tr.train_ds.windows[:batch]).to(dev)
+    tr._train_step(dev_batch, tr.step)
+    sync()
+    err = "needs the card"
+    if cuda:
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            metrics = tr._train_step(dev_batch, tr.step + 1)
+            t_disp = time.perf_counter() - t0
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync()
+    fails.check(err is None and bool(torch.isfinite(metrics["loss"])),
+                "a warm train step under set_sync_debug_mode('error'): "
+                + (f"raised or skipped: {err}" if err else
+                   f"no synchronising call; returned after "
+                   f"{t_disp * 1e3:.3f} ms [{card}]"))
+
+    # 5. ms a step at float32 and bf16, in turns
+    train_ds = AmassWindows.from_dir(data, local_pose=True)
+    test_ds = AmassWindows(train_ds.windows[:batch])
+    timers = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = TrainConfig(latent_dim=latent, batch_size=batch,
+                          local_pose=True, compute_dtype=dt, seed=seed)
+        timers[dt] = Trainer(cfg, train_ds, test_ds, device=dev)
+        epoch_steps(torch, timers[dt], 0, sync, max_steps=10)   # warm
+    times = {dt: [] for dt in timers}
+    peak = {}
+    for r, dt in enumerate(("float32", "bfloat16", "bfloat16", "float32")):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        n, secs, running = epoch_steps(torch, timers[dt], r + 1, sync)
+        times[dt].append(secs * 1e3 / n)
+        if cuda:
+            peak[dt] = torch.cuda.max_memory_allocated() / 2 ** 20
+        fails.check(bool(torch.isfinite(running["loss"])),
+                    f"timing epoch at {dt} finite")
+    for dt, ms in times.items():
+        model = timers[dt].model
+        bms, by, gflop, gb = step_bound(
+            model, batch, peak=F32_FLOP_PER_S if dt == "float32"
+            else BF16_FLOP_PER_S)
+        print(f"  train step at {dt}: "
+              + " / ".join(f"{m:.3f}" for m in ms)
+              + f" ms ({' / '.join(f'{batch / m * 1e3:.1f}' for m in ms)} "
+              f"windows/s), {steps} steps an epoch, peak "
+              f"{peak.get(dt, float('nan')):.1f} MiB; bound {bms:.4f} ms "
+              f"({by}: {gflop:.2f} GFLOP, Adam {gb:.3f} GB), share "
+              f"{bms / min(ms):.4f} [{card}]", flush=True)
+    if profile and cuda:
+        tr = timers["float32"]
+        batches = [dev_batch] * 20
+
+        def twenty():
+            for b in batches:
+                tr._train_step(b, tr.step)
+        n_launch, busy = device_launches(torch, twenty)
+        print(f"[3j'] profile of 20 float32 train steps: {n_launch / 20:.1f} "
+              f"launches a step, busy {busy / 20:.3f} ms a step", flush=True)
+        profile_phase(torch, twenty)
+
+    # 6. the trained priors through serve, beside the random priors
+    root = os.path.join(base, "serve")
+    link_sequence(os.path.join(work[1], "seq0"), os.path.join(root, "seq0"))
+    recs = {}
+    launches = {}
+    for name, (lc, gc), width in (
+            ("random", work[2:4], LATENT),
+            ("trained", (ckpt.format("local", 2, "msgpack"),
+                         ckpt.format("global", 2, "msgpack")), latent)):
+        argv = ["--data_root", root, "--local_ckpt", lc, "--global_ckpt", gc,
+                "--device", dev, "--compute_dtype", "float32",
+                "--latent_dim", str(width)]
+        cfg = serve.config_from_args(serve.build_parser().parse_args(argv))
+        fe.reset_launches()
+        recs[name], wall = run_serve(serve, argv)
+        launches[name] = dict(fe.LAUNCHES)
+        print(f"  serve with the {name} priors: launches "
+              f"{launches[name]} in {wall:.2f} s", flush=True)
+    expect = {"fused_stage_energy": 1 + cfg.solver.max_iter,
+              "fused_stage_energy_noreproj": 1 + cfg.solver.global_max_iter}
+    got = launches["trained"]
+    fails.check(all(got[k] == v for k, v in expect.items()),
+                f"serve with the trained priors: kernel 1 and 2 launches "
+                f"{got} ({expect} expected)")
+    rec = recs["trained"][0] if recs["trained"] else {}
+    fails.check(len(recs["trained"]) == 1 and "error" not in rec
+                and rec.get("windows") == recs["random"][0]["windows"]
+                and all(np.isfinite(float(rec[k])) for k in rec
+                        if k.endswith("mpjpe") or k.endswith("error")),
+                f"serve with the trained priors: one record of the random "
+                f"priors' windows, finite metrics: {rec}")
+    print("  optimized global MPJPE: trained priors "
+          f"{rec.get('optimized_global_mpjpe')}, random priors "
+          f"{(recs['random'] or [{}])[0].get('optimized_global_mpjpe')} "
+          "(no quality claim)", flush=True)
+    return {k: got[k] for k in expect}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one serve solve, one path A chunk, "
-                         "one path D chunk, one path B solve and one path "
-                         "C solve with and without kernel 5 and at float32 "
+                         "one path D chunk, one path B solve, one path "
+                         "C solve with and without kernel 5 and at float32, "
+                         "one evaluate_all sequence and 20 train steps "
                          "(torch.profiler)")
     args = ap.parse_args(argv)
 
@@ -2897,6 +3218,15 @@ def main(argv=None) -> int:
                                           profile=args.profile).items():
             launches[name] += n
         phase_done("evaluate_all", t0)
+        # ---- 3j. prior training at full width ------------------------------
+        print("[3j] prior training at full width (the train CLI at its "
+              "defaults, both priors, resume, bf16, epoch_scan, "
+              "cosine/AdamW; the trained priors through serve)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in train_phase(torch, args.seed, "cuda", fails, card,
+                                   work, profile=args.profile).items():
+            launches[name] += n
+        phase_done("train", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -144,9 +144,6 @@ def config_from_args(args):
         final_smooth_method=args.final_smooth_method, merge=args.merge)
 
 
-TORCH_SUFFIXES = (".pth.tar", ".pth", ".tar", ".pt")
-
-
 def load_variables(path: str, model) -> dict:
     """A prior's state dict, checked against `model`: a torch file
     (.pth.tar, .pth, .tar, .pt) through `serve.load_state` (the
@@ -154,9 +151,10 @@ def load_variables(path: str, model) -> dict:
     as a flax msgpack file of {'params', 'batch_stats'}
     (`models/checkpoint.py`), converted by `models/convert.py`."""
     from globalegomocap_tpu_torch.cli.serve import check_state, load_state
+    from globalegomocap_tpu_torch.models.checkpoint import (
+        TORCH_SUFFIXES, load_msgpack)
     if path.endswith(TORCH_SUFFIXES):
         return load_state(path, model)
-    from globalegomocap_tpu_torch.models.checkpoint import load_msgpack
     from globalegomocap_tpu_torch.models.convert import params_from_flax
     blob = load_msgpack(path)
     if not isinstance(blob, dict) or "params" not in blob:

@@ -1,0 +1,169 @@
+"""Train the motion-VAE prior (relative-global or local-pose) on one card.
+
+The PyTorch counterpart of `globalegomocap_tpu/cli/train.py`, with its
+parser flag for flag and default for default (the reference's training
+surface, networks/config.py and its four launch scripts: latent 2048,
+kl 0.5, seq 10, batch 64, fps 25), plus --device:
+
+    python -m globalegomocap_tpu_torch.cli.train \\
+        --train_data_path <amass_pkl_dir> [--local_pose true] \\
+        [--with_mo2cap2_names <names.txt>] [--data_balance true] \\
+        [--resume logs/<dir>/checkpoints/<epoch>.msgpack] [--device cpu]
+
+Checkpoints go to logs/<log_dir>/checkpoints as <epoch>.msgpack (the JAX
+trainer's file) and <epoch>.json.  Not ported yet, and refused with
+NotImplementedError: --hdf5, --hdf5_stream and --checkpoint_format orbax
+(ROADMAP §A item 2), and data parallelism over more than one card
+(--num_devices, ROADMAP §A item 4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+
+
+def str2bool(x: str) -> bool:
+    return str(x).lower() == "true"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--train_data_path", required=True, type=str)
+    p.add_argument("--latent_dim", default=2048, type=int)
+    p.add_argument("--seq_length", default=10, type=int)
+    p.add_argument("--fps", default=25, type=int)
+    p.add_argument("--kl_weight", default=0.5, type=float)
+    p.add_argument("--epoch", default=20, type=int)
+    p.add_argument("--batch_size", default=64, type=int)
+    p.add_argument("--learning_rate", default=1e-4, type=float)
+    p.add_argument("--lr_schedule", default="constant",
+                   choices=["constant", "cosine"],
+                   help="'cosine': warmup, then cosine decay to --lr_final "
+                        "over the whole run (the reference only has "
+                        "constant)")
+    p.add_argument("--lr_warmup_steps", default=0, type=int)
+    p.add_argument("--lr_final", default=0.0, type=float)
+    p.add_argument("--logvar_init_bias", default=0.0, type=float,
+                   help="initial bias of the VAE log-variance head; "
+                        "negative (e.g. -6) starts the posterior "
+                        "near-deterministic")
+    p.add_argument("--weight_decay", default=0.0, type=float)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the encoder and decoder "
+                        "(parameters, optimizer state and loss stay "
+                        "float32)")
+    p.add_argument("--slide_window_step", default=1, type=int)
+    p.add_argument("--data_balance", default=False, type=str2bool)
+    p.add_argument("--local_pose", default=False, type=str2bool,
+                   help="train the local-pose prior (train_local.py "
+                        "equivalent) instead of the relative-global prior")
+    p.add_argument("--with_mo2cap2_names", default=None, type=str,
+                   help="path to a text/npy file of sequence names to "
+                        "restrict training to (mo2cap2 subset)")
+    p.add_argument("--log_dir", default=None, type=str)
+    p.add_argument("--log_step", default=100, type=int)
+    p.add_argument("--epoch_scan", default=False, type=str2bool,
+                   help="run each epoch in blocks of steps with no host "
+                        "readback inside a block (one log line an epoch)")
+    p.add_argument("--eval_every", default=1, type=int,
+                   help="evaluate/checkpoint every N epochs "
+                        "(always on the last)")
+    p.add_argument("--resume", default=None, type=str,
+                   help="path to an epoch .msgpack checkpoint to resume")
+    p.add_argument("--num_devices", default=0, type=int,
+                   help="devices for data parallelism (0 = all); the port "
+                        "trains on one card")
+    p.add_argument("--hdf5", default=False, type=str2bool,
+                   help="train_data_path is a packed HDF5 file")
+    p.add_argument("--hdf5_stream", default=False, type=str2bool,
+                   help="stream batches from the HDF5 file instead of "
+                        "materializing all windows (AMASS scale)")
+    p.add_argument("--checkpoint_format", default="msgpack",
+                   choices=["msgpack", "orbax"])
+    p.add_argument("--device", default="cuda", type=str,
+                   help="'cuda' (the default) or 'cpu'")
+    return p
+
+
+def load_mo2cap2_names(path: str | None):
+    if path is None:
+        return None
+    if path.endswith(".npy"):
+        import numpy as np
+        return [str(x) for x in np.load(path, allow_pickle=True).tolist()]
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def check_supported(args, device) -> None:
+    """NotImplementedError for the options the port does not run yet,
+    each naming its ROADMAP item; never a silent substitute."""
+    for flag, on in (("--hdf5", args.hdf5), ("--hdf5_stream",
+                                             args.hdf5_stream),
+                     ("--checkpoint_format orbax",
+                      args.checkpoint_format == "orbax")):
+        if on:
+            raise NotImplementedError(
+                f"not yet ported to the PyTorch package: {flag} (ROADMAP "
+                "§A item 2)")
+    import torch
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if args.num_devices > 1 or (args.num_devices == 0 and cards > 1):
+        raise NotImplementedError(
+            "not yet ported to the PyTorch package: data-parallel training "
+            f"over more than one device (--num_devices {args.num_devices}, "
+            f"{cards} visible; ROADMAP §A item 4); pass --num_devices 1 or "
+            "make one card visible")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.device import resolve_device
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+
+    device = resolve_device(args.device)
+    check_supported(args, device)
+    cfg = TrainConfig(
+        train_data_path=args.train_data_path,
+        latent_dim=args.latent_dim, seq_length=args.seq_length,
+        fps=args.fps, kl_weight=args.kl_weight, epochs=args.epoch,
+        batch_size=args.batch_size, learning_rate=args.learning_rate,
+        lr_schedule=args.lr_schedule,
+        lr_warmup_steps=args.lr_warmup_steps, lr_final=args.lr_final,
+        logvar_init_bias=args.logvar_init_bias,
+        compute_dtype=args.compute_dtype,
+        weight_decay=args.weight_decay,
+        slide_window_step=args.slide_window_step,
+        data_balance=args.data_balance, local_pose=args.local_pose,
+        log_step=args.log_step, num_devices=args.num_devices,
+        epoch_scan=args.epoch_scan, eval_every=args.eval_every)
+
+    names = load_mo2cap2_names(args.with_mo2cap2_names)
+    train_ds, test_ds = (AmassWindows.from_dir(
+        args.train_data_path, frame_num=args.seq_length, fps=args.fps,
+        is_train=is_train, local_pose=args.local_pose,
+        balance_walking=args.data_balance, mo2cap2_names=names,
+        dilation=args.slide_window_step) for is_train in (True, False))
+
+    print(f"train windows: {len(train_ds)}, test windows: {len(test_ds)}")
+
+    trainer = Trainer(cfg, train_ds, test_ds, device=device)
+    if args.resume:
+        trainer.load_checkpoint(args.resume)
+
+    log_dir = args.log_dir or datetime.datetime.now().strftime(
+        "%m.%d-%H.%M.%S")
+    ckpt_dir = os.path.join("logs", log_dir, "checkpoints")
+    trainer.train(checkpoint_dir=ckpt_dir,
+                  checkpoint_format=args.checkpoint_format)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

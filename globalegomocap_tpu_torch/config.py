@@ -1,8 +1,8 @@
 """Configuration dataclasses of the solve path.
 
 A copy of the fields of `globalegomocap_tpu/config.py` that the optimizer
-reads, with the same names and defaults, so one set of values configures
-both packages.  The one option the port does not run, solver.init =
+and the trainer read, with the same names and defaults, so one set of
+values configures both packages.  The one option the port does not run, solver.init =
 'sample', is kept as a field and rejected by name
 (optimize/pipeline.py `check_supported`).
 """
@@ -123,6 +123,51 @@ class OptimizeConfig:
     compute_dtype: str = "float32"
     stage_segment_chunks: int = 384
     stage_crop_impl: str = "onehot"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """VAE training settings (reference: networks/config.py + the four
+    launch .sh scripts: latent 2048, kl 0.5, seq 10, batch 64, fps 25)."""
+    train_data_path: str = ""
+    latent_dim: int = 2048
+    seq_length: int = 10
+    fps: int = 25
+    kl_weight: float = 0.5
+    epochs: int = 20
+    batch_size: int = 64
+    learning_rate: float = 1e-4
+    # 'constant' (the reference's fixed-lr Adam) or 'cosine' (linear
+    # warmup, then cosine decay to lr_final over the run)
+    lr_schedule: str = "constant"
+    lr_warmup_steps: int = 0
+    lr_final: float = 0.0
+    # initial bias of the VAE's log-variance head (ConvVAE.logvar_bias_init):
+    # negative values start the posterior near-deterministic
+    logvar_init_bias: float = 0.0
+    # compute dtype of the encoder/decoder: 'bfloat16' runs their products
+    # in bf16 while the parameters, the optimizer state and the loss stay
+    # float32
+    compute_dtype: str = "float32"
+    weight_decay: float = 0.0
+    slide_window_step: int = 1
+    data_balance: bool = False
+    with_mo2cap2_data: bool = False
+    local_pose: bool = False        # local-pose VAE vs relative-global VAE
+    log_dir: str = "logs"
+    log_step: int = 100
+    seed: int = 0
+    # 0 = all available; the port trains on one card (ROADMAP §A item 4)
+    num_devices: int = 0
+    # run each epoch in blocks of scan_block steps with no host readback
+    # inside a block (JAX: one lax.scan launch a block); same math and
+    # batch order as the per-step loop, log_step granularity per epoch
+    epoch_scan: bool = False
+    # epoch_scan's block: at most this many steps; a trailing block of
+    # two or more steps runs as a block, a single leftover step alone
+    scan_block: int = 256
+    # evaluate (and checkpoint) every N epochs, always on the last
+    eval_every: int = 1
 
 
 def with_overrides(cfg, **kwargs):

@@ -107,3 +107,33 @@ def synthetic_chunk(n_frames: int = 100, seed: int = 0,
         camera_poses=cams.astype(np.float32),
         heatmaps=render_heatmaps(local_true),
     )
+
+
+def synthetic_amass(n_sequences: int = 12, frames_per_seq: int = 300,
+                    frame_rate: int = 25, seed: int = 0,
+                    motion_scale: float = 0.08,
+                    freq_range: tuple = (0.3, 1.2),
+                    motion_fn=None) -> list[dict]:
+    """Synthetic AMASS-style training pkls: dicts with `local_pose_list`
+    (N, 15, 3) float32, `cam_list` ({'loc', 'rot'} a frame, the rotation
+    as a scipy xyzw quaternion) and `frame_rate` (reference contract:
+    networks/dataset/global_dataset.py:88-100).  Counterpart of the JAX
+    package's `synthetic_amass`, same generators and seeds.
+    motion_fn: (n_frames, seed) -> (N, 15, 3) replaces the sinusoidal
+    generator."""
+    from scipy.spatial.transform import Rotation
+
+    out = []
+    for s in range(n_sequences):
+        local = (motion_fn(frames_per_seq, seed + 10 * s)
+                 if motion_fn is not None else
+                 synthetic_motion(frames_per_seq, seed + 10 * s,
+                                  motion_scale=motion_scale,
+                                  freq_range=freq_range))
+        cams = synthetic_camera_trajectory(frames_per_seq, seed + 10 * s)
+        cam_list = [{"loc": cams[i, :3, 3],
+                     "rot": Rotation.from_matrix(cams[i, :3, :3]).as_quat()}
+                    for i in range(frames_per_seq)]
+        out.append({"local_pose_list": local.astype(np.float32),
+                    "cam_list": cam_list, "frame_rate": frame_rate})
+    return out

@@ -15,6 +15,13 @@ bytes of the JAX package's for the same variables.  Not read: Orbax
 directories, flax's chunked leaves (arrays over 2**30 bytes; the
 full-width prior's largest is 42 MB), bfloat16 arrays (numpy has no
 such dtype; the priors are float32) and complex numbers.
+
+The trainer's epoch checkpoints (`train/train_vae.py`) are one such file
+of {'params', 'batch_stats', 'opt_state', 'step'}, the payload of the JAX
+`Trainer.save_checkpoint`: int32 0-d counts and step, as `jax.device_get`
+leaves them (`save_train_state`, `load_train_state`).
+`load_prior_variables` reads a prior from any file the JAX package's
+does, except Orbax directories (ROADMAP §A item 2).
 """
 
 from __future__ import annotations
@@ -261,3 +268,63 @@ def load_msgpack(path: str) -> Any:
     object raises ValueError."""
     with open(path, "rb") as f:
         return unpackb(f.read())
+
+
+TRAIN_KEYS = ("params", "batch_stats", "opt_state", "step")
+TORCH_SUFFIXES = (".pth.tar", ".pth", ".tar", ".pt")
+
+
+def save_train_state(path: str, variables: dict, opt_state: dict,
+                     step: int) -> None:
+    """A trainer's epoch checkpoint: the Flax {'params', 'batch_stats'}
+    of the prior, the optax state tree and the step count (0-d int32)."""
+    save_msgpack({"params": variables["params"],
+                  "batch_stats": variables["batch_stats"],
+                  "opt_state": opt_state,
+                  "step": np.asarray(step, np.int32)}, path)
+
+
+def load_train_state(path: str) -> dict:
+    """A trainer's epoch checkpoint; a file of other keys raises
+    ValueError (flax's `from_bytes` into the trainer's target does the
+    same in the JAX package)."""
+    blob = load_msgpack(path)
+    if not isinstance(blob, dict) or set(blob) != set(TRAIN_KEYS):
+        keys = sorted(blob) if isinstance(blob, dict) else type(blob)
+        raise ValueError(f"{path}: not a training checkpoint of "
+                         f"{list(TRAIN_KEYS)} (has {keys})")
+    return blob
+
+
+def load_prior_variables(path: str, seq_len: int = 10,
+                         hidden_dims=(64, 64, 128, 256, 512)) -> Any:
+    """A prior's Flax variables tree (numpy leaves, 'batch_stats' added
+    empty where the file has none) from a torch file (by its suffix: the
+    reference's .pth.tar training checkpoints or bare state dicts) or a
+    flax msgpack file (everything it holds, a training checkpoint's
+    'opt_state' and 'step' too).  The prior's seq_len and hidden_dims
+    must be the given ones.  An Orbax directory raises
+    NotImplementedError."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: Orbax checkpoint directories are not read by the "
+            "PyTorch port yet (ROADMAP §A item 2); use a msgpack or "
+            ".pth.tar file")
+    if path.endswith(TORCH_SUFFIXES):
+        from globalegomocap_tpu_torch.cli.serve import load_state
+        from globalegomocap_tpu_torch.models.convert import params_to_flax
+        v = params_to_flax(load_state(path))
+    else:
+        v = load_msgpack(path)
+    if not isinstance(v, dict) or "params" not in v:
+        raise ValueError(f"checkpoint at {path} has no 'params'")
+    v.setdefault("batch_stats", {})
+    p = v["params"]
+    hidden = tuple(np.shape(p[f"enc_{i}"]["conv"]["kernel"])[-1]
+                   for i in range(sum(k.startswith("enc_") for k in p)))
+    t = np.shape(p["fc_mu"]["kernel"])[0] // hidden[-1]
+    if hidden != tuple(hidden_dims) or t != seq_len:
+        raise ValueError(f"{path}: a prior of hidden dims {hidden} and "
+                         f"seq_len {t}, not {tuple(hidden_dims)} and "
+                         f"{seq_len}")
+    return v

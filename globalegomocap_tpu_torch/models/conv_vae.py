@@ -27,6 +27,14 @@ the same weights at other compute dtypes, whose parameters are stored in
 those dtypes, so the per-call casts become no-ops.  A float32 clone of
 float32 weights shares their tensors; a bf16 clone casts each weight
 once.
+
+Training (`train/train_vae.py`) runs `encode` / `decode` with
+`train=True`: BatchNorm then normalises with the batch statistics and
+moves the running ones as Flax's does (biased variance, momentum 0.9).
+`reparameterize` takes its noise from the caller, `vae_loss` is the
+reference's ELBO, and `init_flax_like` draws a fresh prior from Flax's
+default distributions (`init_random`, PyTorch-like, makes the seeded
+random priors of the solve paths).
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ class ConvVAE(nn.Module):
                  latent_dim: int = 2048, seq_len: int = 10,
                  hidden_dims: Sequence[int] = (64, 64, 128, 256, 512),
                  use_bn: bool = True, dtype: torch.dtype = torch.float32,
-                 head_dtype: torch.dtype | None = None):
+                 head_dtype: torch.dtype | None = None,
+                 logvar_bias_init: float = 0.0):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -60,6 +69,7 @@ class ConvVAE(nn.Module):
         self.use_bn = use_bn
         self.dtype = dtype
         self.head_dtype = head_dtype
+        self.logvar_bias_init = logvar_bias_init
 
         enc, c = [], in_channels
         for h in self.hidden_dims:
@@ -69,6 +79,7 @@ class ConvVAE(nn.Module):
         flat = self.hidden_dims[-1] * seq_len
         self.fc_mu = nn.Linear(flat, latent_dim)
         self.fc_var = nn.Linear(flat, latent_dim)
+        nn.init.constant_(self.fc_var.bias, logvar_bias_init)
 
         rev = tuple(reversed(self.hidden_dims))
         self.decoder_input = nn.Linear(latent_dim, flat)
@@ -108,22 +119,27 @@ class ConvVAE(nn.Module):
         return m
 
     def _conv_block(self, block: nn.Sequential, x: torch.Tensor,
-                    transposed: bool) -> torch.Tensor:
-        """conv -> BN (float32, result in dtype) -> LeakyReLU in dtype."""
+                    transposed: bool, train: bool = False) -> torch.Tensor:
+        """conv -> BN (float32, result in dtype) -> LeakyReLU in dtype.
+        BN uses the running statistics, or with `train` the batch's and
+        updates the running ones (`_batch_norm_train`)."""
         conv, bn = block[0], block[1]
         fn = F.conv_transpose1d if transposed else F.conv1d
         dt = self.dtype
         x = fn(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
         if isinstance(bn, nn.BatchNorm1d):
-            x = bn(x.to(torch.float32)).to(dt)
+            x32 = x.to(torch.float32)
+            x = (_batch_norm_train(bn, x32) if train else F.batch_norm(
+                x32, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                False, 0.0, bn.eps)).to(dt)
         return F.leaky_relu(x, 0.01)
 
-    def encode(self, pose: torch.Tensor):
+    def encode(self, pose: torch.Tensor, train: bool = False):
         """pose (B, T, C) -> (mu, log_var), each (B, latent); mu in the
         head dtype, log_var in dtype."""
         h = pose.to(self.dtype).transpose(1, 2)
         for block in self.encoder:
-            h = self._conv_block(block, h, transposed=False)
+            h = self._conv_block(block, h, False, train)
         h = h.flatten(1)                   # channel-major (C, T) flatten
         head = self.head_dtype or self.dtype
         mu = F.linear(h.to(head), self.fc_mu.weight.to(head),
@@ -132,15 +148,15 @@ class ConvVAE(nn.Module):
                            self.fc_var.bias.to(self.dtype))
         return mu, log_var
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
         """z (B, latent) -> (B, T, out_channels) in dtype."""
         dt = self.dtype
         h = F.linear(z.to(dt), self.decoder_input.weight.to(dt),
                      self.decoder_input.bias.to(dt))
         h = h.view(-1, self.hidden_dims[-1], self.seq_len)
         for block in self.decoder:
-            h = self._conv_block(block, h, transposed=True)
-        h = self._conv_block(self.final_layer, h, transposed=True)
+            h = self._conv_block(block, h, True, train)
+        h = self._conv_block(self.final_layer, h, True, train)
         out = self.final_layer[3]
         h = F.conv1d(h, out.weight.to(dt), out.bias.to(dt), padding=1)
         return h.transpose(1, 2)
@@ -149,10 +165,67 @@ class ConvVAE(nn.Module):
         """z (B, latent) -> (B, T, 15, 3) joint sequences."""
         return self.decode(z).reshape(-1, self.seq_len, 15, 3)
 
-    def forward(self, pose: torch.Tensor):
-        """Deterministic autoencode (z = mu): (reconstruction, mu, log_var)."""
-        mu, log_var = self.encode(pose)
-        return self.decode(mu), mu, log_var
+    def forward(self, pose: torch.Tensor, train: bool = False,
+                noise: torch.Tensor | None = None):
+        """Encode, reparameterise with `noise` (z = mu without it) and
+        decode: (reconstruction, mu, log_var).  `train` runs BN on the
+        batch statistics and updates the running ones, as the JAX model's
+        `train=True` with `mutable=['batch_stats']`."""
+        mu, log_var = self.encode(pose, train)
+        return self.decode(reparameterize(mu, log_var, noise), train), \
+            mu, log_var
+
+
+def _batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """Flax's train-mode BatchNorm on float32 (B, C, T): normalise with
+    the batch mean and the biased variance E[x^2] - E[x]^2 (clamped at 0),
+    and move the running statistics by momentum 0.9 towards them.  Not
+    `F.batch_norm(training=True)`, whose running variance takes the
+    unbiased estimate, n/(n-1) times Flax's."""
+    mean = x.mean(dim=(0, 2))
+    var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(mean.detach(), alpha=0.1)
+        bn.running_var.mul_(0.9).add_(var.detach(), alpha=0.1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean[:, None]) * mul[:, None] + bn.bias[:, None]
+
+
+def reparameterize(mu: torch.Tensor, log_var: torch.Tensor,
+                   noise: torch.Tensor | None = None) -> torch.Tensor:
+    """z = mu + noise * exp(0.5 log_var), or mu without noise.  The JAX
+    model draws the noise itself, in mu's dtype; here the caller passes
+    it (the trainer's `noise_fn`)."""
+    if noise is None:
+        return mu
+    return mu + noise * torch.exp(0.5 * log_var)
+
+
+def vae_loss(reconstruction: torch.Tensor, target: torch.Tensor,
+             mu: torch.Tensor, log_var: torch.Tensor, kld_weight: float,
+             reduction: str = "mean"):
+    """The reference's ELBO (SeqConvVAE.py:191-219): (loss, recon, kld).
+    reduction='mean': recon is the mean squared error and `kld_weight`
+    the reference's M_N; 'sum': the summed squared error."""
+    diff = reconstruction - target
+    recon = torch.square(diff).mean() if reduction == "mean" \
+        else torch.square(diff).sum()
+    kld = torch.mean(-0.5 * torch.sum(
+        1 + log_var - torch.square(mu) - torch.exp(log_var), dim=1))
+    return recon + kld_weight * kld, recon, kld
+
+
+def sample_prior(model: ConvVAE, num_samples: int,
+                 generator: torch.Generator | None = None,
+                 z: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode N(0, I) latents into (N, T, 15, 3) motions (reference:
+    SeqConvVAE.py:221-235).  `z` gives the latents; otherwise they are
+    drawn from `generator` on the model's device."""
+    if z is None:
+        w = model.fc_mu.weight
+        z = torch.randn(num_samples, model.latent_dim, generator=generator,
+                        device=w.device, dtype=torch.float32)
+    return model.decode(z).reshape(num_samples, model.seq_len, 15, 3)
 
 
 def init_random(model: ConvVAE, generator: torch.Generator) -> ConvVAE:
@@ -174,4 +247,38 @@ def init_random(model: ConvVAE, generator: torch.Generator) -> ConvVAE:
                 mod.bias.uniform_(-0.1, 0.1, generator=generator)
                 mod.running_mean.uniform_(-0.1, 0.1, generator=generator)
                 mod.running_var.uniform_(0.8, 1.2, generator=generator)
+    return model
+
+
+def init_flax_like(model: ConvVAE, generator: torch.Generator,
+                   logvar_bias_init: float | None = None) -> ConvVAE:
+    """Fill the parameters from `generator` with Flax's default
+    distributions, as the JAX model's `init`: every conv and dense kernel
+    lecun_normal (a normal truncated at +-2 std, scaled to std
+    1/sqrt(fan_in)), every bias 0, BN scale 1 and bias 0, running mean 0
+    and variance 1, and fc_var's bias `logvar_bias_init` (default the
+    model's).  The draws are not JAX's: the distributions are."""
+    if logvar_bias_init is None:
+        logvar_bias_init = model.logvar_bias_init
+    # the standard deviation of a unit normal truncated to [-2, 2]
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)):
+                w = mod.weight
+                if isinstance(mod, nn.Linear):
+                    fan_in = w.shape[1]
+                elif isinstance(mod, nn.ConvTranspose1d):
+                    fan_in = w.shape[0] * w.shape[2]
+                else:
+                    fan_in = w.shape[1] * w.shape[2]
+                std = fan_in ** -0.5 / trunc_std
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                mod.bias.fill_(logvar_bias_init if name == "fc_var" else 0.0)
+            elif isinstance(mod, nn.BatchNorm1d):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
     return model

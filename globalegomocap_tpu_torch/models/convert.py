@@ -15,6 +15,12 @@ Variables are the Flax {'params', 'batch_stats'} tree with numpy (or
 array-like) leaves; BN-folded trees (empty 'batch_stats', no 'bn'
 entries) convert to state dicts for `ConvVAE(use_bn=False)`.
 `params_to_flax` is the inverse, for priors the port writes as msgpack.
+
+An optimizer's state crosses too (`opt_state_to_flax`,
+`opt_state_from_flax`): optax's Adam moments are trees of the params'
+structure, and go through the same transposes, flips and (T, C) <-> (C,
+T) permutations as the parameters; those are permutations, so they
+commute with Adam's elementwise update.
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ def _perm_ct_to_tc(n_channels: int, seq_len: int) -> np.ndarray:
 def params_from_flax(variables) -> dict:
     """Flax ConvVAE variables -> the port's ConvVAE state dict (float32
     tensors).  hidden_dims and seq_len are read from the kernel shapes."""
-    params = variables["params"]
-    stats = variables.get("batch_stats") or {}
+    return _from_flax(variables["params"],
+                      variables.get("batch_stats") or {})
+
+
+def _from_flax(params, stats) -> dict:
+    """A Flax params tree (and its batch_stats; None = the parameters
+    alone, as in an optimizer's moment trees) -> torch-named tensors."""
     a = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
     n_enc = sum(1 for k in params if k.startswith("enc_"))
     hidden = [a(params[f"enc_{i}"]["conv"]["kernel"]).shape[-1]
@@ -52,6 +63,7 @@ def params_from_flax(variables) -> dict:
         if "bn" in params[src]:
             out[f"{dst_bn}.weight"] = a(params[src]["bn"]["scale"])
             out[f"{dst_bn}.bias"] = a(params[src]["bn"]["bias"])
+        if "bn" in params[src] and stats is not None:
             out[f"{dst_bn}.running_mean"] = a(stats[src]["bn"]["mean"])
             out[f"{dst_bn}.running_var"] = a(stats[src]["bn"]["var"])
             out[f"{dst_bn}.num_batches_tracked"] = np.asarray(0)
@@ -79,7 +91,8 @@ def params_to_flax(state: dict) -> dict:
     with float32 numpy leaves: the inverse of `params_from_flax`, so that
     the port writes priors the JAX package reads
     (`models/checkpoint.py::save_msgpack`)."""
-    a = lambda k: state[k].detach().to(torch.float32).cpu().numpy()  # noqa
+    # copies: a live model's or optimizer's tensors change at its next step
+    a = lambda k: np.array(state[k].detach().to(torch.float32).cpu())  # noqa
     n_enc = len({k.split(".")[1] for k in state if k.startswith("encoder.")})
     c_last = state[f"encoder.{n_enc - 1}.0.weight"].shape[0]
     seq_len = state["fc_mu.weight"].shape[1] // c_last
@@ -97,6 +110,7 @@ def params_to_flax(state: dict) -> dict:
         if f"{src_bn}.weight" in state:
             params[dst]["bn"] = {"bias": a(f"{src_bn}.bias"),
                                  "scale": a(f"{src_bn}.weight")}
+        if f"{src_bn}.running_mean" in state:
             stats[dst] = {"bn": {"mean": a(f"{src_bn}.running_mean"),
                                  "var": a(f"{src_bn}.running_var")}}
 
@@ -117,3 +131,74 @@ def params_to_flax(state: dict) -> dict:
             np.transpose(a("final_layer.3.weight"), (2, 1, 0))),
         "bias": a("final_layer.3.bias")}
     return {"params": params, "batch_stats": stats}
+
+
+def _optax_layout(weight_decay: bool, schedule: bool) -> list:
+    """The entries of optax's adam / adamw chain state after the Adam
+    moments: add_decayed_weights' EmptyState ({} in flax's msgpack) with
+    weight decay, then the learning rate's: a schedule's step count, or a
+    constant's EmptyState."""
+    return (["empty"] if weight_decay else []) + \
+        ["count" if schedule else "empty"]
+
+
+def opt_state_to_flax(optimizer, named_params, weight_decay: bool,
+                      schedule: bool) -> dict:
+    """A torch.optim Adam / AdamW's state -> the tree flax's `to_bytes`
+    makes of the JAX trainer's optax state under the same TrainConfig:
+    {"0": {count, mu, nu}, "1": {}, ...} with int32 0-d counts and float32
+    numpy moments in the Flax layout.  `named_params` are the model's
+    `named_parameters()`, in the optimizer's order; a parameter with no
+    state yet (no step taken) has zero moments."""
+    mu, nu, count = {}, {}, 0
+    for name, p in named_params:
+        st = optimizer.state.get(p)
+        if st:
+            count = int(st["step"])
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+        else:
+            mu[name] = nu[name] = torch.zeros_like(p)
+    tree = {"0": {"count": np.asarray(count, np.int32),
+                  "mu": params_to_flax(mu)["params"],
+                  "nu": params_to_flax(nu)["params"]}}
+    for i, kind in enumerate(_optax_layout(weight_decay, schedule), 1):
+        tree[str(i)] = ({"count": np.asarray(count, np.int32)}
+                        if kind == "count" else {})
+    return tree
+
+
+def opt_state_from_flax(tree, optimizer, named_params, weight_decay: bool,
+                        schedule: bool) -> None:
+    """Load an optax adam / adamw state tree (as `opt_state_to_flax`
+    writes it, or flax's msgpack of the JAX trainer's) into `optimizer`.
+    A tree of another layout than this TrainConfig's optimizer, or whose
+    moments do not match the parameters, raises ValueError."""
+    layout = _optax_layout(weight_decay, schedule)
+    want = {str(i) for i in range(len(layout) + 1)}
+    if not isinstance(tree, dict) or set(tree) != want:
+        raise ValueError(f"opt_state: entries {sorted(tree)} where this "
+                         f"optimizer has {sorted(want)}")
+    for i, kind in enumerate(layout, 1):
+        keys = {"count"} if kind == "count" else set()
+        if not isinstance(tree[str(i)], dict) or set(tree[str(i)]) != keys:
+            raise ValueError(f"opt_state entry {i}: {tree[str(i)]!r} is not "
+                             f"a {kind} state")
+    adam = tree["0"]
+    if set(adam) != {"count", "mu", "nu"}:
+        raise ValueError(f"opt_state entry 0 has {sorted(adam)}, not Adam's "
+                         "count, mu and nu")
+    mu, nu = _from_flax(adam["mu"], None), _from_flax(adam["nu"], None)
+    named = list(named_params)
+    for moments in (mu, nu):
+        bad = sorted(set(moments) ^ {n for n, _ in named}) + [
+            n for n, p in named
+            if n in moments and moments[n].shape != p.shape]
+        if bad:
+            raise ValueError(f"opt_state moments do not match the "
+                             f"parameters: {bad}")
+    step = torch.tensor(float(int(adam["count"])))
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                       "exp_avg_sq": nu[n]}
+                   for i, (n, _) in enumerate(named)}
+    optimizer.load_state_dict(sd)

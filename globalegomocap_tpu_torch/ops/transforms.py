@@ -46,3 +46,32 @@ def relative_to_global_pose(relative_pose_seq: torch.Tensor,
     the window's first camera matrix (..., 4, 4)."""
     return transform_pose(relative_pose_seq,
                           camera_matrix_0[..., None, :, :])
+
+
+def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternions (..., 4) in scipy's (x, y, z, w) order, not necessarily
+    normalised, to rotation matrices (..., 3, 3), as scipy's
+    `Rotation.from_quat(q).as_matrix()`."""
+    q = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
+    return m.reshape(*q.shape[:-1], 3, 3)
+
+
+def quat_trans_to_matrix(trans: torch.Tensor,
+                         quat: torch.Tensor) -> torch.Tensor:
+    """4x4 camera-to-world matrices from translations (..., 3) and
+    quaternions (..., 4) in scipy's (x, y, z, w) order."""
+    rot = quat_to_rotmat(quat)
+    batch = torch.broadcast_shapes(trans.shape[:-1], quat.shape[:-1])
+    out = torch.zeros(batch + (4, 4), dtype=rot.dtype, device=rot.device)
+    out[..., :3, :3] = rot
+    out[..., :3, 3] = trans
+    out[..., 3, 3] = 1.0
+    return out

@@ -486,9 +486,11 @@ def _optimize_sequence_dir_batched(opt: SequenceOptimizer, data_dir: str,
         return None
     t0 = time.perf_counter()
     res = opt.optimize_chunks_batched(opt.stage(chunks), mode="flat")
+    if res.optimized.is_cuda:
+        torch.cuda.synchronize(res.optimized.device)
+    total = time.perf_counter() - t0     # the solve, not the metrics
     errs = {k: _numpy(v) for k, v in calculate_errors(
-        res.estimated, res.mid, res.optimized, res.gt).items()}  # synced
-    total = time.perf_counter() - t0
+        res.estimated, res.mid, res.optimized, res.gt).items()}
     all_errors = []
     for i, chunk_dir in enumerate(dirs):
         errors = {k: v[i] for k, v in errs.items()}

@@ -224,3 +224,37 @@ def test_vmap_mode_matches_jax(files, energy):
             tpipe.optimize_chunks_flat(
                 *opt._stages, staged.est, staged.cams, staged.heat,
                 staged.gt, opt._camera_dev, opt.cfg)
+
+
+def test_batched_sweep_clock_leaves_the_metrics_out(files, monkeypatch):
+    """optimize_sequence_dir(batched=True) times the staged solve and not
+    the 17 metrics, as the JAX driver's batched path does: with
+    calculate_errors slowed by a fixed sleep in both drivers, each
+    package's total_s (and so per_chunk_s) stays below the call's wall
+    time less the sleep."""
+    import time
+    tmp, v = files
+    sleep = 0.5
+    for pkg, drv in ((jcfg, jdriver), (tcfg, tdriver)):
+        orig = drv.calculate_errors
+
+        def slow(*args, _orig=orig):
+            time.sleep(sleep)
+            return _orig(*args)
+        monkeypatch.setattr(drv, "calculate_errors", slow)
+        cfg = chunk_config(pkg, "dense" if pkg is jcfg else "pallas")
+        cfg = replace(cfg, solver=replace(cfg.solver, method="adam",
+                                          adam_steps=2))
+        kw = {} if pkg is jcfg else {"device": "cpu"}
+        w = v if pkg is jcfg else port_state(v)
+        opt = drv.SequenceOptimizer(drv.build_model(cfg), w, w, cfg, **kw)
+        seq = str(tmp / "data" / "seqA")
+        drv.optimize_sequence_dir(opt, seq, verbose=False, batched=True)
+        t0 = time.perf_counter()
+        errs, _, timing = drv.optimize_sequence_dir(opt, seq, verbose=False,
+                                                    batched=True)
+        wall = time.perf_counter() - t0
+        assert len(errs) == 2 and timing["failed_chunks"] == []
+        assert timing["per_chunk_s"] == pytest.approx(timing["total_s"] / 2)
+        assert timing["total_s"] <= wall - sleep, (pkg.__name__, timing,
+                                                   wall)

@@ -466,3 +466,53 @@ def test_prefetcher_hands_batches_over_by_event(gen):
     assert max(mem[2:]) <= mem[1] + sum(
         t.numel() * t.element_size() for t in ref.tensors()) + sum(
         x.numel() * x.element_size() for x in direct)
+
+
+def _tiny_trainer(device, windows, noise):
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    cfg = TrainConfig(latent_dim=32, batch_size=32, learning_rate=2e-3,
+                      kl_weight=0.5, log_step=0)
+    model = ConvVAE(latent_dim=32, seq_len=10, hidden_dims=(16, 16, 32, 32,
+                                                            64))
+    ds = AmassWindows(windows)
+    return Trainer(cfg, ds, ds, model, device=device,
+                   noise_fn=lambda step, shape, dtype: noise[step].to(
+                       device, dtype))
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One train step of the tiny prior on the card against the same step
+    on the CPU, from the same state (the Flax-like init from the same
+    seed) and noise: the loss (1e-5 relative), the running statistics
+    (1e-5 absolute and relative: the card's and the CPU's float32
+    reductions of the batch statistics differ in order), the parameters
+    within 2.5 lr (Adam's normalised first update
+    turns rounding on near-zero gradients into +-lr flips); float32 on
+    the card, TF32 off."""
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+    from globalegomocap_tpu_torch.data.amass import window_sequences
+    windows = window_sequences(synthetic_amass(3, 80, seed=1),
+                               local_pose=True)
+    noise = torch.randn(1, 32, 32, generator=torch.Generator().manual_seed(1))
+    cpu, card = (_tiny_trainer(d, windows, noise) for d in ("cpu", "cuda"))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    batch = torch.from_numpy(windows[:32])
+    m_cpu = cpu._train_step(batch, 0)
+    m_card = card._train_step(batch.cuda(), 0)
+    assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]),
+                                                  rel=1e-5)
+    a, b = cpu.model.state_dict(), card.model.state_dict()
+    for name, p in cpu.model.named_parameters():
+        gap = float((b[name].cpu() - a[name]).abs().max())
+        assert gap <= 2.5 * 2e-3, (name, gap)
+    for name in a:
+        if "running" in name:
+            torch.testing.assert_close(b[name].cpu(), a[name], rtol=1e-5,
+                                       atol=1e-5,
+                                       msg=lambda m, name=name: f"{name}: {m}")
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for p in card.model.parameters())

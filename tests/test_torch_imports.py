@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
-`globalegomocap_tpu_torch` loads neither `jax`, `flax`, `msgpack` nor
-anything of the JAX package, and its entry points run on the card unless
+`globalegomocap_tpu_torch` loads neither `jax`, `flax`, `optax`, `msgpack`
+nor anything of the JAX package, and its entry points run on the card unless
 told otherwise."""
 
 import json
@@ -28,7 +28,8 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (  # noqa: F401
 from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
     crop_peak_native)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "msgpack", "globalegomocap_tpu")]
+       if m.split(".")[0] in ("jax", "flax", "optax", "msgpack",
+                              "globalegomocap_tpu")]
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -47,13 +48,15 @@ def test_port_imports_no_jax():
                 "optimize.pipeline", "optimize.lbfgs", "models.convert",
                 "data.synthetic", "native.hostcrop", "optimize.streaming",
                 "utils.profiling", "models.dense_decoder",
-                "cli.evaluate_all", "models.checkpoint", "tools.ply"):
+                "cli.evaluate_all", "models.checkpoint", "tools.ply",
+                "cli.train", "train.train_vae", "data.amass",
+                "optimize.prior_bank"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
     from globalegomocap_tpu_torch.cli import (
-        evaluate_all, optimize_sequence, serve)
+        evaluate_all, optimize_sequence, serve, train)
     from globalegomocap_tpu_torch.optimize import driver
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -86,6 +89,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
                            "--local_ckpt", str(ckpt), "--global_ckpt",
                            str(ckpt), "--latent_dim", "32", "--hidden_dims",
                            "8,8,16,16,32"])
+    with pytest.raises(RuntimeError):
+        train.main(["--train_data_path", str(tmp_path / "data")])
 
 
 def test_device_module_pins_float32():

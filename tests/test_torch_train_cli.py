@@ -1,0 +1,117 @@
+"""The port's train CLI (`cli/train.py`) on the CPU: the JAX train CLI
+test's run (tests/test_cli_train.py) with --device cpu, --resume, the
+parser against the JAX package's flag for flag, the options not ported
+yet, and the card it asks for by default."""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+
+import tests.torch_port_helpers  # noqa: F401  (one torch thread a worker)
+import torch
+from globalegomocap_tpu.cli import train as jcli
+from globalegomocap_tpu_torch.cli import train as tcli
+from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+
+ARGS = ["--latent_dim", "16", "--seq_length", "10", "--kl_weight", "0.1",
+        "--epoch", "1", "--batch_size", "16", "--local_pose", "true"]
+
+
+@pytest.fixture(scope="module")
+def amass_dir(tmp_path_factory):
+    """The JAX CLI test's corpus, made by the port."""
+    d = tmp_path_factory.mktemp("amass")
+    for i, s in enumerate(synthetic_amass(n_sequences=12, frames_per_seq=40,
+                                          seed=9)):
+        with open(d / f"seq_{i:02d}.pkl", "wb") as f:
+            pickle.dump(s, f)
+    return str(d)
+
+
+def test_train_cli_writes_epoch_checkpoints_and_resumes(
+        amass_dir, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    trainer = tcli.main(["--train_data_path", amass_dir, "--log_dir", "t1",
+                         "--device", "cpu"] + ARGS)
+    out = capsys.readouterr().out
+    # 2 train files of 40 frames (30 windows each), 10 test files
+    assert "train windows: 60, test windows: 300" in out
+    assert "epoch 0: eval reconstruction MPJPE" in out
+    assert np.isfinite(trainer.evaluate())
+    ckpts = tmp_path / "logs" / "t1" / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["0.json", "0.msgpack"]
+    assert trainer.step == 3
+    resumed = tcli.main(["--train_data_path", amass_dir, "--log_dir", "t2",
+                         "--device", "cpu", "--resume",
+                         str(ckpts / "0.msgpack")] + ARGS)
+    assert resumed.step == 2 * trainer.step
+
+
+def _flags(parser):
+    return {a.dest: (tuple(a.option_strings), a.default,
+                     getattr(a.type, "__name__", a.type),
+                     tuple(a.choices or ()), a.required)
+            for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_has_the_jax_flags_and_defaults():
+    j, t = _flags(jcli.build_parser()), _flags(tcli.build_parser())
+    assert set(t) == set(j) | {"device"}
+    for dest, spec in j.items():
+        assert t[dest] == spec, dest
+    assert t["device"][1] == "cuda"
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--hdf5", "true"], "item 2"),
+    (["--hdf5_stream", "true"], "item 2"),
+    (["--checkpoint_format", "orbax"], "item 2"),
+    (["--num_devices", "2"], "item 4")],
+    ids=["hdf5", "hdf5_stream", "orbax", "num_devices"])
+def test_unported_options_raise(amass_dir, tmp_path, monkeypatch, flag,
+                                item):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
+        tcli.main(["--train_data_path", amass_dir, "--device", "cpu"]
+                  + ARGS + flag)
+    assert not os.path.exists(tmp_path / "logs")
+
+
+def test_all_cards_means_one_card_only(amass_dir, tmp_path, monkeypatch):
+    """--num_devices 0 (all) with two cards visible would be data
+    parallel in JAX: refused, where one card trains."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = tcli.build_parser().parse_args(["--train_data_path", amass_dir])
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 4"):
+        tcli.check_supported(args, torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    tcli.check_supported(args, torch.device("cuda"))
+
+
+def test_the_cli_asks_for_the_card_by_default(amass_dir, tmp_path,
+                                              monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["--train_data_path", amass_dir] + ARGS)
+    assert not os.path.exists(tmp_path / "logs")
+
+
+def test_mo2cap2_names_restrict_the_corpus(amass_dir, tmp_path, monkeypatch,
+                                           capsys):
+    """--with_mo2cap2_names from a text file (one name a line) and an npy
+    file: the same filter as the JAX loader."""
+    monkeypatch.chdir(tmp_path)
+    names = [f"seq_{i:02d}" for i in range(11)]
+    (tmp_path / "names.txt").write_text("\n".join(names) + "\n")
+    np.save(tmp_path / "names.npy", np.asarray(names, dtype=object))
+    assert tcli.load_mo2cap2_names(str(tmp_path / "names.txt")) == \
+        jcli.load_mo2cap2_names(str(tmp_path / "names.txt")) == names
+    assert tcli.load_mo2cap2_names(str(tmp_path / "names.npy")) == names
+    tcli.main(["--train_data_path", amass_dir, "--device", "cpu",
+               "--with_mo2cap2_names", str(tmp_path / "names.txt"),
+               "--log_dir", "m"] + ARGS)
+    assert "train windows: 30, test windows: 300" in capsys.readouterr().out
