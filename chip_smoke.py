@@ -134,6 +134,28 @@ Phases (any failure exits non-zero and prints no result line):
               --compute_dtype float32 on one of phase 3's sequences
               (kernels 1 and 2 launched as phase 3 counts a request),
               beside the random priors' run.
+3k. joint prior and prior bank - `train/train_joint.py` at the train
+              CLI's defaults (latent 2048, hidden 64,64,128,256,512,
+              batch 64, lr 1e-4, float32) on (poses, cameras) of a jerky
+              synthetic AMASS corpus (motion scale 0.10, 0.5-2.5 Hz) of
+              30 sequences x 300 frames (8,700 windows, 135 steps an
+              epoch), 2 epochs: ms a step, windows/s, launches a step and
+              the idle share, peak memory, the bound of both branches;
+              the total and five components finite, the total falling;
+              one fine-tuning epoch on Mo2Cap2 windows (local poses) of
+              phase 3's first sequence.  Then a PriorBank of phase 3j's
+              trained priors ('smooth', the local sidecar's motion
+              statistic) and the joint branches ('jerky') behind serve's
+              defaults (StagePrefetcher at depth 2 on host staging,
+              StreamingOptimizer at in-flight depth 3, bfloat16_delta):
+              a smooth request (phase 3's first sequence) and a jerky one
+              (16 synthetic chunks at the jerky motion) solved with
+              'smooth' then 'jerky', kernels 1 and 2's launches; a bank
+              of 'smooth' alone solves the jerky request to other poses;
+              windows/s with the bank and without it, in turns; the same
+              through device staging (the statistic measured on the card,
+              within 1e-4 of the host's); the train CLI at --hdf5_stream
+              where h5py is installed, else one line saying it is not.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -3095,6 +3117,293 @@ def train_phase(torch, seed, dev, fails, card, work, corpus=TRAIN_CORPUS,
     return {k: got[k] for k in expect}
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the joint prior and the prior bank at full width
+# ---------------------------------------------------------------------------
+
+# the jerky regime of the JAX package's v2 corpus (synthetic_chunk_v2's
+# motion): twice the smooth corpus's amplitude, components up to 2.5 Hz
+JERKY = dict(motion_scale=0.10, freq_range=(0.5, 2.5))
+
+
+def joint_windows(n_seq, n_frames, seed):
+    """(local poses (W, 10, 45), cameras (W, 10, 4, 4)) of a jerky
+    `synthetic_amass` corpus, one window a frame
+    (`data/hdf5.py::sequence_windows_with_cameras`)."""
+    import numpy as np
+    from globalegomocap_tpu_torch.data.hdf5 import (
+        sequence_windows_with_cameras)
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+    parts = [sequence_windows_with_cameras(s, 10, 25, True)[1:]
+             for s in synthetic_amass(n_seq, n_frames, seed=seed, **JERKY)]
+    poses = np.concatenate([p for p, _ in parts])
+    return poses.reshape(len(poses), 10, 45), np.concatenate(
+        [c for _, c in parts])
+
+
+def joint_step_bound(model, batch):
+    """`step_bound` of the joint step: both branches' products and Adam
+    passes (the lifts' 4 x 4 products are a few MFLOP): (bound ms, 'bytes'
+    or 'operations', GFLOP, GB)."""
+    ops = nbytes = 0.0
+    for branch in (model.local_vae, model.global_vae):
+        _, _, gflop, gb = step_bound(branch, batch)
+        ops, nbytes = ops + gflop * 1e9, nbytes + gb * 1e9
+    ms_ops = ops / F32_FLOP_PER_S * 1e3
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if ms_bytes >= ms_ops else "operations"
+    return max(ms_ops, ms_bytes), by, ops / 1e9, nbytes / 1e9
+
+
+def stream_requests(opt, requests, on_host, sync):
+    """`requests` (chunk lists) streamed as serve streams them at its
+    defaults (StagePrefetcher at depth 2, StreamingOptimizer at in-flight
+    depth 3): (results, the prior pair each request was solved with, each
+    staged batch's statistic, seconds from the first staging to the last
+    result)."""
+    from globalegomocap_tpu_torch.optimize.streaming import (
+        StagePrefetcher, StreamingOptimizer)
+    service = StreamingOptimizer(opt, max_in_flight=3, stage_on_host=on_host)
+    names, stats = [], []
+    sync()
+    t0 = time.perf_counter()
+    for staged in StagePrefetcher(opt, requests, depth=2, on_host=on_host):
+        service.submit_batch(staged)       # selects the pair, dispatches
+        names.append(opt.last_prior_name)
+        stats.append(staged.accel_mean)
+    res = service.drain()
+    sync()
+    return res, names, stats, time.perf_counter() - t0
+
+
+def joint_bank_phase(torch, seed, dev, fails, card, work,
+                     corpus=(TRAIN_CORPUS[0] - 10, TRAIN_CORPUS[1]),
+                     latent=LATENT, batch=TRAIN_BATCH,
+                     shape=(CHUNKS, FRAMES), rounds=2, profile=False):
+    """Phase 3k: the joint local/global prior trained at full width on a
+    jerky corpus (`train/train_joint.py`, 2 epochs: ms a step, launches,
+    peak memory, the bound; finite losses, the total falling) and
+    fine-tuned one epoch on Mo2Cap2 windows of phase 3's chunks; then a
+    PriorBank of phase 3j's trained priors ('smooth') and the joint
+    branches ('jerky') behind serve's streamed defaults: a smooth and a
+    jerky request get their own pair, kernels 1 and 2 launched (returned),
+    a bank of 'smooth' alone solves the jerky request otherwise, windows/s
+    with and without the bank in turns, device staging's statistic
+    against host staging's; the HDF5 step where h5py is installed.
+    Needs phase 3j's checkpoints under work[0]; `corpus`, `latent`,
+    `batch` and `shape` are cut only in a rehearsal on the CPU.  With
+    `profile`, 20 joint steps under torch.profiler as well."""
+    import importlib.util
+
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli.optimize_sequence import load_variables
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.mo2cap2 import mo2cap2_windows
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.models.joint_vae import split_branches
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.optimize.prior_bank import (
+        PriorBank, windows_accel_stat)
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    from globalegomocap_tpu_torch.train.train_joint import JointTrainer
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_chunks, n_frames = shape
+
+    # 1. the joint prior, 2 epochs at the train CLI's defaults
+    t0 = time.perf_counter()
+    poses, cams = joint_windows(corpus[0], corpus[1], seed + 13)
+    steps = len(poses) // batch
+    print(f"  {len(poses)} jerky windows with cameras from "
+          f"{corpus[0]} sequences x {corpus[1]} frames ({steps} steps an "
+          f"epoch) in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = TrainConfig(latent_dim=latent, batch_size=batch, seed=seed,
+                      epochs=2)
+    jt = JointTrainer(cfg, poses, cams, device=dev)
+    ends = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    hist = jt.train(log_fn=lambda line: ends.append(time.perf_counter())
+                    or print("  joint " + line, flush=True))
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20 if cuda
+            else float("nan"))
+    ms = [(ends[0] - t0) * 1e3 / steps, (ends[1] - ends[0]) * 1e3 / steps]
+    # the 2-epoch prior, before the timed (and profiled) steps below move
+    # it on: the fine-tuning and the bank's 'jerky' entry start from it
+    trained = {k: v.detach().clone() for k, v in
+               jt.model.state_dict().items()}
+    keys = ("consistency", "global_kld", "global_recon", "local_kld",
+            "local_recon", "loss")
+    fails.check(len(hist) == 2 and all(list(h) == list(keys) for h in hist)
+                and all(np.isfinite(h[k]) for h in hist for k in keys)
+                and hist[1]["loss"] < hist[0]["loss"]
+                and jt.step == 2 * steps,
+                f"joint training: 2 epochs of {steps} steps, the total and "
+                f"five components finite, the total falling "
+                f"{hist[0]['loss']:.6f} -> {hist[1]['loss']:.6f}")
+    bms, by, gflop, gb = joint_step_bound(jt.model, batch)
+    launch_line = ""
+    if cuda:
+        pb = torch.from_numpy(poses[:batch]).to(dev)
+        cb_ = torch.from_numpy(cams[:batch]).to(dev)
+        n_launch, busy = device_launches(torch, lambda: jt.train_step(pb,
+                                                                      cb_))
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(10):
+            jt.train_step(pb, cb_)
+        sync()
+        wall = (time.perf_counter() - t1) * 1e3 / 10
+        launch_line = (f", {n_launch} launches a step, device busy "
+                       f"{busy:.3f} ms of a {wall:.3f} ms step (idle "
+                       f"{1 - busy / wall:.4f})")
+        if profile:
+            print("[3k'] profile of 20 float32 joint train steps",
+                  flush=True)
+            profile_phase(torch, lambda: [jt.train_step(pb, cb_)
+                                          for _ in range(20)])
+    wps = " / ".join(f"{batch / m * 1e3:.1f}" for m in ms)
+    print(f"  joint train step (float32, batch {batch}): "
+          + " / ".join(f"{m:.3f}" for m in ms)
+          + f" ms (epochs 1 / 2; {wps} windows/s){launch_line}, peak "
+          f"{peak:.1f} MiB; bound "
+          f"{bms:.4f} ms ({by}: {gflop:.2f} GFLOP, Adam {gb:.3f} GB), "
+          f"share {bms / ms[1]:.4f} [{card}]", flush=True)
+
+    # fine-tuning: one epoch on Mo2Cap2 windows of phase 3's chunks
+    seq0 = os.path.join(work[1], sorted(os.listdir(work[1]))[0])
+    smooth_req = [load_test_chunk(d) for d in list_chunk_dirs(seq0)]
+    m2 = [mo2cap2_windows(c, local_pose=True) for c in smooth_req]
+    m2_poses = np.concatenate([w.poses for w in m2])
+    m2_cams = np.concatenate([w.cameras for w in m2])
+    ft = JointTrainer(TrainConfig(latent_dim=latent, batch_size=min(
+        batch, len(m2_poses)), seed=seed, epochs=1), m2_poses, m2_cams,
+        device=dev, variables=trained)
+    ft_hist = ft.train(log_fn=lambda line: print("  fine-tune " + line,
+                                                 flush=True))
+    fails.check(len(ft_hist) == 1 and all(np.isfinite(v) for v in
+                                          ft_hist[0].values()),
+                f"fine-tuning on {len(m2_poses)} Mo2Cap2 windows of "
+                f"{len(smooth_req)} chunks: one epoch of {ft.step} steps, "
+                f"finite metrics")
+
+    # 2. the bank behind serve's defaults
+    ckpt = os.path.join(work[0], "train", "logs", "{}", "checkpoints",
+                        "2.{}")
+    argv = ["--data_root", work[1], "--local_ckpt", ckpt.format("local",
+                                                                "msgpack"),
+            "--global_ckpt", ckpt.format("global", "msgpack"),
+            "--latent_dim", str(latent), "--device", dev]
+    scfg = serve.config_from_args(serve.build_parser().parse_args(argv))
+    model = build_model(scfg)
+    smooth = [load_variables(ckpt.format(k, "msgpack"), model)
+              for k in ("local", "global")]
+    sidecar = {}
+    for k in ("local", "global"):
+        with open(ckpt.format(k, "json")) as f:
+            sidecar[k] = json.load(f)["motion_stats"]["accel_mean"]
+    jerky = split_branches(jt.model, trained)
+    bank_stats = {"smooth": sidecar["local"],
+                  "jerky": windows_accel_stat(poses)}
+    bank = (PriorBank().add("smooth", *smooth, bank_stats["smooth"])
+            .add("jerky", *jerky, bank_stats["jerky"]))
+    print(f"  bank: smooth {bank_stats['smooth']:.6e} (the local prior's "
+          f"sidecar; the global one's {sidecar['global']:.6e}), jerky "
+          f"{bank_stats['jerky']:.6e} (windows_accel_stat of the joint "
+          f"corpus's local windows)", flush=True)
+    opt = SequenceOptimizer(model, *smooth, scfg, device=dev,
+                            prior_bank=bank)
+    plain = SequenceOptimizer(model, *smooth, scfg, device=dev)
+    jerky_req = [synthetic_chunk(n_frames, seed=(seed + 29) * 1000 + c,
+                                 **JERKY) for c in range(n_chunks)]
+    requests = [smooth_req[:n_chunks], jerky_req]
+    wins = sum(num_windows(c.n_frames) for r in requests for c in r)
+
+    stream_requests(opt, requests, True, sync)               # warm
+    cb.reset_launches()
+    res, names, stats, secs = stream_requests(opt, requests, True, sync)
+    launches = {k: cb.LAUNCHES[k] for k in ("fused_stage_energy",
+                                            "fused_stage_energy_noreproj")}
+    per_req = {"fused_stage_energy": 1 + scfg.solver.max_iter,
+               "fused_stage_energy_noreproj": 1 + scfg.solver.global_max_iter}
+    print(f"  serve's defaults ({scfg.compute_dtype}, host staging, "
+          f"prefetch 2, in flight 3) with the bank: pairs {names}, batch "
+          f"statistics " + ", ".join(f"{s:.6e}" for s in stats)
+          + f"; launches {launches}", flush=True)
+    fails.check(names == ["smooth", "jerky"],
+                f"the bank picks 'smooth' then 'jerky': {names}")
+    fails.check(all(launches[k] == 2 * n for k, n in per_req.items()),
+                f"kernels 1 and 2 launched {launches} "
+                f"({ {k: 2 * n for k, n in per_req.items()} } expected)")
+    fails.check(len(res) == 2 and all(bool(torch.isfinite(r.optimized)
+                                           .all()) for r in res),
+                "both requests solved to finite poses")
+    alone = SequenceOptimizer(model, *smooth, scfg, device=dev,
+                              prior_bank=PriorBank().add(
+                                  "smooth", *smooth, bank_stats["smooth"]))
+    staged = opt.stage(jerky_req, on_host=True)
+    a = opt.optimize_chunks_batched(staged, mode="flat").optimized
+    b = alone.optimize_chunks_batched(staged, mode="flat").optimized
+    gap = float((a.float() - b.float()).abs().max())
+    fails.check(opt.last_prior_name == "jerky"
+                and alone.last_prior_name == "smooth" and gap > 1e-3,
+                f"the jerky request with a bank of 'smooth' alone solves to "
+                f"other poses: max |diff| {gap:.6f} m")
+
+    # windows/s with and without the bank, in turns, over the two
+    # requests twice
+    rates = {"bank": [], "none": []}
+    for way in ["bank", "none", "none", "bank"] * rounds:
+        _, _, _, s = stream_requests(opt if way == "bank" else plain,
+                                     requests * 2, True, sync)
+        rates[way].append(2 * wins / s)
+    ratio = np.mean(rates["bank"]) / np.mean(rates["none"])
+    print(f"  sustained windows/s in turns ({2 * len(requests)} requests, "
+          f"{2 * wins} windows): bank "
+          + "/".join(f"{x:.1f}" for x in rates["bank"])
+          + ", no bank " + "/".join(f"{x:.1f}" for x in rates["none"])
+          + f"; ratio of the means {ratio:.3f} [{card}]", flush=True)
+
+    # device staging: the statistic on the card, one scalar read back
+    _, dnames, dstats, _ = stream_requests(opt, requests, False, sync)
+    rel = max(abs(d - h) / abs(h) for d, h in zip(dstats, stats))
+    fails.check(dnames == names and rel <= 1e-4,
+                f"device staging: pairs {dnames}, statistics "
+                + ", ".join(f"{s:.6e}" for s in dstats)
+                + f" against host staging's within {rel:.2e} (1e-4)")
+
+    # 3. HDF5, where h5py is installed (decided before the phase runs)
+    if importlib.util.find_spec("h5py") is None:
+        print("  HDF5: h5py is not installed on this machine; --hdf5 and "
+              "--hdf5_stream were checked on the CPU only "
+              "(tests/test_torch_hdf5.py)", flush=True)
+    else:
+        from globalegomocap_tpu_torch.cli import train as train_cli_mod
+        from globalegomocap_tpu_torch.data.hdf5 import pack_amass_dir
+        base = os.path.join(work[0], "train")
+        h5 = os.path.join(base, "corpus.h5")
+        t0 = time.perf_counter()
+        pack_amass_dir(os.path.join(base, "amass"), h5)
+        tr, out, wall = train_cli(train_cli_mod.main, [
+            "--train_data_path", h5, "--hdf5_stream", "true",
+            "--local_pose", "true", "--device", dev, "--latent_dim",
+            str(latent), "--batch_size", str(batch), "--epoch", "2",
+            "--log_dir", "hdf5"], base)
+        ev = [h["eval_mpjpe"] for h in tr.history if "eval_mpjpe" in h]
+        fails.check(len(ev) == 2 and all(np.isfinite(ev)) and ev[1] < ev[0],
+                    f"--hdf5_stream true: packed and trained 2 epochs in "
+                    f"{time.perf_counter() - t0:.1f} s, evals {ev} falling "
+                    f"({out.splitlines()[0]})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3102,8 +3411,8 @@ def main(argv=None) -> int:
                     help="also profile one serve solve, one path A chunk, "
                          "one path D chunk, one path B solve, one path "
                          "C solve with and without kernel 5 and at float32, "
-                         "one evaluate_all sequence and 20 train steps "
-                         "(torch.profiler)")
+                         "one evaluate_all sequence, 20 train steps and 20 "
+                         "joint train steps (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "globalegomocap_tpu_torch")):
@@ -3227,6 +3536,16 @@ def main(argv=None) -> int:
                                    work, profile=args.profile).items():
             launches[name] += n
         phase_done("train", t0)
+        # ---- 3k. the joint prior and the prior bank ------------------------
+        print("[3k] the joint prior and the prior bank at full width (joint "
+              "training, Mo2Cap2 fine-tuning, bank selection behind serve's "
+              "defaults)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in joint_bank_phase(torch, args.seed, "cuda", fails,
+                                        card, work,
+                                        profile=args.profile).items():
+            launches[name] += n
+        phase_done("joint and bank", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -10,10 +10,13 @@ kl 0.5, seq 10, batch 64, fps 25), plus --device:
         [--with_mo2cap2_names <names.txt>] [--data_balance true] \\
         [--resume logs/<dir>/checkpoints/<epoch>.msgpack] [--device cpu]
 
-Checkpoints go to logs/<log_dir>/checkpoints as <epoch>.msgpack (the JAX
-trainer's file) and <epoch>.json.  Not ported yet, and refused with
-NotImplementedError: --hdf5, --hdf5_stream and --checkpoint_format orbax
-(ROADMAP §A item 2), and data parallelism over more than one card
+--hdf5 true reads a file of `data/hdf5.py::pack_amass_dir` whole (its
+last max(1, n // 20) windows are the test split); --hdf5_stream true
+streams the same split from the file (`HDF5WindowStream`), for corpora
+that do not fit in memory.  Checkpoints go to logs/<log_dir>/checkpoints
+as <epoch>.msgpack (the JAX trainer's file) and <epoch>.json.  Not ported
+yet, and refused with NotImplementedError: --checkpoint_format orbax
+(ROADMAP §A item 3a), and data parallelism over more than one card
 (--num_devices, ROADMAP §A item 4).
 """
 
@@ -101,22 +104,12 @@ def load_mo2cap2_names(path: str | None):
 def check_supported(args, device) -> None:
     """NotImplementedError for the options the port does not run yet,
     each naming its ROADMAP item; never a silent substitute."""
-    for flag, on in (("--hdf5", args.hdf5), ("--hdf5_stream",
-                                             args.hdf5_stream),
-                     ("--checkpoint_format orbax",
-                      args.checkpoint_format == "orbax")):
-        if on:
-            raise NotImplementedError(
-                f"not yet ported to the PyTorch package: {flag} (ROADMAP "
-                "§A item 2)")
-    import torch
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if args.num_devices > 1 or (args.num_devices == 0 and cards > 1):
+    if args.checkpoint_format == "orbax":
         raise NotImplementedError(
-            "not yet ported to the PyTorch package: data-parallel training "
-            f"over more than one device (--num_devices {args.num_devices}, "
-            f"{cards} visible; ROADMAP §A item 4); pass --num_devices 1 or "
-            "make one card visible")
+            "not yet ported to the PyTorch package: --checkpoint_format "
+            "orbax (ROADMAP §A item 3a); use --checkpoint_format msgpack")
+    from globalegomocap_tpu_torch.train.train_vae import check_one_device
+    check_one_device(args.num_devices, device)
 
 
 def main(argv=None):
@@ -145,11 +138,31 @@ def main(argv=None):
         epoch_scan=args.epoch_scan, eval_every=args.eval_every)
 
     names = load_mo2cap2_names(args.with_mo2cap2_names)
-    train_ds, test_ds = (AmassWindows.from_dir(
-        args.train_data_path, frame_num=args.seq_length, fps=args.fps,
-        is_train=is_train, local_pose=args.local_pose,
-        balance_walking=args.data_balance, mo2cap2_names=names,
-        dilation=args.slide_window_step) for is_train in (True, False))
+    if args.hdf5_stream:
+        from globalegomocap_tpu_torch.data.hdf5 import HDF5WindowStream
+        probe = HDF5WindowStream(args.train_data_path,
+                                 local_pose=args.local_pose)
+        n_test = max(1, len(probe) // 20)
+        probe.close()
+        train_ds = HDF5WindowStream(args.train_data_path,
+                                    local_pose=args.local_pose,
+                                    stop=-n_test)
+        test_ds = HDF5WindowStream(args.train_data_path,
+                                   local_pose=args.local_pose,
+                                   start=-n_test)
+    elif args.hdf5:
+        from globalegomocap_tpu_torch.data.hdf5 import load_hdf5_windows
+        full = load_hdf5_windows(args.train_data_path,
+                                 local_pose=args.local_pose)
+        n_test = max(1, len(full.windows) // 20)
+        train_ds = AmassWindows(full.windows[:-n_test])
+        test_ds = AmassWindows(full.windows[-n_test:])
+    else:
+        train_ds, test_ds = (AmassWindows.from_dir(
+            args.train_data_path, frame_num=args.seq_length, fps=args.fps,
+            is_train=is_train, local_pose=args.local_pose,
+            balance_walking=args.data_balance, mo2cap2_names=names,
+            dilation=args.slide_window_step) for is_train in (True, False))
 
     print(f"train windows: {len(train_ds)}, test windows: {len(test_ds)}")
 

@@ -85,12 +85,16 @@ def render_heatmaps(local_pose: np.ndarray, size: int = 64,
 
 
 def synthetic_chunk(n_frames: int = 100, seed: int = 0,
-                    noise_std: float = 0.03) -> TestChunk:
+                    noise_std: float = 0.03, motion_scale: float = 0.05,
+                    freq_range: tuple = (0.3, 1.2)) -> TestChunk:
     """One chunk in the test_data.pkl contract: the estimate is the true
     local pose plus white noise, the heatmaps peak at the true
-    projections, the cameras are exact."""
+    projections, the cameras are exact.  motion_scale / freq_range pass
+    to `synthetic_motion` (the jerky regime of the JAX package's v2
+    corpus: 0.10 / (0.5, 2.5))."""
     rng = np.random.default_rng(seed + 2)
-    local_true = synthetic_motion(n_frames, seed)
+    local_true = synthetic_motion(n_frames, seed, motion_scale=motion_scale,
+                                  freq_range=freq_range)
     cams = synthetic_camera_trajectory(n_frames, seed)
     homo = np.concatenate([local_true, np.ones((n_frames, 15, 1))], axis=2)
     gt_global = np.einsum("nij,nkj->nki", cams, homo)[:, :, :3]

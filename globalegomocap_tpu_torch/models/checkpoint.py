@@ -21,7 +21,7 @@ of {'params', 'batch_stats', 'opt_state', 'step'}, the payload of the JAX
 `Trainer.save_checkpoint`: int32 0-d counts and step, as `jax.device_get`
 leaves them (`save_train_state`, `load_train_state`).
 `load_prior_variables` reads a prior from any file the JAX package's
-does, except Orbax directories (ROADMAP §A item 2).
+does, except Orbax directories (ROADMAP §A item 3a).
 """
 
 from __future__ import annotations
@@ -308,7 +308,7 @@ def load_prior_variables(path: str, seq_len: int = 10,
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: Orbax checkpoint directories are not read by the "
-            "PyTorch port yet (ROADMAP §A item 2); use a msgpack or "
+            "PyTorch port yet (ROADMAP §A item 3a); use a msgpack or "
             ".pth.tar file")
     if path.endswith(TORCH_SUFFIXES):
         from globalegomocap_tpu_torch.cli.serve import load_state

@@ -15,6 +15,11 @@ Variables are the Flax {'params', 'batch_stats'} tree with numpy (or
 array-like) leaves; BN-folded trees (empty 'batch_stats', no 'bn'
 entries) convert to state dicts for `ConvVAE(use_bn=False)`.
 `params_to_flax` is the inverse, for priors the port writes as msgpack.
+A joint local+global prior (`models/joint_vae.py`) crosses branch by
+branch (`joint_params_from_flax`, `joint_params_to_flax`): Flax's
+`params/{local,global}/...` and `batch_stats/{local,global}/...` are
+two ConvVAE trees, the port's `local.*` and `global.*` keys two ConvVAE
+state dicts.
 
 An optimizer's state crosses too (`opt_state_to_flax`,
 `opt_state_from_flax`): optax's Adam moments are trees of the params'
@@ -40,6 +45,30 @@ def params_from_flax(variables) -> dict:
     tensors).  hidden_dims and seq_len are read from the kernel shapes."""
     return _from_flax(variables["params"],
                       variables.get("batch_stats") or {})
+
+
+def joint_params_from_flax(variables) -> dict:
+    """Flax JointLocalGlobalVAE variables -> the port's joint state dict
+    (keys 'local.*' and 'global.*')."""
+    stats = variables.get("batch_stats") or {}
+    out = {}
+    for name in ("local", "global"):
+        branch = params_from_flax({"params": variables["params"][name],
+                                   "batch_stats": stats.get(name, {})})
+        out.update({f"{name}.{k}": v for k, v in branch.items()})
+    return out
+
+
+def joint_params_to_flax(state: dict) -> dict:
+    """The port's joint state dict -> Flax {'params': {'local', 'global'},
+    'batch_stats': {'local', 'global'}}: the inverse of
+    `joint_params_from_flax`."""
+    params, stats = {}, {}
+    for name in ("local", "global"):
+        flax = params_to_flax({k[len(name) + 1:]: v for k, v in state.items()
+                               if k.startswith(name + ".")})
+        params[name], stats[name] = flax["params"], flax["batch_stats"]
+    return {"params": params, "batch_stats": stats}
 
 
 def _from_flax(params, stats) -> dict:

@@ -6,7 +6,8 @@ Counterpart of `globalegomocap_tpu/optimize/driver.py`:
 `_crop_coverage`/`_effective_cfg`, `_cfg_for_coverage` with its
 `guard_crop` = 0 full-map fallback, `stage` on the host through the
 native host crop or on the device, `optimize_chunks_batched` in its
-modes 'flat' and 'vmap', `optimize_chunk`, `run`), and
+modes 'flat' and 'vmap', `optimize_chunk`, `run`, and the selection among
+the prior pairs of a `prior_bank` by each batch's motion statistic), and
 `optimize_sequence_dir` (its per-chunk loop with the per-chunk fault
 isolation, or with batched=True one staged flat solve a sequence, as
 `cli/evaluate_all.py` runs it) and `print_summary`.  Every derived
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import copy
 import time
+import warnings
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -49,6 +51,8 @@ from globalegomocap_tpu_torch.native.hostcrop import crop_peak_native
 from globalegomocap_tpu_torch.ops import fisheye
 from globalegomocap_tpu_torch.optimize import pipeline
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
+from globalegomocap_tpu_torch.optimize.prior_bank import (
+    PriorBank, motion_accel_stat, motion_accel_stat_torch, nearest_index)
 
 
 def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
@@ -75,9 +79,12 @@ class StagedBatch:
     """Equal-length chunks staged for the solve: tensors on the solve
     device, heat as FLAT (C, F, k*k*J) peak crops (or the full maps
     (C, F, H, W, J) when no crops are used), the crop-guard coverage
-    resolved to a host scalar.  `ready`: None when the tensors were
-    written on the stream that solves them, else a CUDA event recorded on
-    the staging stream after the last write."""
+    resolved to a host scalar.  `accel_mean`: the estimates' motion
+    statistic (`prior_bank.motion_accel_stat`), measured only when the
+    optimizer has a prior bank or a recorded prior statistic.  `ready`:
+    None when the tensors were written on the stream that solves them,
+    else a CUDA event recorded on the staging stream after the last
+    write."""
     est: Any              # (C, F, 15, 3)
     cams: Any             # (C, F, 4, 4)
     heat: Any             # crops or maps (float32 or bfloat16)
@@ -86,6 +93,7 @@ class StagedBatch:
     crop_coverage: float | None
     origins: Any = None   # (C, F, J, 2) crop origins (oy, ox)
     full_hw: tuple | None = None
+    accel_mean: float | None = None
     ready: Any = None     # torch.cuda.Event | None
 
     def tensors(self) -> tuple:
@@ -101,28 +109,99 @@ class SequenceOptimizer:
     fold into the convs here, once, and the priors are cast for
     cfg.compute_dtype here, once (`pipeline.stage_models`): their weights
     are constants of the optimizer.  Runs on `device` (CUDA unless the
-    caller passes "cpu")."""
+    caller passes "cpu").
+
+    Prior-regime matching (`optimize/prior_bank.py`), off by default as
+    in the reference: with `prior_bank` each staged batch (and each chunk
+    of `optimize_chunk`) is measured and solved with the bank's pair
+    nearest its statistic (`last_prior_name` names it); every entry is
+    folded and cast here, once, like the held pair, so a batch only swaps
+    which staged pair it solves with.  Without a bank, `prior_accel_mean`
+    (the held priors' training statistic, the trainer's
+    `motion_stats["accel_mean"]`) warns once when a batch's statistic is
+    more than `mismatch_warn_ratio` times off, either way."""
 
     def __init__(self, model: ConvVAE, local_state: dict,
-                 global_state: dict, cfg: OptimizeConfig, device=None):
+                 global_state: dict, cfg: OptimizeConfig, device=None,
+                 prior_bank: PriorBank | None = None,
+                 prior_accel_mean: float | None = None,
+                 mismatch_warn_ratio: float = 2.0):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._camera = resolve_camera(cfg)
         self._camera_dev = self._camera.to(self.device)
+        self.prior_accel_mean = prior_accel_mean
+        self.mismatch_warn_ratio = mismatch_warn_ratio
+        self.last_prior_name: str | None = None
+        self._warned_mismatch = False
+        self.local_model, self.global_model, self._stages = \
+            self._stage_pair(model, local_state, global_state)
+        # the bank as it is now, each entry staged: its names, statistics
+        # and StageModels pairs (an entry added to the caller's bank later
+        # is not staged, and the entries' state dicts are not kept)
+        self._bank = None if prior_bank is None else [
+            (e.name, e.accel_mean, self._stage_pair(
+                model, e.local_variables, e.global_variables)[2])
+            for e in prior_bank.entries]
+
+    def _stage_pair(self, model: ConvVAE, local_state: dict,
+                    global_state: dict):
+        """(local model, global model, their StageModels): a prior pair
+        BN-folded (with cfg.fold_bn), on the device and cast for
+        cfg.compute_dtype (and, for fused_decode, folded into kernel 5's
+        layout) once, not once per stage."""
+        cfg = self.cfg
         use_bn = model.use_bn
         if cfg.fold_bn and use_bn:
             local_state = fold_batchnorm(local_state)
             global_state = fold_batchnorm(global_state)
             use_bn = False
-        self.local_model = self._make(model, local_state, use_bn)
-        self.global_model = self._make(model, global_state, use_bn)
-        # the priors at cfg.compute_dtype, cast (and, for fused_decode,
-        # folded into kernel 5's layout) once here, not once per stage
+        local_model = self._make(model, local_state, use_bn)
+        global_model = self._make(model, global_state, use_bn)
         tier, impl = cfg.compute_dtype, pipeline.decoder_impl(cfg)
-        self._stages = (
-            pipeline.stage_models(self.local_model, tier,
+        return local_model, global_model, (
+            pipeline.stage_models(local_model, tier,
                                   cfg.solver.fused_decode, impl),
-            pipeline.stage_models(self.global_model, tier, impl=impl))
+            pipeline.stage_models(global_model, tier, impl=impl))
+
+    def _accel_stat(self, est) -> float | None:
+        """The motion statistic of a staged (C, F, 15, 3) estimate stack,
+        at the prior's seq_len window (the resolution of the priors'
+        training windows): numpy for a host array, on the device for a
+        tensor (one scalar read back, after the current stream's writes
+        of `est`).  None unless prior matching is configured."""
+        if self._bank is None and self.prior_accel_mean is None:
+            return None
+        win = self.cfg.prior.seq_len
+        if isinstance(est, np.ndarray):
+            return motion_accel_stat(est, window=win)
+        return float(motion_accel_stat_torch(est, window=win))
+
+    def _select_priors(self, accel_mean: float | None) -> tuple:
+        """The StageModels pair to solve a batch of statistic
+        `accel_mean` with: the bank's nearest pair, or the held pair
+        (warning once if it was trained on another motion regime).  The
+        held pair also solves a batch staged without a statistic (by an
+        optimizer with no bank), as in the JAX package."""
+        if accel_mean is None:
+            return self._stages
+        if self._bank is not None:
+            i = nearest_index([a for _, a, _ in self._bank], accel_mean)
+            self.last_prior_name, _, stages = self._bank[i]
+            return stages
+        if self.prior_accel_mean and not self._warned_mismatch:
+            r = accel_mean / self.prior_accel_mean
+            if r > self.mismatch_warn_ratio or \
+                    r < 1.0 / self.mismatch_warn_ratio:
+                warnings.warn(
+                    f"prior/input motion-regime mismatch: batch accel "
+                    f"{accel_mean:.2e} vs prior training accel "
+                    f"{self.prior_accel_mean:.2e} ({r:.1f}x) — the prior "
+                    f"was trained on a different motion regime; consider "
+                    f"a matched prior (optimize/prior_bank.py)",
+                    stacklevel=3)
+                self._warned_mismatch = True
+        return self._stages
 
     def _make(self, model: ConvVAE, state: dict, use_bn: bool) -> ConvVAE:
         m = ConvVAE(model.in_channels, model.out_channels,
@@ -240,13 +319,14 @@ class SequenceOptimizer:
             origins, full_hw = None, None
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
+        est = _stack(chunks, "estimated_local")
         return StagedBatch(
-            est=self._put(_stack(chunks, "estimated_local")),
+            est=self._put(est),
             cams=self._put(_stack(chunks, "camera_poses")),
             heat=self._put(heat), gt=self._put(_stack(chunks, "gt_global")),
             n_chunks=len(chunks), crop_coverage=cov,
             origins=None if origins is None else self._put(origins),
-            full_hw=full_hw)
+            full_hw=full_hw, accel_mean=self._accel_stat(est))
 
     def _stage_device(self, chunks: list[TestChunk],
                       coverage: float | None) -> StagedBatch:
@@ -299,12 +379,13 @@ class SequenceOptimizer:
         heat = torch.cat(crops_l)
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
+        est = self._put(_stack(chunks, "estimated_local"))
         return StagedBatch(
-            est=self._put(_stack(chunks, "estimated_local")),
-            cams=self._put(_stack(chunks, "camera_poses")),
+            est=est, cams=self._put(_stack(chunks, "camera_poses")),
             heat=heat, gt=self._put(_stack(chunks, "gt_global")),
             n_chunks=n, crop_coverage=cov,
-            origins=torch.cat(orgs_l) if orgs_l else None, full_hw=full_hw)
+            origins=torch.cat(orgs_l) if orgs_l else None, full_hw=full_hw,
+            accel_mean=self._accel_stat(est))
 
     def _estimate_centers(self, chunk: TestChunk, h: int, w: int):
         """The guard-trip crop centres (F, J, 2) of one chunk, from its
@@ -351,8 +432,9 @@ class SequenceOptimizer:
         cfg = self._cfg_for_coverage(staged.crop_coverage)
         solve = (pipeline.optimize_chunks_flat if mode == "flat"
                  else pipeline.optimize_chunks_batched)
+        stages = self._select_priors(staged.accel_mean)
         with torch.no_grad():
-            return solve(*self._stages, staged.est, staged.cams, staged.heat,
+            return solve(*stages, staged.est, staged.cams, staged.heat,
                          staged.gt, self._camera_dev, cfg,
                          origins=staged.origins, full_hw=staged.full_hw)
 
@@ -366,9 +448,11 @@ class SequenceOptimizer:
         dev = self.device
         f32 = lambda x: torch.as_tensor(  # noqa: E731
             np.asarray(x, dtype=np.float32), device=dev)
+        stages = self._select_priors(self._accel_stat(
+            np.asarray(chunk.estimated_local, dtype=np.float32)))
         with torch.no_grad():
             return pipeline.optimize_chunk(
-                *self._stages, f32(chunk.estimated_local),
+                *stages, f32(chunk.estimated_local),
                 f32(chunk.camera_poses), f32(chunk.heatmaps),
                 f32(chunk.gt_global),
                 self._camera_dev, cfg)

@@ -1,0 +1,169 @@
+"""Joint local+global prior training on one card.
+
+Counterpart of `globalegomocap_tpu/train/train_joint.py`: one loop trains
+both priors of `models/joint_vae.py` with the geometric consistency tie,
+and `branch_variables` hands the two branches' state dicts straight to
+`SequenceOptimizer`.  The JAX trainer's behaviour is kept as it is:
+
+- `kld_weight = kl_weight * batch_size / len(poses)`;
+- the optimizer is `make_optimizer(cfg)` with no step count, so the
+  learning rate is constant even at `lr_schedule="cosine"`;
+- each epoch's order is `np.random.default_rng(seed + 2).permutation`,
+  the last partial batch dropped;
+- each epoch's history entry holds the metrics of its last step, not
+  the epoch's mean;
+- the model computes in float32 whatever `cfg.compute_dtype` says.
+
+The reparameterisation noise of step `step` comes from
+`noise_fn(step, shape, dtype) -> (local, global)`; by default a
+`torch.Generator` on the trainer's device reseeded from (seed + 1, step)
+draws the local branch's and then the global branch's (JAX splits
+`fold_in(PRNGKey(seed + 1), step)` into one key a branch: the same
+structure, not its threefry numbers).  The initial weights come from
+Flax's distributions, branch by branch (`init_flax_like`).  Data
+parallelism (`num_devices` above 1) is not ported (ROADMAP §A item 4).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from globalegomocap_tpu_torch.config import TrainConfig
+from globalegomocap_tpu_torch.device import resolve_device
+from globalegomocap_tpu_torch.models.conv_vae import init_flax_like
+from globalegomocap_tpu_torch.models.joint_vae import (
+    JointLocalGlobalVAE, joint_loss, split_branches)
+from globalegomocap_tpu_torch.train.train_vae import (
+    OptimizerSpec, check_one_device, make_optimizer)
+
+JointNoiseFn = Callable[[int, tuple, torch.dtype], tuple]
+
+
+def default_joint_noise_fn(seed: int, device: torch.device) -> JointNoiseFn:
+    """Standard normal (local, global) noise on `device`, a function of
+    (seed, step): the generator is reseeded each step and draws the local
+    branch's noise, then the global branch's."""
+    gen = torch.Generator(device=device)
+
+    def noise(step: int, shape, dtype: torch.dtype) -> tuple:
+        gen.manual_seed((seed << 32) + step)
+        return tuple(torch.randn(shape, generator=gen, device=device,
+                                 dtype=dtype) for _ in range(2))
+
+    return noise
+
+
+def make_joint_train_step(model: JointLocalGlobalVAE,
+                          optimizer: torch.optim.Optimizer,
+                          spec: OptimizerSpec, kld_weight: float,
+                          noise_fn: JointNoiseFn,
+                          consistency_weight: float = 1.0):
+    """step(poses (B, T, 45), cameras (B, T, 4, 4) on the device, count)
+    -> metrics: one update of both branches with the noise of update
+    `count`.  The metrics ('consistency', 'global_kld', 'global_recon',
+    'local_kld', 'local_recon', 'loss', in that order) are 0-d device
+    tensors; the step reads nothing back."""
+    latent = model.latent_dim
+
+    def step(poses: torch.Tensor, cameras: torch.Tensor, count: int) -> dict:
+        for group in optimizer.param_groups:
+            group["lr"] = spec.lr_at(count)
+        noise = noise_fn(count, (poses.shape[0], latent), model.dtype)
+        out = model(poses, cameras, train=True, noise=noise)
+        total, metrics = joint_loss(out, poses, cameras, kld_weight,
+                                    consistency_weight)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        optimizer.step()
+        metrics = dict(metrics, loss=total)
+        # in sorted order, as JAX's jitted step returns its dict
+        return {k: metrics[k].detach() for k in sorted(metrics)}
+
+    return step
+
+
+class JointTrainer:
+    """Trainer of both priors over (window, camera) pairs.
+
+    poses: (W, T, 45) local windows; cameras: (W, T, 4, 4).  Beyond the
+    JAX trainer's arguments: `device` (the card unless the caller asks for
+    the CPU), `variables` (a joint state dict to start from, in place of
+    the Flax-like initialisation from cfg.seed) and `noise_fn` (see
+    `default_joint_noise_fn`)."""
+
+    def __init__(self, cfg: TrainConfig, poses: np.ndarray,
+                 cameras: np.ndarray,
+                 model: JointLocalGlobalVAE | None = None,
+                 consistency_weight: float = 1.0, device="cuda",
+                 variables: dict | None = None,
+                 noise_fn: JointNoiseFn | None = None):
+        if len(poses) != len(cameras):
+            raise ValueError(f"{len(poses)} pose windows but "
+                             f"{len(cameras)} camera windows")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        check_one_device(cfg.num_devices, self.device)
+        self.poses = poses
+        self.cameras = cameras
+        self.model = model or JointLocalGlobalVAE(
+            latent_dim=cfg.latent_dim, seq_len=cfg.seq_length)
+        if variables is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            init_flax_like(self.model.local_vae, gen)
+            init_flax_like(self.model.global_vae, gen)
+        else:
+            self.model.load_state_dict(variables)
+        self.model.to(self.device)
+        self.opt_spec = make_optimizer(cfg)
+        self.optimizer = self.opt_spec.build(self.model.parameters())
+        self.step = 0
+        kld_weight = cfg.kl_weight * cfg.batch_size / max(1, len(poses))
+        self.noise_fn = noise_fn or default_joint_noise_fn(cfg.seed + 1,
+                                                           self.device)
+        self._step = make_joint_train_step(self.model, self.optimizer,
+                                           self.opt_spec, kld_weight,
+                                           self.noise_fn, consistency_weight)
+
+    def _device_batch(self, x: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def train_step(self, poses: torch.Tensor, cameras: torch.Tensor) -> dict:
+        """One update on a device batch; the step count moves on."""
+        metrics = self._step(poses, cameras, self.step)
+        self.step += 1
+        return metrics
+
+    def train(self, log_fn=print) -> list[dict]:
+        """cfg.epochs epochs; returns the history, one entry an epoch with
+        its last step's metrics (as floats)."""
+        cfg = self.cfg
+        np_rng = np.random.default_rng(cfg.seed + 2)
+        n = len(self.poses)
+        history = []
+        for epoch in range(cfg.epochs):
+            order = np_rng.permutation(n)
+            end = n - n % cfg.batch_size
+            metrics = None
+            for i in range(0, end, cfg.batch_size):
+                sel = order[i:i + cfg.batch_size]
+                metrics = self.train_step(self._device_batch(self.poses[sel]),
+                                          self._device_batch(
+                                              self.cameras[sel]))
+            if metrics is None:
+                raise ValueError(
+                    f"epoch {epoch} ran no step: batch_size "
+                    f"({cfg.batch_size}) exceeds the {n} windows")
+            history.append({k: float(v) for k, v in metrics.items()})
+            log_fn(f"epoch {epoch}: " + " ".join(
+                f"{k}={v:.5f}" for k, v in history[-1].items()))
+        return history
+
+    def branch_variables(self) -> tuple:
+        """(local state dict, global state dict) for the optimizer."""
+        return split_branches(self.model, self.model.state_dict())

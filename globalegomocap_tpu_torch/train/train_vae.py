@@ -31,7 +31,7 @@ PyTorch on one device:
   `load_checkpoint`) with the same `.json` sidecar.
 
 Data parallelism (`num_devices`) and Orbax checkpoints are not ported
-yet (ROADMAP §A items 4 and 2).
+yet (ROADMAP §A items 4 and 3a).
 """
 
 from __future__ import annotations
@@ -116,6 +116,18 @@ def make_optimizer(cfg: TrainConfig, total_steps: int = 0) -> OptimizerSpec:
             0.0 if warm else cfg.learning_rate, cfg.learning_rate, warm,
             total_steps, cfg.lr_final)
     return OptimizerSpec(cfg.learning_rate, cfg.weight_decay, schedule)
+
+
+def check_one_device(num_devices: int, device: torch.device) -> None:
+    """NotImplementedError where `num_devices` asks for data parallelism:
+    above 1, or 0 (all) with more than one card visible."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if num_devices > 1 or (num_devices == 0 and cards > 1):
+        raise NotImplementedError(
+            "not yet ported to the PyTorch package: data-parallel training "
+            f"over more than one device (--num_devices {num_devices}, "
+            f"{cards} visible; ROADMAP §A item 4); pass --num_devices 1 or "
+            "make one card visible")
 
 
 def default_noise_fn(seed: int, device: torch.device) -> NoiseFn:
@@ -378,4 +390,4 @@ class Trainer:
 def _raise_orbax():
     raise NotImplementedError(
         "Orbax checkpoints are not ported to the PyTorch trainer yet "
-        "(ROADMAP §A item 2); use --checkpoint_format msgpack")
+        "(ROADMAP §A item 3a); use --checkpoint_format msgpack")

@@ -4,7 +4,8 @@ counter, the autograd backward and the wrapper's argument checks; and
 the streamed serve on the card: a sync-free warm dispatch, device
 staging, the prefetcher's stream hand-off and chip_smoke's phase 3h at a
 small size; chip_smoke's phase 3i (evaluate_all) at a small size and the
-device trace.
+device trace; prior-bank selection through device staging and one joint
+train step against the CPU's.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -17,6 +18,7 @@ This file imports nothing of JAX."""
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -516,3 +518,109 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
                                        msg=lambda m, name=name: f"{name}: {m}")
     assert all(p.dtype == torch.float32 and p.is_cuda
                for p in card.model.parameters())
+
+
+def test_bank_selection_through_device_staging_on_the_card(gen):
+    """A bank of two random pairs behind serve's configuration on the
+    card: device staging measures each batch where it lies (one scalar
+    read back), within 1e-5 of the numpy statistic of the same chunks;
+    the smooth chunk gets 'smooth', the jerky one 'jerky', each solved to
+    finite poses."""
+    from globalegomocap_tpu_torch.data.synthetic import (
+        synthetic_chunk, synthetic_motion)
+    from globalegomocap_tpu_torch.models.conv_vae import init_random
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.optimize.prior_bank import (
+        PriorBank, motion_accel_stat)
+    cfg = _small_optimizer()[0].cfg
+    pairs = [init_random(build_model(cfg), torch.Generator().manual_seed(s))
+             .state_dict() for s in (1, 2)]
+    stats = [motion_accel_stat(synthetic_motion(100, seed=0, **kw),
+                               window=10)
+             for kw in ({}, chip_smoke.JERKY)]
+    bank = PriorBank().add("smooth", pairs[0], pairs[0], stats[0]).add(
+        "jerky", pairs[1], pairs[1], stats[1])
+    opt = SequenceOptimizer(build_model(cfg), pairs[0], pairs[0], cfg,
+                            device="cuda", prior_bank=bank)
+    for name, kw in (("smooth", {}), ("jerky", chip_smoke.JERKY)):
+        chunks = [synthetic_chunk(26, seed=s, **kw) for s in (1, 2)]
+        staged = opt.stage(chunks, on_host=False)
+        assert staged.est.is_cuda
+        want = motion_accel_stat(np.stack([c.estimated_local
+                                           for c in chunks]), window=10)
+        assert staged.accel_mean == pytest.approx(want, rel=1e-5)
+        res = opt.optimize_chunks_batched(staged, mode="flat")
+        assert opt.last_prior_name == name
+        assert torch.isfinite(res.optimized).all()
+
+
+def test_joint_train_step_on_the_card_matches_the_cpu(gen):
+    """One joint train step of the tiny joint prior on the card against
+    the same step on the CPU, from the same state (the Flax-like init of
+    the same seed) and noise: the six metrics (1e-5 relative; a KLD
+    within 1e-6 absolute, a sum of O(1) differences near 0), every
+    gradient and Adam's first moment within 1e-2 of the CPU's in relative
+    L2 norm, the second moment (a square) within 2e-2, the running
+    statistics (1e-5, as test_train_step_on_the_card_matches_the_cpu) and
+    the parameters within 2.5 lr.  Not elementwise: the two float32
+    forwards differ by a few 1e-6, so a leaky-ReLU input that close to 0
+    can take the other slope (0.01 for 1) on one side.  One such input
+    (|z| = 2.6e-6 in float64, the first decoder block) moved the card's
+    local-branch gradients by up to 2.7e-3 of a tensor's largest
+    magnitude and 1.7e-3 in L2 norm, where the CPU's stayed within 1.5e-5
+    of float64 (NVIDIA H100 80GB HBM3).  A wrong gradient path moves
+    them by far more: with the lift detached, 38 of the 76 held tensors
+    by over 1e-2 and the worst by 119 % (on the CPU)."""
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.hdf5 import (
+        sequence_windows_with_cameras)
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+    from globalegomocap_tpu_torch.models.joint_vae import JointLocalGlobalVAE
+    from globalegomocap_tpu_torch.train.train_joint import JointTrainer
+    parts = [sequence_windows_with_cameras(s, 10, 25, True)
+             for s in synthetic_amass(2, 70, seed=3)]
+    poses = np.concatenate([p[1] for p in parts]).reshape(-1, 10, 45)
+    cams = np.concatenate([p[2] for p in parts])
+    noise = torch.randn(2, 32, 32, generator=torch.Generator().manual_seed(1))
+    cfg = TrainConfig(latent_dim=32, batch_size=32, learning_rate=2e-3,
+                      kl_weight=0.05)
+
+    def trainer(device):
+        model = JointLocalGlobalVAE(latent_dim=32, seq_len=10,
+                                    hidden_dims=(8, 8, 16, 16, 32))
+        return JointTrainer(cfg, poses, cams, model, device=device,
+                            noise_fn=lambda step, shape, dtype: tuple(
+                                n.to(device, dtype) for n in noise))
+    cpu, card = trainer("cpu"), trainer("cuda")
+    p, c = torch.from_numpy(poses[:32]), torch.from_numpy(cams[:32])
+    m_cpu = cpu.train_step(p, c)
+    m_card = card.train_step(p.cuda(), c.cuda())
+    assert list(m_card) == list(m_cpu)
+    for k in m_cpu:
+        assert float(m_card[k]) == pytest.approx(
+            float(m_cpu[k]), rel=1e-5, abs=1e-6 if "kld" in k else 0), k
+    on_card = dict(card.model.named_parameters())
+    held = 0
+    for name, p in cpu.model.named_parameters():
+        if float(p.grad.norm()) < 1e-6:
+            continue    # a conv bias before BN: 0 but for rounding
+        held += 1
+        q = on_card[name]
+        for what, want, got, tol in (
+                ("grad", p.grad, q.grad, 1e-2),
+                ("exp_avg", cpu.optimizer.state[p]["exp_avg"],
+                 card.optimizer.state[q]["exp_avg"], 1e-2),
+                ("exp_avg_sq", cpu.optimizer.state[p]["exp_avg_sq"],
+                 card.optimizer.state[q]["exp_avg_sq"], 2e-2)):
+            err = float((got.cpu() - want).norm() / want.norm())
+            assert err <= tol, (name, what, err)
+    assert held == 76, held     # of 96: the 20 conv biases before BN out
+    a, b = cpu.model.state_dict(), card.model.state_dict()
+    for name, _ in cpu.model.named_parameters():
+        gap = float((b[name].cpu() - a[name]).abs().max())
+        assert gap <= 2.5 * 2e-3, (name, gap)
+    for name in a:
+        if "running" in name:
+            torch.testing.assert_close(b[name].cpu(), a[name], rtol=1e-5,
+                                       atol=1e-5)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
-`globalegomocap_tpu_torch` loads neither `jax`, `flax`, `optax`, `msgpack`
-nor anything of the JAX package, and its entry points run on the card unless
+`globalegomocap_tpu_torch` loads neither `jax`, `flax`, `optax`, `msgpack`,
+`h5py` (imported only where an HDF5 file is opened) nor anything of the
+JAX package, and its entry points run on the card unless
 told otherwise."""
 
 import json
@@ -28,7 +29,7 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (  # noqa: F401
 from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
     crop_peak_native)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "optax", "msgpack",
+       if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "h5py",
                               "globalegomocap_tpu")]
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -50,7 +51,8 @@ def test_port_imports_no_jax():
                 "utils.profiling", "models.dense_decoder",
                 "cli.evaluate_all", "models.checkpoint", "tools.ply",
                 "cli.train", "train.train_vae", "data.amass",
-                "optimize.prior_bank"):
+                "optimize.prior_bank", "models.joint_vae",
+                "train.train_joint", "data.hdf5", "data.mo2cap2"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 

@@ -27,7 +27,7 @@ import numpy as np
 import optax
 import pytest
 
-from tests.torch_port_helpers import jax_variables
+from tests.torch_port_helpers import hold, jax_variables
 import torch
 from globalegomocap_tpu.config import TrainConfig as JCfg
 from globalegomocap_tpu.data.amass import AmassWindows as JWindows
@@ -66,24 +66,6 @@ def jax_noise(seed: int):
         return torch.from_numpy(np.asarray(z.astype(jnp.float32))).to(dtype)
 
     return noise
-
-
-def hold(got, w32, w64, rtol, atol, name=""):
-    """`got` against JAX's float32 result `w32` and its exact (float64)
-    result `w64`: no further from w64 than w32 is (or than atol + rtol
-    times the tensor's largest magnitude, where JAX's run is closer than
-    that), and so within rtol of w32 plus twice the float32 error of
-    JAX's own run.
-    JAX's float32 train-mode runs carry the error of their batch
-    statistics' float32 reductions (up to 1.4e-4 on a reconstruction
-    here, where eval mode agrees with float64 to 3e-7)."""
-    got, w32, w64 = (np.asarray(x, np.float64) for x in (got, w32, w64))
-    jax_err = float(np.max(np.abs(w32 - w64)))
-    port_err = float(np.max(np.abs(got - w64)))
-    floor = atol + rtol * float(np.max(np.abs(w64)))
-    assert port_err <= max(jax_err, floor), (name, port_err, jax_err)
-    np.testing.assert_allclose(got, w32, rtol=rtol, atol=atol + 2 * jax_err,
-                               err_msg=name)
 
 
 @pytest.fixture(scope="module")
@@ -490,7 +472,7 @@ def test_port_checkpoint_of_another_optimizer_is_refused(data, tmp_path):
     other = port_trainer(data, jt, epochs=1, **OPTIMIZERS["adamw"])
     with pytest.raises(ValueError, match="opt_state"):
         other.load_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3a"):
         other.load_checkpoint(str(tmp_path))
 
 

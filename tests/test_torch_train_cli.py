@@ -65,13 +65,16 @@ def test_parser_has_the_jax_flags_and_defaults():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--hdf5", "true"], "item 2"),
-    (["--hdf5_stream", "true"], "item 2"),
-    (["--checkpoint_format", "orbax"], "item 2"),
+    (["--hdf5", "true", "--checkpoint_format", "orbax"], "item 3a"),
+    (["--hdf5_stream", "true", "--checkpoint_format", "orbax"], "item 3a"),
+    (["--checkpoint_format", "orbax"], "item 3a"),
     (["--num_devices", "2"], "item 4")],
     ids=["hdf5", "hdf5_stream", "orbax", "num_devices"])
 def test_unported_options_raise(amass_dir, tmp_path, monkeypatch, flag,
                                 item):
+    """Orbax checkpoints (with any data source) and data parallelism are
+    refused before any data is read or any file written.  (--hdf5 and
+    --hdf5_stream themselves run: tests/test_torch_hdf5.py.)"""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         tcli.main(["--train_data_path", amass_dir, "--device", "cpu"]
