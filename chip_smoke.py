@@ -156,6 +156,25 @@ Phases (any failure exits non-zero and prints no result line):
               through device staging (the statistic measured on the card,
               within 1e-4 of the host's); the train CLI at --hdf5_stream
               where h5py is installed, else one line saying it is not.
+3l. preprocessing ETL and prior introspection - raw inputs written
+              from --seed (1,100 frames of 64x64x15 heatmap and depth .mat
+              pairs, an OpenVSLAM trajectory of 1,200 frames whose
+              translations are divided by a planted scale of 2.5, GT for
+              frames 100-1,099): the port's `cli/preprocess.py` on the
+              card with --start 100 --end 1200 --chunk 100
+              --mat_start_frame 100 (10 chunks; ms a chunk split into
+              loadmat, the lift and the SLAM fit; each chunk's recovered
+              scale within a bar of 2.5) and at --device cpu on the same
+              files (argmax equal where the peak is unique, pose fields
+              within 1e-4 m, camera matrices within 1e-5); the serve CLI
+              at its defaults with phase 3j's trained priors on the 10
+              chunks (the 17 metrics finite, kernels 1 and 2 launched as
+              phase 3h counts a request, the initial and optimized MPJPE
+              printed); the port's `cli/introspect.py` on 3j's local
+              prior: sample --num 10, interpolate --i 0 --j 5 --steps 4
+              on 3j's 2,900 test windows (the endpoints within 1e-5 of
+              the prior's reconstructions) and latent-stats (within 1e-4
+              relative of a --device cpu run), cuDNN deterministic.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -3404,6 +3423,342 @@ def joint_bank_phase(torch, seed, dev, fails, card, work,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the preprocessing ETL and prior introspection
+# ---------------------------------------------------------------------------
+
+# raw frames 0-1,099 (heatmap and depth .mat pairs), a trajectory of frames
+# 0-1,199 at 25 fps, GT for frames 100-1,099; preprocess --start 100 --end
+# 1200 --chunk 100 --mat_start_frame 100 makes chunks 100..200 to
+# 1000..1100 (the reference's range(start, end - chunk, chunk) leaves the
+# last whole chunk out): the reference README's capture (--start 551
+# --end 3300, 27 chunks) cut to 10 chunks for the script's time
+RAW_3L = dict(n_mat=1100, n_traj=1200, start=100, end=1200, chunk=100)
+PLANTED_SCALE = 2.5
+# the bar on each chunk's recovered scale.  The Umeyama fit matches the
+# SLAM-implied head trajectory to the GT heads; the head's offset from
+# the camera (about 0.3 m, turned with the camera) is not scaled by the
+# planted factor, so the fit is biased.  On this data (--seed 0, the
+# ETL on the CPU) the ten chunks recovered 2.6942-2.7628, at most 0.2628
+# from 2.5: the bar is that with a margin of about 0.05.
+SCALE_BAR_3L = 0.32
+
+
+def write_raw_capture(root, n_mat, n_traj, start, end, chunk, seed,
+                      scale=PLANTED_SCALE, fps=25.0):
+    """The preprocessing ETL's raw inputs under `root`, from
+    `data/synthetic.py` (a local motion, its camera trajectory, Gaussian
+    heatmaps at the true projections): heatmaps/img-<i>.mat (64x64x15
+    float32 under 'heatmap') and depths/img-<i>.mat ((1, 15) float32
+    under 'depth', the joints' true distances) for frames 0..n_mat-1,
+    names that need natural sorting; frame_trajectory.txt, OpenVSLAM's
+    'timestamp tx ty tz qx qy qz qw' for frames 0..n_traj-1 at `fps`,
+    the translations divided by `scale`; gt.pkl, the true poses of the
+    chunks range(start, end - chunk, chunk), each chunk's frames in its
+    first camera's frame (the frame the SLAM reader re-bases a chunk
+    to).  Returns the CLI's --slam, --heatmap_dir, --depth_dir and --gt
+    arguments as a dict."""
+    import pickle
+
+    import numpy as np
+    from scipy.io import savemat
+    from scipy.spatial.transform import Rotation
+    from globalegomocap_tpu_torch.data.synthetic import (
+        render_heatmaps, synthetic_camera_trajectory, synthetic_motion)
+    local = synthetic_motion(n_traj, seed)
+    cams = synthetic_camera_trajectory(n_traj, seed)
+    paths = {"slam": os.path.join(root, "frame_trajectory.txt"),
+             "heatmap_dir": os.path.join(root, "heatmaps"),
+             "depth_dir": os.path.join(root, "depths"),
+             "gt": os.path.join(root, "gt.pkl")}
+    os.makedirs(paths["heatmap_dir"])
+    os.makedirs(paths["depth_dir"])
+    depth = np.linalg.norm(local, axis=-1).astype(np.float32)
+    for b in range(0, n_mat, 100):
+        maps = render_heatmaps(local[b:min(b + 100, n_mat)])
+        for i, m in enumerate(maps, b):
+            savemat(os.path.join(paths["heatmap_dir"], f"img-{i}.mat"),
+                    {"heatmap": m})
+            savemat(os.path.join(paths["depth_dir"], f"img-{i}.mat"),
+                    {"depth": depth[i][None]})
+    quat = Rotation.from_matrix(cams[:, :3, :3]).as_quat()
+    with open(paths["slam"], "w") as f:
+        for i in range(n_traj):
+            f.write(" ".join(map(str, [i / fps, *(cams[i, :3, 3] / scale),
+                                       *quat[i]])) + "\n")
+    homo = np.concatenate([local, np.ones(local.shape[:2] + (1,))], axis=2)
+    gt = []
+    for s in range(start, end - chunk, chunk):
+        rel = np.linalg.inv(cams[s])[None] @ cams[s:s + chunk]
+        gt.append(np.einsum("nij,nkj->nki", rel, homo[s:s + chunk])[..., :3])
+    with open(paths["gt"], "wb") as f:
+        pickle.dump(np.concatenate(gt).astype(np.float32), f)
+    return paths
+
+
+class EtlRecorder:
+    """Inside `with`: the ETL's stages timed per call (`loadmat` on the
+    host; the lift, synchronised; the SLAM fit), each recovered scale and
+    each argmax (coordinates, and whether each map's peak is unique),
+    by wrapping the module functions `process_test_data` calls."""
+
+    def __init__(self, sync):
+        from globalegomocap_tpu_torch.tools import process_test_data as ptd
+        from globalegomocap_tpu_torch.tools import slam_reader as sr
+        self.sync, self.ptd, self.sr = sync, ptd, sr
+        self.ms = {"loadmat": [], "lift": [], "slam fit": []}
+        self.scales, self.coords, self.unique = [], [], []
+
+    def _timed(self, key, fn, sync=False):
+        def wrapped(*args, **kw):
+            if sync:
+                self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                self.sync()
+            self.ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        ptd, sr = self.ptd, self.sr
+        self.saved = [(ptd, n, getattr(ptd, n)) for n in (
+            "load_mat_frames", "lift_heatmaps_to_pose",
+            "read_trajectory_with_scale", "heatmap_argmax")] + [
+            (sr, "recover_metric_scale", sr.recover_metric_scale)]
+        argmax, scale = ptd.heatmap_argmax, sr.recover_metric_scale
+
+        def recorded_argmax(hm):
+            coords, maxvals = argmax(hm)
+            flat = hm.reshape(*hm.shape[:-2], -1)
+            self.coords.append(coords.cpu())
+            self.unique.append(((flat == maxvals[..., None]).sum(-1) == 1)
+                               .cpu())
+            return coords, maxvals
+
+        def recorded_scale(*args):
+            out = scale(*args)
+            self.scales.append(float(out[0]))
+            return out
+        ptd.load_mat_frames = self._timed("loadmat", ptd.load_mat_frames)
+        ptd.lift_heatmaps_to_pose = self._timed(
+            "lift", ptd.lift_heatmaps_to_pose, sync=True)
+        ptd.read_trajectory_with_scale = self._timed(
+            "slam fit", ptd.read_trajectory_with_scale)
+        ptd.heatmap_argmax = recorded_argmax
+        sr.recover_metric_scale = recorded_scale
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def chunks_agree(a_dirs, b_dirs):
+    """The worst |a - b| of the pose fields (estimated local and global,
+    GT) and of the camera matrices over paired chunk directories, and
+    whether the heatmaps are equal."""
+    import numpy as np
+    from globalegomocap_tpu_torch.data.test_data import load_test_chunk
+    pose = cam = 0.0
+    maps = True
+    for a, b in zip(a_dirs, b_dirs):
+        ca, cb = load_test_chunk(a), load_test_chunk(b)
+        for f in ("estimated_local", "estimated_global", "gt_global"):
+            pose = max(pose, float(np.abs(getattr(ca, f)
+                                          - getattr(cb, f)).max()))
+        cam = max(cam, float(np.abs(ca.camera_poses
+                                    - cb.camera_poses).max()))
+        maps = maps and np.array_equal(ca.heatmaps, cb.heatmaps)
+    return pose, cam, maps
+
+
+def preprocess_introspect_phase(torch, seed, dev, fails, card, work,
+                                raw=RAW_3L, latent=LATENT):
+    """Phase 3l: raw inputs written from `seed` (`write_raw_capture`);
+    the port's `cli/preprocess.py` on `dev` (ms a chunk split into
+    loadmat, the lift and the SLAM fit; each chunk's recovered scale
+    within SCALE_BAR_3L of the planted one) and at --device cpu on the
+    same files (argmax coordinates equal where the peak is unique, pose
+    fields within 1e-4 m, camera matrices within 1e-5); the serve CLI at
+    its defaults with phase 3j's trained priors on the written chunks
+    (the 17 metrics finite, kernels 1 and 2 launched as phase 3h counts
+    a request; returned); the port's `cli/introspect.py` with 3j's local
+    prior: `sample`, `interpolate` on 3j's test windows (the endpoints
+    against the prior's reconstructions, 1e-5) and `latent-stats`
+    (within 1e-4 relative of a --device cpu run), cuDNN deterministic.
+    Needs phase 3j's checkpoints and corpus under work[0]; `raw` and
+    `latent` are cut only in a rehearsal on the CPU."""
+    import pickle
+
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import introspect, preprocess, serve
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.data.test_data import list_chunk_dirs
+    from globalegomocap_tpu_torch.evaluation import metrics
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    base = os.path.join(work[0], "etl")
+    trained = os.path.join(work[0], "train", "logs", "{}", "checkpoints",
+                           "2.msgpack")
+
+    # 1. the raw inputs
+    t0 = time.perf_counter()
+    paths = write_raw_capture(os.path.join(base, "raw"), raw["n_mat"],
+                              raw["n_traj"], raw["start"], raw["end"],
+                              raw["chunk"], seed + 31)
+    mb = sum(os.path.getsize(os.path.join(paths["heatmap_dir"], n))
+             for n in os.listdir(paths["heatmap_dir"])) / 1e6
+    print(f"  wrote {raw['n_mat']} .mat pairs ({mb:.1f} MB of heatmaps), a "
+          f"trajectory of {raw['n_traj']} frames (translations / "
+          f"{PLANTED_SCALE}) and GT in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    starts = list(range(raw["start"], raw["end"] - raw["chunk"],
+                        raw["chunk"]))
+    names = [f"data_start_{s}_end_{s + raw['chunk']}" for s in starts]
+    argv = [f"--{k}={v}" for k, v in paths.items()] + [
+        "--start", str(raw["start"]), "--end", str(raw["end"]), "--chunk",
+        str(raw["chunk"]), "--mat_start_frame", str(raw["start"])]
+
+    # 2. and 3. the ETL on the device, then on the CPU
+    runs = {}
+    for name, where, out in (("device", dev, "serve/capture"),
+                             ("cpu", "cpu", "cpu/capture")):
+        out = os.path.join(base, out)
+        with EtlRecorder(sync if where == dev else (lambda: None)) as rec:
+            written, printed, wall = run_cli(
+                preprocess.main, argv + ["--out", out, "--device", where])
+        runs[name] = (rec, out, written, printed)
+        lines = [ln for ln in printed.splitlines() if ln.startswith("chunk")]
+        fails.check([os.path.basename(os.path.dirname(p)) for p in written]
+                    == names and len(lines) == len(names),
+                    f"preprocess on {where}: {len(written)} chunk "
+                    f"directories, {names[0]} .. {names[-1]} expected, "
+                    f"{len(lines)} 'chunk s..e: initial mpjpe' lines")
+        print(f"  preprocess on {where}: {wall:.2f} s; ms a chunk: "
+              + ", ".join(f"{k} {np.mean(v):.1f} ({min(v):.1f}-"
+                          f"{max(v):.1f})" for k, v in rec.ms.items())
+              + (f" [{card}]" if where == "cuda" else ""), flush=True)
+    rec = runs["device"][0]
+    print("  recovered scales (planted " + str(PLANTED_SCALE) + "): "
+          + ", ".join(f"{c:.4f}" for c in rec.scales) + "; "
+          + runs["device"][3].splitlines()[0], flush=True)
+    fails.check(len(rec.scales) == len(names) and all(
+        abs(c - PLANTED_SCALE) <= SCALE_BAR_3L for c in rec.scales),
+        f"each recovered scale within {SCALE_BAR_3L} of {PLANTED_SCALE}: "
+        f"{rec.scales}")
+    crec = runs["cpu"][0]
+    same = unique = 0
+    for a, b, ua, ub in zip(rec.coords, crec.coords, rec.unique,
+                            crec.unique):
+        u = ua & ub
+        unique += int(u.sum())
+        same += int((a == b).all(-1)[u].sum())
+    pose, cam, maps = chunks_agree(list_chunk_dirs(runs["device"][1]),
+                                   list_chunk_dirs(runs["cpu"][1]))
+    fails.check(same == unique and unique > 0 and pose <= 1e-4
+                and cam <= 1e-5 and maps,
+                f"preprocess {dev} against cpu: argmax equal at {same} of "
+                f"{unique} unique peaks, pose fields {pose:.3e} m (1e-4), "
+                f"camera matrices {cam:.3e} (1e-5), heatmaps equal {maps}")
+
+    # 4. serve at its defaults on the written chunks, 3j's trained priors
+    seen = []
+    calc = metrics.calculate_errors
+
+    def recorded(*args):
+        seen.append(calc(*args))
+        return seen[-1]
+    sargv = ["--data_root", os.path.join(base, "serve"),
+             "--local_ckpt", trained.format("local"), "--global_ckpt",
+             trained.format("global"), "--latent_dim", str(latent)] + (
+        [] if cuda else ["--device", "cpu"])
+    cfg = serve.config_from_args(serve.build_parser().parse_args(sargv))
+    metrics.calculate_errors = recorded
+    try:
+        cb.reset_launches()
+        recs, wall = run_serve(serve, sargv)
+        launches = dict(cb.LAUNCHES)
+    finally:
+        metrics.calculate_errors = calc
+    expect = {"fused_stage_energy": 1 + cfg.solver.max_iter,
+              "fused_stage_energy_noreproj": 1 + cfg.solver.global_max_iter}
+    wins = len(names) * num_windows(raw["chunk"])
+    keys = [k for k in metrics.METRIC_KEYS if k != "joints_error"]
+    fails.check(len(recs) == 1 and recs[0].get("windows") == wins
+                and len(seen) == 1 and len(keys) == 17 and all(
+                    bool(torch.isfinite(torch.as_tensor(seen[0][k])).all())
+                    for k in keys),
+                f"serve on the preprocessed chunks: one record of {wins} "
+                f"windows, the 17 metrics finite ({recs})")
+    fails.check(all(launches.get(k) == v for k, v in expect.items()),
+                f"serve on the preprocessed chunks: kernel 1 and 2 launches "
+                f"{launches} ({expect} expected)")
+    rec0 = recs[0] if recs else {}
+    print(f"  serve on the preprocessed chunks ({cfg.compute_dtype}, 3j's "
+          f"trained priors): {wall:.2f} s; global MPJPE initial "
+          f"{rec0.get('original_global_mpjpe')}, optimized "
+          f"{rec0.get('optimized_global_mpjpe')} (a record, not a gate)",
+          flush=True)
+
+    # 5. introspection of 3j's local prior
+    test = AmassWindows.from_dir(os.path.join(work[0], "train", "amass"),
+                                 is_train=False, local_pose=True).windows
+    data = os.path.join(base, "test_windows.pkl")
+    with open(data, "wb") as f:
+        pickle.dump(test, f)
+    common = ["--ckpt", trained.format("local"), "--latent_dim",
+              str(latent)]
+    ms = {}
+    out = os.path.join(base, "sample")
+    _, printed, ms["sample"] = run_cli(introspect.main, [
+        "sample"] + common + ["--out", out, "--num", "10", "--device", dev])
+    dirs = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    fails.check(dirs == sorted(f"sample_{i}" for i in range(10)) and all(
+        len(os.listdir(os.path.join(out, d))) == 10 for d in dirs)
+        and printed.strip() == f"wrote 10 sampled motions to {out}",
+        f"introspect sample --num 10: {len(dirs)} directories of 10 PLY "
+        f"files ({printed.strip()!r})")
+    out = os.path.join(base, "interp")
+    with cudnn_deterministic(torch):
+        motions, printed, ms["interpolate"] = run_cli(introspect.main, [
+            "interpolate"] + common + ["--data", data, "--i", "0", "--j",
+                                       "5", "--steps", "4", "--out", out,
+                                       "--device", dev])
+        model = introspect.load_prior(trained.format("local"), latent, 10,
+                                      torch.device(dev))
+        with torch.no_grad():
+            w = torch.as_tensor(test[[0, 5]], device=dev)
+            recon = model.decode(model.encode(w)[0]).reshape(
+                2, 10, 15, 3).cpu().numpy()
+    err = float(np.abs(motions[[0, -1]] - recon).max())
+    fails.check(sorted(os.listdir(out)) == [str(k) for k in range(6)]
+                and err <= 1e-5 and printed.strip()
+                == f"wrote 6 interpolated motions to {out}",
+                f"introspect interpolate --i 0 --j 5 --steps 4 on "
+                f"{len(test)} windows: 6 directories, endpoints {err:.3e} "
+                f"from the reconstructions of windows 0 and 5 (1e-5)")
+    stats = {}
+    for where in (dev, "cpu"):
+        with cudnn_deterministic(torch):
+            stats[where], printed, ms[f"latent-stats {where}"] = run_cli(
+                introspect.main, ["latent-stats"] + common + [
+                    "--data", data, "--device", where])
+        print("  latent-stats on " + where + ": " + " / ".join(
+            printed.strip().splitlines()), flush=True)
+    worst = worst_relative(stats[dev], stats["cpu"],
+                           ("mean_mu_sq_norm", "mean_std_dist"))
+    fails.check(worst <= 1e-4, f"latent-stats on {dev} against cpu: "
+                f"{worst:.3e} relative (1e-4)")
+    print("  introspect ms: " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                          for k, v in ms.items())
+          + f" [{card}]", flush=True)
+    return {k: launches.get(k, 0) for k in expect}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3546,6 +3901,15 @@ def main(argv=None) -> int:
                                         profile=args.profile).items():
             launches[name] += n
         phase_done("joint and bank", t0)
+        # ---- 3l. the preprocessing ETL and prior introspection -----------
+        print("[3l] the preprocessing ETL and prior introspection "
+              "(preprocess on the card and the CPU, serve on its chunks, "
+              "introspect on 3j's local prior)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in preprocess_introspect_phase(
+                torch, args.seed, "cuda", fails, card, work).items():
+            launches[name] += n
+        phase_done("preprocess and introspect", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -61,13 +61,16 @@ def save_test_chunk(chunk: TestChunk, out_dir: str) -> str:
     return out_path
 
 
+def natural_key(s: str) -> list:
+    """Sort key that orders the digit runs of a name by value
+    ('img-2' before 'img-10')."""
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+
+
 def list_chunk_dirs(data_dir: str) -> list[str]:
     """Naturally sorted chunk subdirectories holding a test_data.pkl."""
-    def natkey(s: str):
-        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
-
     out = []
-    for name in sorted(os.listdir(data_dir), key=natkey):
+    for name in sorted(os.listdir(data_dir), key=natural_key):
         p = os.path.join(data_dir, name)
         if os.path.isdir(p) and os.path.exists(
                 os.path.join(p, "test_data.pkl")):

@@ -1,9 +1,16 @@
 """Calibrated omnidirectional (Scaramuzza-style) fisheye camera.
 
 Counterpart of `globalegomocap_tpu/ops/fisheye.py`: the W2C projection
-with the reference's z-flip convention, the two built-in calibration
-tables (published constants of the two egocentric rigs) and calibration
-JSON files (`load_calibration`).
+and the C2W unprojection with the reference's z-flip convention
+(`world2camera`, `camera2world`, `undistort`), the analytic equisolid
+model, the two built-in calibration tables (published constants of the
+two egocentric rigs) and calibration JSON files (`load_calibration`).
+Parameters live on one device: move them with `.to(device)` once, next
+to the points they serve.  Everything runs in float32, in the JAX
+package's order of operations (Horner's rule from the highest
+coefficient), so that a lifted pose agrees with JAX's to float32
+rounding: the C2W polynomial's terms reach about 400 at the rim and
+cancel down to about 200.
 """
 
 from __future__ import annotations
@@ -66,6 +73,20 @@ def _polyval_ascending(coeffs: torch.Tensor, x: torch.Tensor):
     return out
 
 
+def camera2world(params: FisheyeParams, points2d: torch.Tensor,
+                 depth: torch.Tensor) -> torch.Tensor:
+    """Unproject pixels (..., 2) at per-point depth (...,) to camera-space
+    points (..., 3): z from the C2W polynomial of the radial pixel
+    distance, the ray [x, y, -z] normalised and scaled by depth."""
+    centered = points2d - params.center
+    x = centered[..., 0]
+    y = centered[..., 1]
+    z = _polyval_ascending(params.poly_c2w, torch.sqrt(x * x + y * y))
+    ray = torch.stack([x, y, -z], dim=-1)
+    norm = torch.sqrt((ray * ray).sum(-1, keepdim=True))
+    return ray / norm * depth[..., None]
+
+
 def world2camera(params: FisheyeParams, points3d: torch.Tensor):
     """Project camera-space points (..., 3) to fisheye pixels (..., 2):
     theta = atan(-z / ||xy||), rho = poly_w2c(theta), scale the unit xy
@@ -86,6 +107,67 @@ def world2camera(params: FisheyeParams, points3d: torch.Tensor):
     return torch.stack([torch.where(axis, zero, x * inv) + params.center[0],
                         torch.where(axis, zero, y * inv) + params.center[1]],
                        dim=-1)
+
+
+def world2camera_with_depth(params: FisheyeParams, points3d: torch.Tensor):
+    """Project and also return the ray length as depth: ((..., 2),
+    (...,))."""
+    return world2camera(params, points3d), \
+        torch.sqrt((points3d * points3d).sum(-1))
+
+
+def undistort(params: FisheyeParams, points2d: torch.Tensor,
+              focal: float = 500.0) -> torch.Tensor:
+    """Fisheye pixels (..., 2) to an ideal pinhole image: a unit-depth
+    unprojection, then a pinhole projection at `focal` about the
+    calibration's centre."""
+    p3d = camera2world(params, points2d, torch.ones_like(points2d[..., 0]))
+    x = p3d[..., 0] / p3d[..., 2]
+    y = p3d[..., 1] / p3d[..., 2]
+    return torch.stack([focal * x + params.center[0],
+                        focal * y + params.center[1]], dim=-1)
+
+
+@dataclass(frozen=True)
+class EquisolidParams:
+    """Analytic equisolid fisheye, r = 2 f sin(theta / 2), as float32
+    tensors."""
+    focal_px: torch.Tensor    # () focal length in pixels
+    center: torch.Tensor      # (2,) (cx, cy)
+    max_radius: torch.Tensor  # () f sqrt(2), the r of theta = 90 degrees
+
+    def to(self, device) -> "EquisolidParams":
+        return EquisolidParams(*(t.to(device) for t in (
+            self.focal_px, self.center, self.max_radius)))
+
+
+def equisolid(focal_length_mm: float = 9.0, sensor_size_mm: float = 32.0,
+              img_size=(1280, 1024)) -> EquisolidParams:
+    """The reference's default equisolid camera (the `Skeleton(None)`
+    default), its constants rounded to float32 as the JAX package's."""
+    img = np.asarray(img_size, dtype=np.float32)
+    focal_px = focal_length_mm / np.max(sensor_size_mm) * np.max(img)
+    f32 = lambda v: torch.as_tensor(  # noqa: E731
+        np.asarray(v, dtype=np.float32))
+    return EquisolidParams(focal_px=f32(focal_px),
+                           center=f32(img / 2 + 1e-10),
+                           max_radius=f32(focal_px * np.sqrt(2.0)))
+
+
+def equisolid_camera2world(params: EquisolidParams, points2d: torch.Tensor,
+                           depth: torch.Tensor) -> torch.Tensor:
+    """Unproject with the equisolid model: radii past max_radius - 30
+    clamp to max_radius, theta = 2 asin(r / 2f), Z = r / tan(theta), the
+    ray [x, y, Z] normalised and scaled by depth."""
+    centered = points2d - params.center
+    x = centered[..., 0]
+    y = centered[..., 1]
+    r = torch.sqrt(x * x + y * y)
+    r = torch.where(r > params.max_radius - 30.0, params.max_radius, r)
+    theta = 2.0 * torch.asin(r / (2.0 * params.focal_px))
+    ray = torch.stack([x, y, r / torch.tan(theta)], dim=-1)
+    norm = torch.sqrt((ray * ray).sum(-1, keepdim=True))
+    return ray / norm * depth[..., None]
 
 
 EGOSYN_CALIBRATION = {

@@ -91,3 +91,19 @@ def skeleton_resize(skeleton: torch.Tensor,
     for j in range(1, NUM_JOINTS):
         joints[j] = joints[KINEMATIC_PARENTS[j]] + new_bones[..., j, :]
     return torch.stack(joints, dim=-2)
+
+
+def heatmap_argmax(heatmaps: torch.Tensor):
+    """2D argmax of joint heatmaps (..., J, H, W) -> (coords (..., J, 2)
+    as float [x, y], maxvals (..., J)): x = idx % W, y = floor(idx / W) of
+    the flattened map's first maximum (torch.argmax keeps the first on
+    both devices).  A joint whose peak is <= 0 gets (0, 0), as the
+    reference's `get_max_preds` masks it."""
+    *lead, j, h, w = heatmaps.shape
+    flat = heatmaps.reshape(*lead, j, h * w)
+    idx = torch.argmax(flat, dim=-1)
+    maxvals = flat.amax(dim=-1)
+    x = (idx % w).to(torch.float32)
+    y = torch.floor(idx.to(torch.float32) / w)
+    coords = torch.stack([x, y], dim=-1)
+    return coords * (maxvals > 0.0).to(torch.float32)[..., None], maxvals

@@ -75,3 +75,23 @@ def quat_trans_to_matrix(trans: torch.Tensor,
     out[..., :3, 3] = trans
     out[..., 3, 3] = 1.0
     return out
+
+
+def rotmat_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) to unit quaternions (..., 4) in
+    scipy's (x, y, z, w) order, up to the quaternion's double cover:
+    Shepperd's magnitudes from the diagonal, each vector sign from the
+    skew part by copysign (w >= 0)."""
+    m = rot
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    t = m00 + m11 + m22
+    zero = torch.zeros_like(t)
+    qw = torch.sqrt(torch.maximum(zero, 1 + t)) / 2
+    qx = torch.sqrt(torch.maximum(zero, 1 + m00 - m11 - m22)) / 2
+    qy = torch.sqrt(torch.maximum(zero, 1 - m00 + m11 - m22)) / 2
+    qz = torch.sqrt(torch.maximum(zero, 1 - m00 - m11 + m22)) / 2
+    qx = torch.copysign(qx, m[..., 2, 1] - m[..., 1, 2])
+    qy = torch.copysign(qy, m[..., 0, 2] - m[..., 2, 0])
+    qz = torch.copysign(qz, m[..., 1, 0] - m[..., 0, 1])
+    q = torch.stack([qx, qy, qz, qw], dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -5,7 +5,9 @@ the streamed serve on the card: a sync-free warm dispatch, device
 staging, the prefetcher's stream hand-off and chip_smoke's phase 3h at a
 small size; chip_smoke's phase 3i (evaluate_all) at a small size and the
 device trace; prior-bank selection through device staging and one joint
-train step against the CPU's.
+train step against the CPU's; the preprocessing ETL's argmax and
+unprojection, RANSAC, the two-view pose and `process_sequence`, card
+against CPU.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -624,3 +626,82 @@ def test_joint_train_step_on_the_card_matches_the_cpu(gen):
         if "running" in name:
             torch.testing.assert_close(b[name].cpu(), a[name], rtol=1e-5,
                                        atol=1e-5)
+
+
+def test_heatmap_argmax_and_camera2world_on_the_card_match_the_cpu(gen):
+    """The lift's two steps, card against CPU: the argmax's first-maximum
+    rule on ties (integer-valued maps), all-zero and negative maps (their
+    joints zeroed); camera2world in float32 at radii up to 680 px."""
+    from globalegomocap_tpu_torch.ops.skeleton import heatmap_argmax
+    rng = np.random.default_rng(0)
+    maps = rng.integers(0, 4, size=(40, 15, 64, 64)).astype(np.float32)
+    maps[3] = 0.0
+    maps[4] = -1.0
+    want = heatmap_argmax(torch.from_numpy(maps))
+    got = heatmap_argmax(torch.from_numpy(maps).cuda())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    cam = fisheye.default_camera("egosyn")
+    ang = rng.uniform(0, 2 * np.pi, 20000)
+    rad = rng.uniform(0, 680, 20000)
+    px = torch.from_numpy((cam.center.numpy() + np.stack(
+        [rad * np.cos(ang), rad * np.sin(ang)], 1)).astype(np.float32))
+    depth = torch.from_numpy(rng.uniform(0.2, 3, 20000).astype(np.float32))
+    want = fisheye.camera2world(cam, px, depth)
+    got = fisheye.camera2world(cam.to("cuda"), px.cuda(), depth.cuda())
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_ransac_and_recover_pose_on_the_card_match_the_cpu(gen):
+    """cuSOLVER's SVDs against the CPU's LAPACK: the RANSAC fit on the
+    same hypotheses, the public RANSAC on each device's own draws (one
+    inlier set, so the same answer), and the two-view pose."""
+    from scipy.spatial.transform import Rotation
+    from globalegomocap_tpu_torch.ops import epipolar
+    from globalegomocap_tpu_torch.ops import umeyama as um
+    rng = np.random.default_rng(0)
+    P = rng.normal(size=(60, 3))
+    Q = P @ Rotation.random(random_state=2).as_matrix() * 2.2 + 0.5
+    bad = rng.choice(60, size=12, replace=False)
+    Q[bad] += rng.normal(scale=5.0, size=(12, 3))
+    P, Q = (torch.from_numpy(a.astype(np.float32)) for a in (P, Q))
+    idx = torch.argsort(torch.rand(80, 60, generator=torch.Generator()
+                                   .manual_seed(0)), dim=-1)[:, :4]
+    for want, got in ((um._ransac_fit(P, Q, idx, 0.2),
+                       um._ransac_fit(P.cuda(), Q.cuda(), idx.cuda(), 0.2)),
+                      (um.umeyama_ransac(P, Q),
+                       um.umeyama_ransac(P.cuda(), Q.cuda()))):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
+    X = rng.uniform(-1, 1, size=(40, 3)) + np.array([0, 0, 4.0])
+    R = Rotation.from_euler("xyz", [5, -8, 3], degrees=True).as_matrix()
+    x2 = X @ R.T + np.array([1.0, 0.2, -0.1]) / np.linalg.norm([1, 0.2, -0.1])
+    r1, r2 = (torch.from_numpy((v / np.linalg.norm(v, axis=1, keepdims=True))
+                               .astype(np.float32)) for v in (X, x2))
+    want = epipolar.recover_pose(r1, r2)
+    got = epipolar.recover_pose(r1.cuda(), r2.cuda())
+    for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-3)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+
+
+def test_process_sequence_on_the_card_matches_the_cpu(gen, tmp_path):
+    """The ETL on a tiny raw capture (chip_smoke.write_raw_capture, 3
+    chunks of 26 frames), card against CPU: the same chunk directories,
+    pose fields within 1e-4 m, camera matrices within 1e-5."""
+    from globalegomocap_tpu_torch.tools.process_test_data import (
+        process_sequence)
+    paths = chip_smoke.write_raw_capture(str(tmp_path / "raw"), 104, 130,
+                                         26, 130, 26, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = process_sequence(
+            paths["slam"], paths["heatmap_dir"], paths["depth_dir"],
+            paths["gt"], str(tmp_path / dev), 26, 130, chunk_size=26,
+            mat_start_frame=26, device=dev)
+    assert [os.path.basename(os.path.dirname(p)) for p in out["cuda"]] == [
+        "data_start_26_end_52", "data_start_52_end_78",
+        "data_start_78_end_104"]
+    pose, cam, maps = chip_smoke.chunks_agree(
+        [os.path.dirname(p) for p in out["cuda"]],
+        [os.path.dirname(p) for p in out["cpu"]])
+    assert pose <= 1e-4 and cam <= 1e-5 and maps, (pose, cam)

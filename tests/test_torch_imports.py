@@ -52,13 +52,17 @@ def test_port_imports_no_jax():
                 "cli.evaluate_all", "models.checkpoint", "tools.ply",
                 "cli.train", "train.train_vae", "data.amass",
                 "optimize.prior_bank", "models.joint_vae",
-                "train.train_joint", "data.hdf5", "data.mo2cap2"):
+                "train.train_joint", "data.hdf5", "data.mo2cap2",
+                "cli.preprocess", "cli.introspect", "tools.process_test_data",
+                "tools.slam_reader", "tools.bvh", "tools.captury_camera",
+                "tools.prior_tools", "ops.epipolar"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
     from globalegomocap_tpu_torch.cli import (
-        evaluate_all, optimize_sequence, serve, train)
+        evaluate_all, introspect, optimize_sequence, preprocess, serve,
+        train)
     from globalegomocap_tpu_torch.optimize import driver
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -93,6 +97,13 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
                            "8,8,16,16,32"])
     with pytest.raises(RuntimeError):
         train.main(["--train_data_path", str(tmp_path / "data")])
+    with pytest.raises(RuntimeError):
+        preprocess.main(["--slam", "s", "--heatmap_dir", "h", "--depth_dir",
+                         "d", "--gt", "g", "--out", str(tmp_path / "o"),
+                         "--start", "0", "--end", "200"])
+    with pytest.raises(RuntimeError):
+        introspect.main(["latent-stats", "--ckpt", str(ckpt), "--data",
+                         "d"])
 
 
 def test_device_module_pins_float32():
