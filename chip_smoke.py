@@ -175,6 +175,24 @@ Phases (any failure exits non-zero and prints no result line):
               on 3j's 2,900 test windows (the endpoints within 1e-5 of
               the prior's reconstructions) and latent-stats (within 1e-4
               relative of a --device cpu run), cuDNN deterministic.
+3m. Orbax   - Orbax checkpoints through the port's own OCDBT and zarr v2
+              reader and writer (zstd by the system's libzstd), at full
+              width: the train CLI on 3j's corpus, one local-prior epoch
+              at --checkpoint_format orbax and one at msgpack from the
+              same seed, then --resume from each (cuDNN deterministic):
+              the restored state bit for bit what was saved and equal
+              across formats, equal steps and evals; one trainer state
+              (32.6 M parameters and Adam's moments) saved both ways in
+              turns (bytes on disk, save ms, load ms to the card), read
+              by load_prior_variables equal bit for bit; the JAX-written
+              fixture (tests/torch_fixtures/orbax_jax/) bit for bit
+              against its expected.npz and a trainer resumed from it on
+              the card; 3j's trained priors through save_orbax and
+              load_prior_variables into SequenceOptimizer, one 192-window
+              request served at serve's defaults with them and with the
+              msgpack priors (poses bit for bit, else the 17 metrics
+              within 1 %; kernels 1 and 2 launched as phase 3h counts a
+              request).
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -3759,6 +3777,317 @@ def preprocess_introspect_phase(torch, seed, dev, fails, card, work,
     return {k: launches.get(k, 0) for k in expect}
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: Orbax checkpoints at full width
+# ---------------------------------------------------------------------------
+
+# the JAX-written fixture (tests/torch_fixtures/orbax_jax/make_fixture.py):
+# a tiny prior and one epoch checkpoint of its trainer, with the leaves
+# JAX's orbax restores in expected.npz
+ORBAX_FIXTURE = os.path.join(HERE, "tests", "torch_fixtures", "orbax_jax")
+FIXTURE_HIDDEN = (8, 8, 16, 16, 32)
+FIXTURE_TRAIN = dict(latent_dim=16, seq_length=10, epochs=1, batch_size=16,
+                     kl_weight=0.1, learning_rate=1e-3, local_pose=True,
+                     log_step=0, num_devices=1)
+HIDDEN = (64, 64, 128, 256, 512)
+
+
+def tree_leaves(tree, prefix):
+    """{'<prefix>/<key>/...': numpy array} of a checkpoint tree (dicts,
+    lists, None skipped), as the fixture's expected.npz keys them."""
+    import numpy as np
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(tree_leaves(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(tree_leaves(v, f"{prefix}/{i}"))
+    elif tree is not None:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def leaves_differ(got: dict, want: dict) -> list:
+    """The keys of two leaf dicts whose arrays differ in dtype, shape or
+    any bit (and the keys only one has)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a, b = got[k], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            bad.append(k)
+    return bad
+
+
+def trainer_leaves(trainer, prefix="epoch"):
+    """A port trainer's state as an Orbax epoch checkpoint holds it
+    (parameters, batch statistics, optax state, step), read back from its
+    device."""
+    import numpy as np
+    from globalegomocap_tpu_torch.models.checkpoint import optax_to_orbax
+    from globalegomocap_tpu_torch.models.convert import params_to_flax
+    v = params_to_flax(trainer.model.state_dict())
+    return tree_leaves({"params": v["params"],
+                        "batch_stats": v["batch_stats"],
+                        "opt_state": optax_to_orbax(trainer.opt_state()),
+                        "step": np.asarray(trainer.step, np.int32)}, prefix)
+
+
+def read_fixture(root=ORBAX_FIXTURE) -> tuple:
+    """(number of leaves, the keys that differ from expected.npz) of the
+    port's reading of the fixture's prior and epoch checkpoint."""
+    import numpy as np
+    from globalegomocap_tpu_torch.models.checkpoint import load_orbax
+    got = tree_leaves(load_orbax(os.path.join(root, "prior.orbax")),
+                      "prior")
+    got.update(tree_leaves(load_orbax(os.path.join(
+        root, "checkpoints", "0.orbax")), "epoch"))
+    want = dict(np.load(os.path.join(root, "expected.npz")))
+    return len(want), leaves_differ(got, want)
+
+
+def fixture_trainer(torch, dev):
+    """A port trainer of the fixture's configuration on `dev` (the tiny
+    prior, its corpus and optimizer)."""
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+    from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    windows = AmassWindows.from_sequences(
+        synthetic_amass(n_sequences=12, frames_per_seq=40, seed=9),
+        frame_num=10, local_pose=True)
+    model = ConvVAE(latent_dim=FIXTURE_TRAIN["latent_dim"], seq_len=10,
+                    hidden_dims=FIXTURE_HIDDEN)
+    return Trainer(TrainConfig(**FIXTURE_TRAIN), windows,
+                   AmassWindows(windows.windows[:32]), model, device=dev)
+
+
+def disk_bytes(path: str) -> int:
+    """Bytes of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(path) for n in names)
+
+
+def orbax_phase(torch, seed, dev, fails, card, work, latent=LATENT,
+                batch=TRAIN_BATCH, rounds=2):
+    """Phase 3m: Orbax checkpoints through the port's own OCDBT and zarr
+    reader and writer at full width.  1. The train CLI on 3j's corpus,
+    one local-prior epoch at --checkpoint_format orbax and one at msgpack
+    from the same seed, then --resume from each, all under cuDNN's
+    deterministic algorithms: the restored state equal bit for bit to
+    what was saved and between the formats, equal steps and evals.
+    2. One trainer state written both ways by save_checkpoint (in turns,
+    `rounds` times: bytes, save ms, load ms to the card), the two read by
+    load_prior_variables equal bit for bit.  3. The JAX-written fixture
+    read bit for bit against its expected.npz, and a port trainer resumed
+    from its epoch checkpoint on the card (its state equal to the
+    fixture's), one more epoch.  4. 3j's trained priors written by
+    save_orbax, read by load_prior_variables into SequenceOptimizer
+    (library path), one 192-window request served at serve's defaults
+    with them and with the msgpack priors, in turns: the optimized poses
+    equal bit for bit, else the 17 metrics within 1 %; kernels 1 and 2
+    launched as 3h counts a request (returned).  Needs 3j's corpus and
+    checkpoints under work[0]; `latent`, `batch` and `rounds` are cut
+    only in a rehearsal on the CPU."""
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli import train as cli
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation import metrics
+    from globalegomocap_tpu_torch.models.checkpoint import (
+        load_prior_variables, optax_from_orbax, save_orbax)
+    from globalegomocap_tpu_torch.models.convert import params_from_flax
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    base = os.path.join(work[0], "train")
+    data = os.path.join(base, "amass")
+    common = ["--train_data_path", data, "--device", dev, "--latent_dim",
+              str(latent), "--batch_size", str(batch), "--local_pose",
+              "true", "--epoch", "1"]
+    ckpt = os.path.join(base, "logs", "{}", "checkpoints", "0.{}")
+    fmts = ("orbax", "msgpack")
+
+    # 1. one epoch at each format, then --resume from each
+    first, restored, resumed = {}, {}, {}
+    load = Trainer.load_checkpoint
+
+    def load_and_keep(self, path):
+        step = load(self, path)
+        restored[path] = (step, trainer_leaves(self))
+        return step
+    with cudnn_deterministic(torch):
+        for fmt in fmts:
+            tr, _, wall = train_cli(cli.main, common + [
+                "--log_dir", f"3m_{fmt}", "--checkpoint_format", fmt], base)
+            first[fmt] = (tr, trainer_leaves(tr), wall)
+        Trainer.load_checkpoint = load_and_keep
+        try:
+            for fmt in fmts:
+                tr, _, wall = train_cli(cli.main, common + [
+                    "--log_dir", f"3m_{fmt}_resumed", "--resume",
+                    ckpt.format(f"3m_{fmt}", fmt)], base)
+                ev = [h["eval_mpjpe"] for h in tr.history
+                      if "eval_mpjpe" in h]
+                resumed[fmt] = (tr, ev[-1] if ev else float("nan"), wall)
+        finally:
+            Trainer.load_checkpoint = load
+    steps = first["orbax"][0].step
+    for fmt in fmts:
+        path = ckpt.format(f"3m_{fmt}", fmt)
+        step, got = restored.get(path, (None, {}))
+        bad = leaves_differ(got, first[fmt][1])
+        files = sorted(os.listdir(os.path.dirname(path)))
+        fails.check(files == sorted(["0.json", f"0.{fmt}"]) and step == steps
+                    and not bad and len(got) > 60,
+                    f"{fmt}: one epoch ({first[fmt][2]:.2f} s) wrote {files};"
+                    f" --resume restored step {step} ({steps} expected) and "
+                    f"{len(got)} leaves, {len(bad)} not bit for bit "
+                    f"{bad[:3]}")
+    a, b = (restored.get(ckpt.format(f"3m_{f}", f), (0, {}))[1]
+            for f in fmts)
+    ev = {f: resumed[f][1] for f in fmts}
+    same = ev["orbax"] == ev["msgpack"]
+    fails.check(not leaves_differ(a, b)
+                and resumed["orbax"][0].step == resumed["msgpack"][0].step
+                == 2 * steps and (same or abs(ev["orbax"] - ev["msgpack"])
+                                  <= 1e-5 * abs(ev["msgpack"])),
+                f"the resumed runs: restored leaves equal across formats; "
+                f"steps {resumed['orbax'][0].step} and "
+                f"{resumed['msgpack'][0].step} ({2 * steps} expected); eval "
+                f"MPJPE {ev['orbax']:.8f} (Orbax) and {ev['msgpack']:.8f} "
+                f"(msgpack), {'equal' if same else 'within 1e-5'} ("
+                + ", ".join(f"{f} {resumed[f][2]:.2f} s" for f in fmts)
+                + ")")
+
+    # 2. one trainer state both ways, in turns
+    tr = resumed["orbax"][0]
+    io_dir = os.path.join(base, "3m_io")
+    saved = {f: [] for f in fmts}
+    save_ms = {f: [] for f in fmts}
+    turns = (["orbax", "msgpack", "msgpack", "orbax"] * rounds)[:2 * rounds]
+    for i, fmt in enumerate(turns):
+        sync()
+        t0 = time.perf_counter()
+        saved[fmt].append(tr.save_checkpoint(io_dir, i, 0.0, fmt=fmt))
+        save_ms[fmt].append((time.perf_counter() - t0) * 1e3)
+    size = {f: disk_bytes(saved[f][0]) for f in fmts}
+    load_ms = {f: [] for f in fmts}
+    for fmt in turns:
+        sync()
+        t0 = time.perf_counter()
+        tr.load_checkpoint(saved[fmt][0])
+        sync()
+        load_ms[fmt].append((time.perf_counter() - t0) * 1e3)
+    v = {f: load_prior_variables(saved[f][0], 10, HIDDEN) for f in fmts}
+    v["orbax"]["opt_state"] = optax_from_orbax(v["orbax"]["opt_state"])
+    bad = leaves_differ(tree_leaves(v["orbax"], "v"),
+                        tree_leaves(v["msgpack"], "v"))
+    n = len(tree_leaves(v["msgpack"], "v"))
+    n_par = sum(x.size for x in tree_leaves(v["msgpack"]["params"],
+                                            "p").values())
+    print(f"  one trainer state ({n_par:,} parameters, Adam's two moments, "
+          f"{n} leaves) both ways: " + "; ".join(
+              f"{f} {size[f]:,} bytes, save "
+              + " / ".join(f"{m:.1f}" for m in save_ms[f]) + " ms, load to "
+              f"{dev} " + " / ".join(f"{m:.1f}" for m in load_ms[f]) + " ms"
+              for f in fmts)
+          + f"; Orbax/msgpack bytes {size['orbax'] / size['msgpack']:.4f} "
+          f"[{card}]", flush=True)
+    fails.check(not bad and n > 60,
+                f"load_prior_variables of the Orbax and the msgpack "
+                f"checkpoint of one state: {n} leaves, {len(bad)} not bit "
+                f"for bit {bad[:3]}")
+
+    # 3. the JAX-written fixture, read and resumed on the device
+    n, bad = read_fixture()
+    rel = os.path.relpath(ORBAX_FIXTURE, HERE)
+    fails.check(n > 200 and not bad,
+                f"the JAX-written fixture ({rel}): {n} leaves read, "
+                f"{len(bad)} not bit for bit against expected.npz "
+                f"{bad[:3]}")
+    ft = fixture_trainer(torch, dev)
+    step = ft.load_checkpoint(os.path.join(ORBAX_FIXTURE, "checkpoints",
+                                           "0.orbax"))
+    want = {k: x for k, x in np.load(os.path.join(
+        ORBAX_FIXTURE, "expected.npz")).items() if k.startswith("epoch/")}
+    bad = leaves_differ(trainer_leaves(ft), want)
+    ft.train(log_fn=lambda *_: None)
+    ev = [h["eval_mpjpe"] for h in ft.history if "eval_mpjpe" in h]
+    n = int(want["epoch/step"])
+    fails.check(step == n > 0 and not bad and ft.step == 2 * n
+                and len(ev) == 1 and bool(np.isfinite(ev[0])),
+                f"a port trainer on {dev} resumed from the fixture's epoch "
+                f"checkpoint: step {step} ({n}), {len(want)} leaves, "
+                f"{len(bad)} not bit for bit {bad[:3]}; one more epoch to "
+                f"step {ft.step} ({2 * n}), eval {ev}")
+
+    # 4. serve on priors through save_orbax and load_prior_variables
+    trained = os.path.join(base, "logs", "{}", "checkpoints", "2.msgpack")
+    states, bad = {f: [] for f in fmts}, []
+    for k in ("local", "global"):
+        vm = load_prior_variables(trained.format(k), 10, HIDDEN)
+        d = os.path.join(base, "3m_priors", f"{k}.orbax")
+        save_orbax(vm, d)
+        vo = load_prior_variables(d, 10, HIDDEN)
+        bad += leaves_differ(tree_leaves(vo, k), tree_leaves(vm, k))
+        states["orbax"].append(params_from_flax(vo))
+        states["msgpack"].append(params_from_flax(vm))
+    argv = ["--data_root", work[1], "--local_ckpt", trained.format("local"),
+            "--global_ckpt", trained.format("global"), "--latent_dim",
+            str(latent), "--device", dev]
+    scfg = serve.config_from_args(serve.build_parser().parse_args(argv))
+    model = build_model(scfg)
+    opts = {f: SequenceOptimizer(model, *states[f], scfg, device=dev)
+            for f in fmts}
+    seq0 = os.path.join(work[1], sorted(os.listdir(work[1]))[0])
+    request = [load_test_chunk(d) for d in list_chunk_dirs(seq0)]
+    res, secs = {}, {}
+    with cudnn_deterministic(torch):
+        cb.reset_launches()
+        for fmt in fmts:
+            res[fmt], _, _, secs[fmt] = stream_requests(opts[fmt], [request],
+                                                        True, sync)
+        launches = {k: cb.LAUNCHES[k] for k in (
+            "fused_stage_energy", "fused_stage_energy_noreproj")}
+    per_req = {"fused_stage_energy": 1 + scfg.solver.max_iter,
+               "fused_stage_energy_noreproj": 1 + scfg.solver.global_max_iter}
+    fails.check(not bad, f"3j's trained priors through save_orbax and "
+                f"load_prior_variables: {len(bad)} leaves not bit for bit "
+                f"{bad[:3]}")
+    fails.check(all(launches[k] == 2 * n for k, n in per_req.items()),
+                f"serve on Orbax- and msgpack-loaded priors: kernels 1 and 2 "
+                f"launched {launches} "
+                f"({ {k: 2 * n for k, n in per_req.items()} } expected)")
+    po, pm = (res[f][0].optimized for f in fmts)
+    equal = bool(torch.equal(po, pm))
+    keys = [k for k in metrics.METRIC_KEYS if k != "joints_error"]
+    mo, mm = (mean_metrics(res[f], metrics.calculate_errors, keys)
+              for f in fmts)
+    worst = 0.0 if equal else worst_relative(mo, mm, keys)
+    wins = sum(num_windows(c.n_frames) for c in request)
+    fails.check(len(keys) == 17 and bool(torch.isfinite(po).all())
+                and (equal or worst <= 0.01),
+                f"serve ({scfg.compute_dtype}, host staging, prefetch 2, in "
+                f"flight 3), one {wins}-window request a prior set: "
+                f"optimized poses "
+                f"{'equal bit for bit' if equal else 'differ'}, the 17 "
+                f"metrics within {worst:.3e} relative (1e-2); Orbax "
+                f"{secs['orbax'] * 1e3:.1f} ms, msgpack "
+                f"{secs['msgpack'] * 1e3:.1f} ms; optimized global MPJPE "
+                f"{mo['optimized_global_mpjpe']:.5f} [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3910,6 +4239,16 @@ def main(argv=None) -> int:
                 torch, args.seed, "cuda", fails, card, work).items():
             launches[name] += n
         phase_done("preprocess and introspect", t0)
+        # ---- 3m. Orbax checkpoints -----------------------------------------
+        print("[3m] Orbax checkpoints at full width (the train CLI at "
+              "--checkpoint_format orbax and --resume against msgpack, one "
+              "state both ways, the JAX-written fixture, serve on "
+              "Orbax-loaded priors)", flush=True)
+        t0 = time.perf_counter()
+        for name, n in orbax_phase(torch, args.seed, "cuda", fails, card,
+                                   work).items():
+            launches[name] += n
+        phase_done("orbax", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -14,8 +14,10 @@ and printed lines:
 
 The prior is a ConvVAE of --latent_dim and --seq_len at the reference's
 hidden widths (64, 64, 128, 256, 512), read by
-`models/checkpoint.py::load_prior_variables` (flax msgpack, or a torch
-.pth.tar / state dict; an Orbax directory raises NotImplementedError).
+`models/checkpoint.py::load_prior_variables` (flax msgpack, an Orbax
+directory, or a torch .pth.tar / state dict; a directory that is no
+Orbax checkpoint raises FileNotFoundError naming its missing
+manifest.ocdbt).
 --data is a pickle of (W, T, 45) windows.  `sample` writes
 <out>/sample_<i>/out_<frame>.ply, `interpolate` <out>/<k>/out_<frame>.ply
 (k = 0 .. steps + 1).  Runs on the card unless --device cpu; sampling

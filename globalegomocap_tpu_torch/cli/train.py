@@ -8,15 +8,18 @@ kl 0.5, seq 10, batch 64, fps 25), plus --device:
     python -m globalegomocap_tpu_torch.cli.train \\
         --train_data_path <amass_pkl_dir> [--local_pose true] \\
         [--with_mo2cap2_names <names.txt>] [--data_balance true] \\
-        [--resume logs/<dir>/checkpoints/<epoch>.msgpack] [--device cpu]
+        [--checkpoint_format orbax] \\
+        [--resume logs/<dir>/checkpoints/<epoch>.{msgpack,orbax}] \\
+        [--device cpu]
 
 --hdf5 true reads a file of `data/hdf5.py::pack_amass_dir` whole (its
 last max(1, n // 20) windows are the test split); --hdf5_stream true
 streams the same split from the file (`HDF5WindowStream`), for corpora
 that do not fit in memory.  Checkpoints go to logs/<log_dir>/checkpoints
-as <epoch>.msgpack (the JAX trainer's file) and <epoch>.json.  Not ported
-yet, and refused with NotImplementedError: --checkpoint_format orbax
-(ROADMAP §A item 3a), and data parallelism over more than one card
+as <epoch>.msgpack (the JAX trainer's file), or <epoch>.orbax (an Orbax
+directory, `models/orbax.py`) at --checkpoint_format orbax, and
+<epoch>.json; --resume takes either.  Not ported yet, and refused with
+NotImplementedError: data parallelism over more than one card
 (--num_devices, ROADMAP §A item 4).
 """
 
@@ -104,10 +107,6 @@ def load_mo2cap2_names(path: str | None):
 def check_supported(args, device) -> None:
     """NotImplementedError for the options the port does not run yet,
     each naming its ROADMAP item; never a silent substitute."""
-    if args.checkpoint_format == "orbax":
-        raise NotImplementedError(
-            "not yet ported to the PyTorch package: --checkpoint_format "
-            "orbax (ROADMAP §A item 3a); use --checkpoint_format msgpack")
     from globalegomocap_tpu_torch.train.train_vae import check_one_device
     check_one_device(args.num_devices, device)
 

@@ -11,17 +11,25 @@ The coder is the port's own small one, because the card's machine has
 neither package.  Maps, strings, bin, ints, floats, nil, bools and
 arrays are read and written; `save_msgpack` writes maps with their keys
 sorted, as `jax.device_get` leaves them, so a file it writes has the
-bytes of the JAX package's for the same variables.  Not read: Orbax
-directories, flax's chunked leaves (arrays over 2**30 bytes; the
-full-width prior's largest is 42 MB), bfloat16 arrays (numpy has no
-such dtype; the priors are float32) and complex numbers.
+bytes of the JAX package's for the same variables.  Not read: flax's
+chunked leaves (arrays over 2**30 bytes; the full-width prior's largest
+is 42 MB), bfloat16 arrays (numpy has no such dtype; the priors are
+float32) and complex numbers.
 
-The trainer's epoch checkpoints (`train/train_vae.py`) are one such file
-of {'params', 'batch_stats', 'opt_state', 'step'}, the payload of the JAX
-`Trainer.save_checkpoint`: int32 0-d counts and step, as `jax.device_get`
-leaves them (`save_train_state`, `load_train_state`).
-`load_prior_variables` reads a prior from any file the JAX package's
-does, except Orbax directories (ROADMAP §A item 3a).
+Orbax checkpoint directories go through the port's own reader and writer
+(`models/orbax.py`): `save_orbax` and `load_orbax` are the JAX
+package's, with numpy leaves.
+
+The trainer's epoch checkpoints (`train/train_vae.py`) are one such file,
+or one Orbax directory, of {'params', 'batch_stats', 'opt_state', 'step'},
+the payload of the JAX `Trainer.save_checkpoint`: int32 0-d counts and
+step, as `jax.device_get` leaves them (`save_train_state`,
+`load_train_state`).  Orbax keeps optax's tuple of states as a list with
+None for an EmptyState, flax's msgpack as a dict keyed '0', '1', ... with
+{} for one; the trainer works in the msgpack layout and the Orbax branch
+maps it (`optax_to_orbax`, `optax_from_orbax`).
+`load_prior_variables` reads a prior from any file or directory the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import struct
 from typing import Any
 
 import numpy as np
+
+from globalegomocap_tpu_torch.models import orbax
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
@@ -262,6 +272,18 @@ def save_msgpack(variables: Any, path: str) -> None:
         f.write(packb(variables, sort_keys=True))
 
 
+def save_orbax(variables: Any, path: str) -> None:
+    """Save a variables tree (numpy leaves) to an Orbax checkpoint
+    directory, as the JAX package's `save_orbax`."""
+    orbax.save(os.path.abspath(path), variables)
+
+
+def load_orbax(path: str) -> Any:
+    """An Orbax checkpoint directory as the tree the JAX package's
+    `load_orbax` returns, with numpy leaves."""
+    return orbax.load(os.path.abspath(path))
+
+
 def load_msgpack(path: str) -> Any:
     """A file written by flax's `msgpack_serialize` (or `save_msgpack`) as
     nested dicts of numpy arrays.  A file that is not one whole msgpack
@@ -274,21 +296,51 @@ TRAIN_KEYS = ("params", "batch_stats", "opt_state", "step")
 TORCH_SUFFIXES = (".pth.tar", ".pth", ".tar", ".pt")
 
 
+def optax_to_orbax(opt_state: dict) -> list:
+    """An optax chain state in flax's msgpack layout ({'0': ..., '1': {},
+    ...}, `models/convert.py::opt_state_to_flax`) as Orbax stores the same
+    tuple of states: a list, None for an EmptyState."""
+    return [opt_state[str(i)] or None for i in range(len(opt_state))]
+
+
+def optax_from_orbax(opt_state) -> Any:
+    """Orbax's optax chain state (a list, None for an EmptyState) in
+    flax's msgpack layout; anything else is returned as it is, for the
+    trainer's own check of its layout (`opt_state_from_flax`) to
+    refuse."""
+    if not isinstance(opt_state, list):
+        return opt_state
+    return {str(i): {} if v is None else v for i, v in enumerate(opt_state)}
+
+
 def save_train_state(path: str, variables: dict, opt_state: dict,
-                     step: int) -> None:
+                     step: int, fmt: str = "msgpack") -> None:
     """A trainer's epoch checkpoint: the Flax {'params', 'batch_stats'}
-    of the prior, the optax state tree and the step count (0-d int32)."""
-    save_msgpack({"params": variables["params"],
-                  "batch_stats": variables["batch_stats"],
-                  "opt_state": opt_state,
-                  "step": np.asarray(step, np.int32)}, path)
+    of the prior, the optax state tree (flax's msgpack layout) and the
+    step count (0-d int32), as a msgpack file or (`fmt` 'orbax') an Orbax
+    directory with the optax state as Orbax stores it."""
+    payload = {"params": variables["params"],
+               "batch_stats": variables["batch_stats"],
+               "opt_state": opt_state,
+               "step": np.asarray(step, np.int32)}
+    if fmt == "orbax":
+        payload["opt_state"] = optax_to_orbax(opt_state)
+        save_orbax(payload, path)
+    else:
+        save_msgpack(payload, path)
 
 
 def load_train_state(path: str) -> dict:
-    """A trainer's epoch checkpoint; a file of other keys raises
-    ValueError (flax's `from_bytes` into the trainer's target does the
-    same in the JAX package)."""
-    blob = load_msgpack(path)
+    """A trainer's epoch checkpoint, a msgpack file or an Orbax directory,
+    with the optax state in flax's msgpack layout; one of other keys
+    raises ValueError (flax's `from_bytes` and orbax's `restore` into the
+    trainer's target do the same in the JAX package)."""
+    if os.path.isdir(path):
+        blob = load_orbax(path)
+        if isinstance(blob, dict) and "opt_state" in blob:
+            blob["opt_state"] = optax_from_orbax(blob["opt_state"])
+    else:
+        blob = load_msgpack(path)
     if not isinstance(blob, dict) or set(blob) != set(TRAIN_KEYS):
         keys = sorted(blob) if isinstance(blob, dict) else type(blob)
         raise ValueError(f"{path}: not a training checkpoint of "
@@ -300,20 +352,16 @@ def load_prior_variables(path: str, seq_len: int = 10,
                          hidden_dims=(64, 64, 128, 256, 512)) -> Any:
     """A prior's Flax variables tree (numpy leaves, 'batch_stats' added
     empty where the file has none) from a torch file (by its suffix: the
-    reference's .pth.tar training checkpoints or bare state dicts) or a
-    flax msgpack file (everything it holds, a training checkpoint's
-    'opt_state' and 'step' too).  The prior's seq_len and hidden_dims
-    must be the given ones.  An Orbax directory raises
-    NotImplementedError."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: Orbax checkpoint directories are not read by the "
-            "PyTorch port yet (ROADMAP §A item 3a); use a msgpack or "
-            ".pth.tar file")
+    reference's .pth.tar training checkpoints or bare state dicts), an
+    Orbax directory or a flax msgpack file (everything they hold, a
+    training checkpoint's 'opt_state' and 'step' too).  The prior's
+    seq_len and hidden_dims must be the given ones."""
     if path.endswith(TORCH_SUFFIXES):
         from globalegomocap_tpu_torch.cli.serve import load_state
         from globalegomocap_tpu_torch.models.convert import params_to_flax
         v = params_to_flax(load_state(path))
+    elif os.path.isdir(path):
+        v = load_orbax(path)
     else:
         v = load_msgpack(path)
     if not isinstance(v, dict) or "params" not in v:

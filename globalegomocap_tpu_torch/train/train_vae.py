@@ -26,12 +26,11 @@ PyTorch on one device:
   a trailing block of two or more, a single leftover step alone, one log
   line an epoch); a block is one host-to-device copy and a loop of steps
   with no readback;
-- checkpoints are the JAX trainer's msgpack files ({'params',
-  'batch_stats', 'opt_state', 'step'} in the Flax layout, read by its
-  `load_checkpoint`) with the same `.json` sidecar.
+- checkpoints are the JAX trainer's msgpack files or Orbax directories
+  ({'params', 'batch_stats', 'opt_state', 'step'} in the Flax layout,
+  read by its `load_checkpoint`) with the same `.json` sidecar.
 
-Data parallelism (`num_devices`) and Orbax checkpoints are not ported
-yet (ROADMAP §A items 4 and 3a).
+Data parallelism (`num_devices`) is not ported yet (ROADMAP §A item 4).
 """
 
 from __future__ import annotations
@@ -350,15 +349,18 @@ class Trainer:
 
     def save_checkpoint(self, directory: str, epoch: int,
                         eval_result: float, fmt: str = "msgpack") -> str:
-        """`<epoch>.msgpack` ({'params', 'batch_stats', 'opt_state',
-        'step'}, the JAX trainer's file) and its `<epoch>.json` sidecar
-        ({'epoch', 'eval_result', 'args', 'motion_stats'})."""
-        if fmt != "msgpack":
-            _raise_orbax()
+        """`<epoch>.msgpack`, or `<epoch>.orbax` at `fmt` 'orbax' (an
+        Orbax directory under the absolute path, as the JAX trainer
+        writes), of {'params', 'batch_stats', 'opt_state', 'step'}, and
+        its `<epoch>.json` sidecar ({'epoch', 'eval_result', 'args',
+        'motion_stats'})."""
         os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, f"{epoch}.msgpack")
+        if fmt == "orbax":
+            path = os.path.join(os.path.abspath(directory), f"{epoch}.orbax")
+        else:
+            path = os.path.join(directory, f"{epoch}.msgpack")
         save_train_state(path, params_to_flax(self.model.state_dict()),
-                         self.opt_state(), self.step)
+                         self.opt_state(), self.step, fmt=fmt)
         meta = {"epoch": epoch + 1, "eval_result": eval_result,
                 "args": {k: getattr(self.cfg, k)
                          for k in self.cfg.__dataclass_fields__
@@ -372,10 +374,9 @@ class Trainer:
 
     def load_checkpoint(self, path: str) -> int:
         """Resume from an epoch checkpoint (this trainer's or the JAX
-        trainer's msgpack file under the same TrainConfig): the prior, the
-        Adam moments and count, and the step.  Returns the step."""
-        if os.path.isdir(path):
-            _raise_orbax()
+        trainer's msgpack file or Orbax directory under the same
+        TrainConfig): the prior, the Adam moments and count, and the step.
+        Returns the step."""
         blob = load_train_state(path)
         self.model.load_state_dict(params_from_flax(
             {"params": blob["params"], "batch_stats": blob["batch_stats"]}))
@@ -385,9 +386,3 @@ class Trainer:
                             self.opt_spec.schedule is not None)
         self.step = int(blob["step"])
         return self.step
-
-
-def _raise_orbax():
-    raise NotImplementedError(
-        "Orbax checkpoints are not ported to the PyTorch trainer yet "
-        "(ROADMAP §A item 3a); use --checkpoint_format msgpack")

@@ -7,7 +7,9 @@ small size; chip_smoke's phase 3i (evaluate_all) at a small size and the
 device trace; prior-bank selection through device staging and one joint
 train step against the CPU's; the preprocessing ETL's argmax and
 unprojection, RANSAC, the two-view pose and `process_sequence`, card
-against CPU.
+against CPU; Orbax checkpoints on the card: the JAX-written fixture read
+and resumed, a trainer's Orbax checkpoint resumed like its msgpack twin,
+and an Orbax prior feeding a solve through kernels 1 and 2.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -705,3 +707,84 @@ def test_process_sequence_on_the_card_matches_the_cpu(gen, tmp_path):
         [os.path.dirname(p) for p in out["cuda"]],
         [os.path.dirname(p) for p in out["cpu"]])
     assert pose <= 1e-4 and cam <= 1e-5 and maps, (pose, cam)
+
+
+# ---------------------------------------------------------------------------
+# Orbax checkpoints on the card
+# ---------------------------------------------------------------------------
+
+def test_orbax_fixture_reads_and_resumes_on_the_card(gen):
+    """The JAX-written fixture (tests/torch_fixtures/orbax_jax/) read bit
+    for bit against its expected.npz, and a port trainer on the card
+    resumed from its epoch checkpoint: the state read back from the card
+    equal bit for bit to the fixture's."""
+    n, bad = chip_smoke.read_fixture()
+    assert n > 200 and bad == []
+    ft = chip_smoke.fixture_trainer(torch, "cuda")
+    step = ft.load_checkpoint(os.path.join(chip_smoke.ORBAX_FIXTURE,
+                                           "checkpoints", "0.orbax"))
+    want = {k: x for k, x in np.load(os.path.join(
+        chip_smoke.ORBAX_FIXTURE, "expected.npz")).items()
+        if k.startswith("epoch/")}
+    assert step == int(want["epoch/step"]) > 0
+    assert all(p.is_cuda for p in ft.model.parameters())
+    assert chip_smoke.leaves_differ(chip_smoke.trainer_leaves(ft), want) == []
+
+
+def test_trainer_saves_orbax_and_resumes_like_msgpack_on_the_card(
+        gen, tmp_path):
+    """A trainer on the card (the fixture's configuration) trains an epoch
+    and saves it as Orbax and as msgpack; a trainer resumed from each holds
+    the saver's state bit for bit, and one more epoch each (cuDNN
+    deterministic) ends at the same step and eval (1e-5 relative, phase
+    3j's resume bar)."""
+    with chip_smoke.cudnn_deterministic(torch):
+        tr = chip_smoke.fixture_trainer(torch, "cuda")
+        tr.train(log_fn=lambda *_: None)
+        saved = chip_smoke.trainer_leaves(tr)
+        out = {}
+        for fmt in ("orbax", "msgpack"):
+            path = tr.save_checkpoint(str(tmp_path), 0, 1.0, fmt=fmt)
+            t = chip_smoke.fixture_trainer(torch, "cuda")
+            assert t.load_checkpoint(path) == tr.step
+            assert chip_smoke.leaves_differ(chip_smoke.trainer_leaves(t),
+                                            saved) == []
+            t.train(log_fn=lambda *_: None)
+            out[fmt] = (t.step, t.history[-1]["eval_mpjpe"])
+    assert out["orbax"][0] == out["msgpack"][0] == 2 * tr.step
+    assert out["orbax"][1] == pytest.approx(out["msgpack"][1], rel=1e-5)
+
+
+def test_orbax_prior_feeds_a_solve_with_kernels_1_and_2(gen, tmp_path):
+    """A random prior written by save_orbax and read back by
+    load_prior_variables into serve's solve on the card: kernels 1 and 2
+    launched, the optimized poses equal bit for bit to the solve on the
+    prior it was written from (cuDNN deterministic)."""
+    from globalegomocap_tpu_torch.models.checkpoint import (
+        load_prior_variables, save_orbax)
+    from globalegomocap_tpu_torch.models.conv_vae import init_random
+    from globalegomocap_tpu_torch.models.convert import (
+        params_from_flax, params_to_flax)
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    opt, chunks = _small_optimizer()
+    sd = init_random(build_model(opt.cfg),
+                     torch.Generator().manual_seed(0)).state_dict()
+    path = str(tmp_path / "prior.orbax")
+    save_orbax(params_to_flax(sd), path)
+    back = params_from_flax(load_prior_variables(path, 10,
+                                                 (8, 8, 16, 16, 32)))
+    assert sorted(back) == sorted(sd)
+    assert all(torch.equal(back[k], sd[k].cpu()) for k in sd)
+    loaded = SequenceOptimizer(build_model(opt.cfg), back, back, opt.cfg,
+                               device="cuda")
+    with chip_smoke.cudnn_deterministic(torch):
+        want = opt.optimize_chunks_batched(opt.stage(chunks, on_host=True),
+                                           mode="flat").optimized
+        cb.reset_launches()
+        got = loaded.optimize_chunks_batched(
+            loaded.stage(chunks, on_host=True), mode="flat").optimized
+        torch.cuda.synchronize()
+    assert cb.LAUNCHES["fused_stage_energy"] > 0
+    assert cb.LAUNCHES["fused_stage_energy_noreproj"] > 0
+    assert torch.equal(got, want)

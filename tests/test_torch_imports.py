@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of
 `globalegomocap_tpu_torch` loads neither `jax`, `flax`, `optax`, `msgpack`,
-`h5py` (imported only where an HDF5 file is opened) nor anything of the
-JAX package, and its entry points run on the card unless
-told otherwise."""
+`orbax`, `tensorstore`, `zstandard`, `h5py` (imported only where an HDF5
+file is opened) nor anything of the JAX package, and its entry points run
+on the card unless told otherwise."""
 
 import json
 import os
@@ -30,6 +30,7 @@ from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
     crop_peak_native)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "h5py",
+                              "orbax", "tensorstore", "zstandard",
                               "globalegomocap_tpu")]
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -55,7 +56,8 @@ def test_port_imports_no_jax():
                 "train.train_joint", "data.hdf5", "data.mo2cap2",
                 "cli.preprocess", "cli.introspect", "tools.process_test_data",
                 "tools.slam_reader", "tools.bvh", "tools.captury_camera",
-                "tools.prior_tools", "ops.epipolar"):
+                "tools.prior_tools", "ops.epipolar", "native.zstd",
+                "models.ocdbt", "models.orbax"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 

@@ -183,7 +183,8 @@ def test_cli_latent_stats(cli_inputs, capsys):
 def test_cli_flags_and_prior_errors(cli_inputs, tmp_path):
     """JAX's subcommands, flags and defaults, plus --device (default
     cuda); a prior of another latent width raises naming the file; an
-    Orbax directory raises NotImplementedError naming ROADMAP item 3a."""
+    empty directory raises the port's own error naming its missing
+    manifest.ocdbt, where JAX's orbax raises too."""
     _, common, data = cli_inputs
     parser = tcli.build_parser()
     for argv in (["sample", "--ckpt", "c", "--out", "o"],
@@ -198,6 +199,32 @@ def test_cli_flags_and_prior_errors(cli_inputs, tmp_path):
         tcli.main(["latent-stats", "--ckpt", common[1], "--latent_dim",
                    "16", "--data", data, "--device", "cpu"])
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="item 3a"):
+    with pytest.raises(FileNotFoundError, match="manifest.ocdbt"):
         tcli.main(["latent-stats", "--ckpt", str(tmp_path / "orbax"),
                    "--data", data, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        jcli.main(["latent-stats", "--ckpt", str(tmp_path / "orbax"),
+                   "--data", data])
+
+
+def test_cli_latent_stats_on_an_orbax_prior(cli_inputs, capsys, tmp_path):
+    """The CLI prior saved by JAX's save_orbax: latent-stats in the port
+    equal to it on the same prior's msgpack file, and JAX's printed lines
+    on the directory."""
+    from globalegomocap_tpu.models.checkpoint import load_msgpack, save_orbax
+    _, common, data = cli_inputs
+    orbax_dir = str(tmp_path / "prior.orbax")
+    save_orbax(load_msgpack(common[1]), orbax_dir)
+    on_file = tcli.main(["latent-stats"] + common + ["--data", data,
+                                                     "--device", "cpu"])
+    file_lines = capsys.readouterr().out.splitlines()
+    argv = ["latent-stats", "--ckpt", orbax_dir, "--latent_dim", "32",
+            "--data", data]
+    jl, tl, on_dir = run_both(capsys, argv, argv)
+    assert sorted(on_dir) == sorted(on_file)
+    for k in on_file:
+        np.testing.assert_array_equal(on_dir[k], on_file[k], err_msg=k)
+    assert tl == file_lines and len(tl) == 2
+    for a, b in zip(tl, jl):
+        assert float(a.split()[-1]) == pytest.approx(float(b.split()[-1]),
+                                                     abs=1e-4)

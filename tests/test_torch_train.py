@@ -466,14 +466,17 @@ def test_port_checkpoint_resumes_in_jax(data, tmp_path, opt):
 
 
 def test_port_checkpoint_of_another_optimizer_is_refused(data, tmp_path):
+    """An Adam checkpoint, msgpack file or Orbax directory, resumed by an
+    AdamW trainer: ValueError naming opt_state."""
     jt = jax_trainer(data, epochs=1)
     tt = port_trainer(data, jt, epochs=1)
     path = tt.save_checkpoint(str(tmp_path), 0, 1.0)
+    orbax_dir = tt.save_checkpoint(str(tmp_path), 0, 1.0, fmt="orbax")
     other = port_trainer(data, jt, epochs=1, **OPTIMIZERS["adamw"])
     with pytest.raises(ValueError, match="opt_state"):
         other.load_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3a"):
-        other.load_checkpoint(str(tmp_path))
+    with pytest.raises(ValueError, match="opt_state"):
+        other.load_checkpoint(orbax_dir)
 
 
 def test_epoch_checkpoint_loads_as_a_prior_in_both_clis(data, tmp_path):

@@ -65,21 +65,46 @@ def test_parser_has_the_jax_flags_and_defaults():
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--hdf5", "true", "--checkpoint_format", "orbax"], "item 3a"),
-    (["--hdf5_stream", "true", "--checkpoint_format", "orbax"], "item 3a"),
-    (["--checkpoint_format", "orbax"], "item 3a"),
-    (["--num_devices", "2"], "item 4")],
-    ids=["hdf5", "hdf5_stream", "orbax", "num_devices"])
+    (["--num_devices", "2"], "item 4")], ids=["num_devices"])
 def test_unported_options_raise(amass_dir, tmp_path, monkeypatch, flag,
                                 item):
-    """Orbax checkpoints (with any data source) and data parallelism are
-    refused before any data is read or any file written.  (--hdf5 and
-    --hdf5_stream themselves run: tests/test_torch_hdf5.py.)"""
+    """Data parallelism is refused before any data is read or any file
+    written.  (Orbax checkpoints run with every data source:
+    test_orbax_epoch_checkpoints_resume_in_both_clis.)"""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         tcli.main(["--train_data_path", amass_dir, "--device", "cpu"]
                   + ARGS + flag)
     assert not os.path.exists(tmp_path / "logs")
+
+
+@pytest.mark.parametrize("source", [
+    ["--hdf5", "true"], ["--hdf5_stream", "true"], []],
+    ids=["hdf5", "hdf5_stream", "orbax"])
+def test_orbax_epoch_checkpoints_resume_in_both_clis(
+        amass_dir, tmp_path, monkeypatch, source):
+    """One epoch at --checkpoint_format orbax from each data source (the
+    corpus packed into HDF5 and read whole or streamed, held on the CPU
+    only as h5py is missing on the card's machine; the pkl directory):
+    <epoch>.orbax and <epoch>.json, and the port's and JAX's train CLIs
+    --resume from the directory, one more epoch of steps each."""
+    monkeypatch.chdir(tmp_path)
+    data = amass_dir
+    if source:
+        from globalegomocap_tpu_torch.data.hdf5 import pack_amass_dir
+        data = pack_amass_dir(amass_dir, str(tmp_path / "corpus.h5"),
+                              frame_num=10)
+    common = ["--train_data_path", data] + ARGS + source
+    first = tcli.main(common + ["--log_dir", "o", "--device", "cpu",
+                                "--checkpoint_format", "orbax"])
+    ckpts = tmp_path / "logs" / "o" / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["0.json", "0.orbax"]
+    assert first.step == (342 if source else 60) // 16
+    ckpt = str(ckpts / "0.orbax")
+    port = tcli.main(common + ["--log_dir", "p", "--device", "cpu",
+                               "--resume", ckpt])
+    jax_run = jcli.main(common + ["--log_dir", "j", "--resume", ckpt])
+    assert port.step == int(jax_run.state.step) == 2 * first.step
 
 
 def test_all_cards_means_one_card_only(amass_dir, tmp_path, monkeypatch):
