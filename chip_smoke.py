@@ -193,6 +193,28 @@ Phases (any failure exits non-zero and prints no result line):
               msgpack priors (poses bit for bit, else the 17 metrics
               within 1 %; kernels 1 and 2 launched as phase 3h counts a
               request).
+3n. parallel - the parallel paths (`parallel/mesh.py`) on the one card,
+              at full width, under cuDNN's deterministic algorithms: (a)
+              one NCCL rank (`spawn(world=1)`): optimize_chunk_sharded on
+              one 100-frame chunk and optimize_chunks_batched at serve's
+              defaults on one 192-window request, flat and vmap, bit for
+              bit and launch for launch against the same calls with no
+              group, and one epoch (20 steps at batch 64) of the train
+              CLI's rank entry, its checkpoint bit for bit against a run
+              with no group; (b) two gloo ranks sharing cuda:0, as
+              --num_devices 2 would start them: the window-sharded chunk
+              and optimize_chunks_batched on 3 chunks (padded to 4) in
+              both modes, each rank's launches as its share predicts
+              (printed before the run), poses within 1e-4 m of (a) at
+              2 + 1 iterations and the 17 metrics within 1 % at serve's
+              defaults; one train step's gradients and Adam's moments
+              against one rank's in relative L2 norm (bars 5e-3, 1e-2
+              for the second moment, each of which the same step with
+              per-rank BatchNorm statistics must exceed), the CLI's rank
+              entry for an epoch
+              (eval within 1e-2 of (a)'s); windows/s a rank, the
+              ChunkResult gather's ms and bytes, train ms a step.  Its
+              launches stay out of the JSON line.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -4088,6 +4110,403 @@ def orbax_phase(torch, seed, dev, fails, card, work, latent=LATENT,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the parallel paths on one card
+# ---------------------------------------------------------------------------
+
+# 5 train pkls of 270 frames: 1,300 windows, 20 steps of 64 an epoch
+PARALLEL_CORPUS = (15, 270)
+
+
+def par_configs(work):
+    """Serve's configuration at its defaults on `work`'s priors, and at
+    --compute_dtype float32 with 2 + 1 iterations (the bf16 tiers branch
+    on rounding already at 2 + 1: ROADMAP §C)."""
+    from dataclasses import replace
+    from globalegomocap_tpu_torch.cli import serve
+    argv = ["--data_root", work[1], "--local_ckpt", work[2], "--global_ckpt",
+            work[3]]
+    cfg32 = serve.config_from_args(serve.build_parser().parse_args(
+        argv + ["--compute_dtype", "float32"]))
+    return {"defaults": serve.config_from_args(
+                serve.build_parser().parse_args(argv)),
+            "2+1": replace(cfg32, solver=replace(cfg32.solver, max_iter=2,
+                                                 global_max_iter=1))}
+
+
+def par_solves(mesh, work, cases, n_chunks) -> dict:
+    """On this rank of `mesh`, under cuDNN's deterministic algorithms:
+    each case (label, config name, kind, chunk count or chunk indices) of
+    the first
+    sequence's chunks, kind 'window' (optimize_chunk_sharded of the first
+    chunk), 'flat' or 'vmap' (optimize_chunks_batched of the first chunks,
+    host-staged): {label: (numpy fields, kernel launches, solve ms)}; on
+    several ranks also 'gather': ms and bytes of the ChunkResult's
+    all_gather at 2 chunks a rank."""
+    import torch
+
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.parallel.mesh import all_gather_fields
+    seq = os.path.join(work[1], sorted(os.listdir(work[1]))[0])
+    chunks = [load_test_chunk(d) for d in list_chunk_dirs(seq)][:n_chunks]
+    cfgs = par_configs(work)
+    opts = {name: SequenceOptimizer(build_model(c), serve.load_state(work[2]),
+                                    serve.load_state(work[3]), c, mesh=mesh)
+            for name, c in cfgs.items()}
+    sync = (lambda: torch.cuda.synchronize(mesh.device)) \
+        if mesh.device.type == "cuda" else (lambda: None)
+    out = {}
+
+    def solve(opt, kind, n):
+        if kind == "window":
+            return opt.optimize_chunk_sharded(chunks[0])
+        idx = range(n) if isinstance(n, int) else n
+        return opt.optimize_chunks_batched(
+            opt.stage([chunks[i] for i in idx], on_host=True), mode=kind)
+
+    with cudnn_deterministic(torch):
+        for name, opt in opts.items():      # warm-up, neither timed nor
+            solve(opt, "flat", 1)           # counted
+        for label, name, kind, n in cases:
+            sync()
+            cb.reset_launches()
+            t0 = time.perf_counter()
+            res = solve(opts[name], kind, n)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            out[label] = ({k: getattr(res, k).float().cpu().numpy()
+                           for k in res._fields},
+                          {k: v for k, v in cb.LAUNCHES.items() if v}, ms)
+    if mesh.size > 1:
+        fields = [torch.zeros(2, 100, 15, 3, device=mesh.device)] * 5
+        times = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            all_gather_fields(mesh, fields)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["gather"] = (sorted(times)[2], 5 * fields[0].numel() * 4)
+    return out
+
+
+def par_train_args(corpus, log_dir, flags=()):
+    """The train CLI's flags at its defaults on `corpus` (local prior, one
+    epoch, no step log; `flags` cut it only in a rehearsal on the CPU),
+    as its ranks take them."""
+    from globalegomocap_tpu_torch.cli import train as cli
+    return cli.build_parser().parse_args([
+        "--train_data_path", corpus, "--local_pose", "true", "--epoch", "1",
+        "--log_step", "0", "--log_dir", log_dir] + list(flags))
+
+
+def flat_step(trainer):
+    """One step on the first batch of the first epoch; the gradients and
+    Adam's moments, each flattened in the order of the parameters (host
+    float32).  The model and the optimizer are put back as they were, so
+    the trainer goes on as if no step had been taken."""
+    import copy
+
+    import numpy as np
+    import torch
+    model0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.optimizer.state_dict())
+    batch = next(iter(trainer.train_ds.epoch_batches(
+        np.random.default_rng(trainer.cfg.seed + 2), trainer.cfg.batch_size)))
+    trainer._train_step(trainer._device_batch(batch), 0)
+    params = list(trainer.model.parameters())
+    st = trainer.optimizer.state
+    out = {k: torch.cat([f(p).reshape(-1) for p in params]).cpu()
+           for k, f in (("grad", lambda p: p.grad),
+                        ("exp_avg", lambda p: st[p]["exp_avg"]),
+                        ("exp_avg_sq", lambda p: st[p]["exp_avg_sq"]))}
+    trainer.model.load_state_dict(model0)
+    trainer.optimizer.load_state_dict(opt0)
+    return out
+
+
+@contextlib.contextmanager
+def per_rank_batch_norm():
+    """Inside the block the train-mode BatchNorm normalises each rank's
+    rows by their own statistics (plain DDP's fault, which trains another
+    model than one card): the reading that the train step's bars must
+    reject."""
+    from globalegomocap_tpu_torch.models import conv_vae
+    sound = conv_vae._batch_norm_train
+    conv_vae._batch_norm_train = lambda bn, x, mesh=None: sound(bn, x)
+    try:
+        yield
+    finally:
+        conv_vae._batch_norm_train = sound
+
+
+def checkpoint_digest(base, log_dir) -> str:
+    import hashlib
+    path = os.path.join(base, "logs", log_dir, "checkpoints", "0.msgpack")
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def par_train(mesh, base, corpus, log_dir, flags, ref=None) -> dict:
+    """On this rank of `mesh`, from `base`: with `ref` (one rank's
+    `flat_step`), one step of the CLI's trainer against it (relative L2
+    norms), and the same step with per-rank BatchNorm statistics
+    (`per_rank_batch_norm`); then the CLI's rank entry
+    (`cli.train.train_rank`) for one epoch under cuDNN's deterministic
+    algorithms: its steps, eval, the epoch's seconds as rank 0's trainer
+    logs them (its steps and their copies, no eval) and checkpoint digest
+    (rank 0)."""
+    import re
+
+    import torch
+
+    from globalegomocap_tpu_torch.cli import train as cli
+    os.chdir(base)
+    sync = (lambda: torch.cuda.synchronize(mesh.device)) \
+        if mesh.device.type == "cuda" else (lambda: None)
+    out = {}
+    args = par_train_args(corpus, log_dir, flags)
+    if ref is not None:
+        trainer = cli.build_trainer(args, mesh)
+        for name in ("rel", "rel_per_rank_bn"):
+            with (per_rank_batch_norm() if name == "rel_per_rank_bn"
+                  else contextlib.nullcontext()):
+                got = flat_step(trainer)
+            out[name] = {k: float((got[k].double() - ref[k].double()).norm()
+                                  / ref[k].double().norm()) for k in ref}
+        del trainer
+    buf = io.StringIO()
+    with cudnn_deterministic(torch), contextlib.redirect_stdout(buf):
+        rec = cli.train_rank(mesh, args)
+    sync()
+    sys.stdout.write(buf.getvalue())
+    logged = re.findall(r"\(([0-9.]+)s\)", buf.getvalue())
+    out["epoch_s"] = float(logged[-1]) if logged else None
+    out["steps"] = rec["step"]
+    out["eval"] = [h["eval_mpjpe"] for h in rec["history"]
+                   if "eval_mpjpe" in h]
+    if mesh.rank == 0:
+        out["digest"] = checkpoint_digest(base, log_dir)
+    return out
+
+
+def par_rank(mesh, work, solve_cases, n_chunks, base, corpus, log_dir,
+             flags, ref=None) -> dict:
+    """A rank of phase 3n: the solves, then training, and the seconds
+    of each."""
+    t0 = time.perf_counter()
+    solves = par_solves(mesh, work, solve_cases, n_chunks)
+    t1 = time.perf_counter()
+    train = par_train(mesh, base, corpus, log_dir, flags, ref)
+    return {"solves": solves, "train": train,
+            "seconds": (t1 - t0, time.perf_counter() - t1)}
+
+
+def parallel_phase(torch, seed, dev, fails, card, work, chunks=CHUNKS,
+                   corpus=PARALLEL_CORPUS, train_flags=()) -> dict:
+    """Phase 3n: the parallel paths on one card, at the prior's full
+    width.  (a) one NCCL rank (`spawn(world=1)`): optimize_chunk_sharded
+    on one chunk, optimize_chunks_batched at serve's defaults on one
+    request of `chunks` chunks, flat and vmap, and one epoch of the train
+    CLI's rank entry (20 steps at batch 64), each equal bit
+    for bit, with the same kernel launches, to the same call here with no
+    group (cuDNN deterministic).  (b) two gloo ranks sharing the card,
+    as the CLI's --num_devices 2 would start them: the window-sharded
+    chunk and optimize_chunks_batched on 3 chunks (padded to 4) in both
+    modes, each rank's launches as its share predicts, poses within 1e-4
+    m of (a) at 2 + 1 iterations and the 17 metrics within 1 % at serve's
+    defaults; one train step's gradients and Adam's moments against one
+    rank's in relative L2 norm, ms a step, and the CLI's rank entry.
+    Prints windows/s a rank, the gather's ms and bytes and train ms a
+    step (recorded, not claimed).  Returns the launch counts of (a)'s
+    run of the request (the JSON line leaves them out).  A rehearsal on
+    the CPU (dev 'cpu', `train_flags` cutting the prior) runs (a) as one
+    gloo rank and (b) on two CPU processes; its launch checks fail there,
+    the kernels being the card's."""
+    import numpy as np
+
+    from globalegomocap_tpu_torch.cli import train as cli
+    from globalegomocap_tpu_torch.evaluation.metrics import (
+        METRIC_KEYS, calculate_errors)
+    from globalegomocap_tpu_torch.optimize.window import num_windows
+    from types import SimpleNamespace
+
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.parallel.mesh import make_mesh, spawn
+    cuda = dev == "cuda"
+    base = os.path.join(work[0], "parallel")
+    data = os.path.join(base, "amass")
+    write_corpus(data, corpus[0], corpus[1], seed + 13)
+    n_frames = load_test_chunk(list_chunk_dirs(os.path.join(
+        work[1], sorted(os.listdir(work[1]))[0]))[0]).n_frames
+    batch = int(par_train_args(data, "-", train_flags).batch_size)
+    steps = (corpus[0] - 10) * (corpus[1] - 10) // batch
+    cfgs = par_configs(work)
+    it = {k: (1 + c.solver.max_iter, 1 + c.solver.global_max_iter)
+          for k, c in cfgs.items()}
+    names = ("fused_stage_energy", "fused_stage_energy_noreproj")
+    one_cases = [("window", "defaults", "window", 1),
+                 ("flat", "defaults", "flat", chunks),
+                 ("vmap", "defaults", "vmap", chunks)]
+    three = [(f"{kind}3@{c}", c, kind, 3)
+             for kind in ("flat", "vmap") for c in ("2+1", "defaults")]
+    short = [(f"window@{c}", c, "window", 1) for c in ("2+1", "defaults")]
+    # one rank's flat solves of what each of two ranks solves: chunks 0
+    # and 1, and chunk 2 with its edge copy (the same batches, so the
+    # same cuDNN algorithms)
+    halves = [("flat2@2+1", "2+1", "flat", (0, 1)),
+              ("flat2b@2+1", "2+1", "flat", (2, 2))]
+
+    # what each run must launch: kernels 1 and 2 once a stage-1 and a
+    # stage-2 evaluation, per chunk in mode 'vmap'; a rank of two on 3
+    # chunks padded to 4 solves 2
+    def predicted(label, per_rank_chunks):
+        c = label.split("@")[-1] if "@" in label else "defaults"
+        k1, k2 = it[c]
+        n = per_rank_chunks if label.startswith("vmap") else 1
+        return {names[0]: n * k1, names[1]: n * k2}
+    want_a = {lab: predicted(lab, chunks if lab == "vmap" else 3)
+              for lab, *_ in one_cases + three + short + halves}
+    want_b = {lab: predicted(lab, 2) for lab, *_ in three + short}
+    print("  predicted launches (kernel 1, kernel 2): one rank "
+          + ", ".join(f"{k} {tuple(v.values())}" for k, v in want_a.items())
+          + "; each of two ranks "
+          + ", ".join(f"{k} {tuple(v.values())}" for k, v in want_b.items()),
+          flush=True)
+
+    # no group, here: the solves and the CLI's epoch, and one rank's
+    # first step for (b)
+    t0 = time.perf_counter()
+    here = par_solves(make_mesh(device=dev), work, one_cases, chunks)
+    with contextlib.chdir(base):      # cli.train, with its trainer's
+        trainer = cli.build_trainer(     # first step taken aside first
+            par_train_args(data, "here", train_flags), make_mesh(device=dev))
+        ref = flat_step(trainer)
+        with cudnn_deterministic(torch):
+            trainer.train(checkpoint_dir=os.path.join("logs", "here",
+                                                      "checkpoints"))
+        del trainer
+    here_digest = checkpoint_digest(base, "here")
+    print(f"  no group: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) one NCCL rank
+    t0 = time.perf_counter()
+    dev = "cuda:0" if cuda else dev
+    (a,) = spawn(par_rank, 1, [dev], "nccl" if cuda else "gloo",
+                 timeout_s=600, args=(work, one_cases + three + short[:1]
+                                      + halves, chunks, base, data, "a",
+                                      train_flags))
+    a["solves"]["window@defaults"] = a["solves"]["window"]
+    print(f"  (a) one {'NCCL' if cuda else 'gloo'} rank: "
+          f"{time.perf_counter() - t0:.1f} s (in the rank: solves "
+          f"{a['seconds'][0]:.1f} s, train {a['seconds'][1]:.1f} s)",
+          flush=True)
+    for lab, *_ in one_cases:
+        f_a, l_a, ms = a["solves"][lab]
+        f_h, l_h, _ = here[lab]
+        same = all(np.array_equal(f_a[k], f_h[k]) for k in f_h)
+        fails.check(same and l_a == l_h == want_a[lab],
+                    f"(a) {lab} at serve's defaults on one NCCL rank: bit "
+                    f"for bit {same} against no group; launches {l_a}, no "
+                    f"group {l_h}, predicted {want_a[lab]}; {ms:.1f} ms "
+                    f"[{card}]")
+    for lab, *_ in three + short[:1] + halves:
+        fails.check(a["solves"][lab][1] == want_a[lab],
+                    f"(a) {lab}: launches {a['solves'][lab][1]}, predicted "
+                    f"{want_a[lab]}")
+    ta = a["train"]
+    fails.check(ta["steps"] == steps and ta["digest"] == here_digest,
+                f"(a) the train CLI's rank entry: {ta['steps']} steps, eval "
+                f"{ta['eval']}, checkpoint bit for bit against no group "
+                f"{ta['digest'] == here_digest}; "
+                f"{ta['epoch_s'] / steps * 1e3:.1f} ms a step [{card}]")
+    wins = num_windows(n_frames) * chunks
+    print(f"  (a) windows/s: flat {wins / a['solves']['flat'][2] * 1e3:.1f}"
+          f", vmap {wins / a['solves']['vmap'][2] * 1e3:.1f} [{card}]",
+          flush=True)
+
+    # (b) two gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    b = spawn(par_rank, 2, [dev, dev], "gloo", timeout_s=600,
+              args=(work, three + short, 3, base, data, "b", train_flags,
+                    ref))
+    print(f"  (b) two gloo ranks on one card: {time.perf_counter() - t0:.1f}"
+          f" s (in rank 0: solves {b[0]['seconds'][0]:.1f} s, train "
+          f"{b[0]['seconds'][1]:.1f} s)", flush=True)
+    keys = METRIC_KEYS
+
+    def metrics(f):
+        t = {k: torch.from_numpy(v) for k, v in f.items()}
+        if t["optimized"].dim() == 3:
+            t = {k: v[None] for k, v in t.items()}
+        return mean_metrics([SimpleNamespace(**t)], calculate_errors, keys)
+
+    same_batches = {k: np.concatenate([a["solves"]["flat2@2+1"][0][k],
+                                       a["solves"]["flat2b@2+1"][0][k][:1]])
+                    for k in a["solves"]["flat2@2+1"][0]}
+    for lab, *_ in three + short:
+        f_a = a["solves"][lab][0]
+        for r, rec in enumerate(b):
+            f_b, l_b, ms = rec["solves"][lab]
+            if lab == "flat3@2+1":      # float32, each rank's batches
+                gap = max(float(np.abs(f_b[k] - same_batches[k]).max())
+                          for k in f_b)
+                alt = max(float(np.abs(f_b[k] - f_a[k]).max()) for k in f_a)
+                ok, what = gap <= 1e-4, (
+                    f"poses within {gap:.3e} m of (a)'s flat solves of the "
+                    f"same batches ({alt:.3e} m of (a)'s 3-chunk batch, "
+                    f"which cuDNN convolves by other algorithms)")
+            elif lab.endswith("2+1"):      # float32
+                gap = max(float(np.abs(f_b[k] - f_a[k]).max()) for k in f_a)
+                ok, what = gap <= 1e-4, f"poses within {gap:.3e} m of (a)"
+            else:
+                gap = worst_relative(metrics(f_b), metrics(f_a), keys)
+                ok, what = gap <= 0.01, f"17 metrics within {gap:.3e} of (a)"
+            per = num_windows(n_frames)
+            rows = 2 * per if lab[:4] in ("flat", "vmap") else -(-per // 2)
+            fails.check(ok and l_b == want_b[lab],
+                        f"(b) rank {r} {lab}: {what} (bar "
+                        f"{'1e-4 m' if lab.endswith('2+1') else '1 %'}); "
+                        f"launches {l_b}, predicted {want_b[lab]}; "
+                        f"{ms:.1f} ms, {rows / ms * 1e3:.1f} windows/s "
+                        f"[{card}]")
+        g_ms, g_bytes = b[0]["solves"]["gather"]
+        if lab == "flat3@defaults":
+            print(f"  (b) the ChunkResult's all_gather at 2 chunks a rank: "
+                  f"{g_ms:.3f} ms, {g_bytes} bytes a rank [{card}]",
+                  flush=True)
+    # near the geometric mean of the sound step's relative L2 and the
+    # per-rank statistics' on the H100 at full width (2.4e-4 and 0.13 for
+    # the gradients and the first moment, 2.6e-4 and 0.43 for the second),
+    # so each side has a margin of 20x or more
+    bars = {"grad": 5e-3, "exp_avg": 5e-3, "exp_avg_sq": 1e-2}
+    for r, rec in enumerate(b):
+        tb = rec["train"]
+        sound, fault = tb["rel"], tb["rel_per_rank_bn"]
+        fails.check(all(sound[k] <= bars[k] < fault[k] for k in bars),
+                    f"(b) rank {r} one train step against one rank, relative"
+                    f" L2: " + ", ".join(
+                        f"{k} {sound[k]:.3e} (bar {bars[k]:g}; per-rank "
+                        f"BatchNorm statistics {fault[k]:.3e})"
+                        for k in bars))
+    t0, t1 = b[0]["train"], b[1]["train"]
+    gap = abs(t0["eval"][-1] - ta["eval"][-1]) / ta["eval"][-1]
+    fails.check(t0["steps"] == t1["steps"] == steps and t1["eval"] == []
+                and gap <= 1e-2,
+                f"(b) the train CLI's rank entry: {t0['steps']} and "
+                f"{t1['steps']} steps, rank 0's eval {t0['eval'][-1]:.6f} "
+                f"against (a)'s {ta['eval'][-1]:.6f} ({gap:.3e}, bar 1e-2), "
+                f"rank 1 logging none; {t0['epoch_s'] / steps * 1e3:.1f} ms "
+                f"a step [{card}]")
+    return {k: v for k, v in a["solves"]["flat"][1].items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4249,6 +4668,13 @@ def main(argv=None) -> int:
                                    work).items():
             launches[name] += n
         phase_done("orbax", t0)
+        # ---- 3n. the parallel paths on one card ----------------------------
+        print("[3n] the parallel paths on one card (one NCCL rank against "
+              "no group; two gloo ranks sharing the card: the window- and "
+              "chunk-sharded solves and data-parallel training)", flush=True)
+        t0 = time.perf_counter()
+        parallel_phase(torch, args.seed, "cuda", fails, card, work)
+        phase_done("parallel", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -1,4 +1,5 @@
-"""Train the motion-VAE prior (relative-global or local-pose) on one card.
+"""Train the motion-VAE prior (relative-global or local-pose) on one card
+or data-parallel over several.
 
 The PyTorch counterpart of `globalegomocap_tpu/cli/train.py`, with its
 parser flag for flag and default for default (the reference's training
@@ -18,9 +19,14 @@ streams the same split from the file (`HDF5WindowStream`), for corpora
 that do not fit in memory.  Checkpoints go to logs/<log_dir>/checkpoints
 as <epoch>.msgpack (the JAX trainer's file), or <epoch>.orbax (an Orbax
 directory, `models/orbax.py`) at --checkpoint_format orbax, and
-<epoch>.json; --resume takes either.  Not ported yet, and refused with
-NotImplementedError: data parallelism over more than one card
-(--num_devices, ROADMAP §A item 4).
+<epoch>.json; --resume takes either.
+
+--num_devices N above 1 trains data-parallel on N ranks, one process
+each (`parallel/mesh.py::spawn`): NCCL over cuda:0..N-1, or gloo over N
+CPU processes with --device cpu.  0 (the default) means every visible
+card, one process where one card is visible; more ranks than cards
+raises ValueError.  Every rank reads the same batches of any data source
+and trains on its rows; rank 0 prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -80,8 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, type=str,
                    help="path to an epoch .msgpack checkpoint to resume")
     p.add_argument("--num_devices", default=0, type=int,
-                   help="devices for data parallelism (0 = all); the port "
-                        "trains on one card")
+                   help="devices for data parallelism (0 = all)")
     p.add_argument("--hdf5", default=False, type=str2bool,
                    help="train_data_path is a packed HDF5 file")
     p.add_argument("--hdf5_stream", default=False, type=str2bool,
@@ -104,23 +109,67 @@ def load_mo2cap2_names(path: str | None):
         return [line.strip() for line in f if line.strip()]
 
 
-def check_supported(args, device) -> None:
-    """NotImplementedError for the options the port does not run yet,
-    each naming its ROADMAP item; never a silent substitute."""
-    from globalegomocap_tpu_torch.train.train_vae import check_one_device
-    check_one_device(args.num_devices, device)
+def ranks_for(num_devices: int, device) -> int:
+    """The number of ranks --num_devices asks for on `device`: on the
+    card, 0 is every visible card and more than are visible raises
+    ValueError naming both counts; on the CPU, 0 is one rank."""
+    import torch
+    if device.type != "cuda":
+        return max(1, num_devices)
+    cards = torch.cuda.device_count()
+    if num_devices > cards:
+        raise ValueError(f"--num_devices {num_devices} asks for more ranks "
+                         f"than the {cards} visible card(s)")
+    return num_devices or cards
 
 
 def main(argv=None):
+    """Train as the flags say: returns the trainer, or over several
+    ranks rank 0's {'step', 'history'}."""
     args = build_parser().parse_args(argv)
 
-    from globalegomocap_tpu_torch.config import TrainConfig
-    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    import torch.distributed as dist
+
     from globalegomocap_tpu_torch.device import resolve_device
-    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    from globalegomocap_tpu_torch.parallel.mesh import make_mesh, spawn
 
     device = resolve_device(args.device)
-    check_supported(args, device)
+    args.log_dir = args.log_dir or datetime.datetime.now().strftime(
+        "%m.%d-%H.%M.%S")
+    if dist.is_available() and dist.is_initialized():   # under torchrun
+        return train(args, make_mesh(
+            args.num_devices or None,
+            device=None if device.type == "cuda" else device))
+    world = ranks_for(args.num_devices, device)
+    if world == 1:
+        return train(args, make_mesh(device=device))
+    devices = ([f"cuda:{i}" for i in range(world)] if device.type == "cuda"
+               else ["cpu"] * world)
+    return spawn(train_rank, world, devices, args=(args,))[0]
+
+
+def train_rank(mesh, args) -> dict:
+    """One rank of a data-parallel run: {'step', 'history'}."""
+    trainer = train(args, mesh)
+    return {"step": trainer.step, "history": trainer.history}
+
+
+def train(args, mesh):
+    """The run on this rank of `mesh`; returns the trainer."""
+    trainer = build_trainer(args, mesh)
+    ckpt_dir = os.path.join("logs", args.log_dir, "checkpoints")
+    trainer.train(checkpoint_dir=ckpt_dir,
+                  checkpoint_format=args.checkpoint_format)
+    return trainer
+
+
+def build_trainer(args, mesh):
+    """The datasets and the trainer of the flags on this rank of `mesh`
+    (resumed from --resume), before any step."""
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+
     cfg = TrainConfig(
         train_data_path=args.train_data_path,
         latent_dim=args.latent_dim, seq_length=args.seq_length,
@@ -163,17 +212,13 @@ def main(argv=None):
             balance_walking=args.data_balance, mo2cap2_names=names,
             dilation=args.slide_window_step) for is_train in (True, False))
 
-    print(f"train windows: {len(train_ds)}, test windows: {len(test_ds)}")
+    if mesh.rank == 0:
+        print(f"train windows: {len(train_ds)}, test windows: "
+              f"{len(test_ds)}")
 
-    trainer = Trainer(cfg, train_ds, test_ds, device=device)
+    trainer = Trainer(cfg, train_ds, test_ds, mesh=mesh)
     if args.resume:
         trainer.load_checkpoint(args.resume)
-
-    log_dir = args.log_dir or datetime.datetime.now().strftime(
-        "%m.%d-%H.%M.%S")
-    ckpt_dir = os.path.join("logs", log_dir, "checkpoints")
-    trainer.train(checkpoint_dir=ckpt_dir,
-                  checkpoint_format=args.checkpoint_format)
     return trainer
 
 

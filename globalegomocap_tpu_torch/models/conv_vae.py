@@ -31,6 +31,9 @@ once.
 Training (`train/train_vae.py`) runs `encode` / `decode` with
 `train=True`: BatchNorm then normalises with the batch statistics and
 moves the running ones as Flax's does (biased variance, momentum 0.9).
+With a `mesh` of several ranks (data parallelism, `parallel/mesh.py`)
+the batch statistics are those of the global batch, every rank's rows,
+as JAX's jit over a sharded batch computes them.
 `reparameterize` takes its noise from the caller, `vae_loss` is the
 reference's ELBO, and `init_flax_like` draws a fresh prior from Flax's
 default distributions (`init_random`, PyTorch-like, makes the seeded
@@ -45,6 +48,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from globalegomocap_tpu_torch.parallel.mesh import all_reduce
 
 
 def _block(conv: nn.Module, channels: int, use_bn: bool) -> nn.Sequential:
@@ -119,27 +124,32 @@ class ConvVAE(nn.Module):
         return m
 
     def _conv_block(self, block: nn.Sequential, x: torch.Tensor,
-                    transposed: bool, train: bool = False) -> torch.Tensor:
+                    transposed: bool, train: bool = False,
+                    mesh=None) -> torch.Tensor:
         """conv -> BN (float32, result in dtype) -> LeakyReLU in dtype.
-        BN uses the running statistics, or with `train` the batch's and
-        updates the running ones (`_batch_norm_train`)."""
+        BN uses the running statistics, or with `train` the batch's (over
+        `mesh`'s ranks) and updates the running ones
+        (`_batch_norm_train`)."""
         conv, bn = block[0], block[1]
         fn = F.conv_transpose1d if transposed else F.conv1d
         dt = self.dtype
         x = fn(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
         if isinstance(bn, nn.BatchNorm1d):
             x32 = x.to(torch.float32)
-            x = (_batch_norm_train(bn, x32) if train else F.batch_norm(
-                x32, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                False, 0.0, bn.eps)).to(dt)
+            if not train:
+                x32 = F.batch_norm(x32, bn.running_mean, bn.running_var,
+                                   bn.weight, bn.bias, False, 0.0, bn.eps)
+            else:
+                x32 = _batch_norm_train(bn, x32, mesh)
+            x = x32.to(dt)
         return F.leaky_relu(x, 0.01)
 
-    def encode(self, pose: torch.Tensor, train: bool = False):
+    def encode(self, pose: torch.Tensor, train: bool = False, mesh=None):
         """pose (B, T, C) -> (mu, log_var), each (B, latent); mu in the
         head dtype, log_var in dtype."""
         h = pose.to(self.dtype).transpose(1, 2)
         for block in self.encoder:
-            h = self._conv_block(block, h, False, train)
+            h = self._conv_block(block, h, False, train, mesh)
         h = h.flatten(1)                   # channel-major (C, T) flatten
         head = self.head_dtype or self.dtype
         mu = F.linear(h.to(head), self.fc_mu.weight.to(head),
@@ -148,15 +158,16 @@ class ConvVAE(nn.Module):
                            self.fc_var.bias.to(self.dtype))
         return mu, log_var
 
-    def decode(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool = False,
+               mesh=None) -> torch.Tensor:
         """z (B, latent) -> (B, T, out_channels) in dtype."""
         dt = self.dtype
         h = F.linear(z.to(dt), self.decoder_input.weight.to(dt),
                      self.decoder_input.bias.to(dt))
         h = h.view(-1, self.hidden_dims[-1], self.seq_len)
         for block in self.decoder:
-            h = self._conv_block(block, h, True, train)
-        h = self._conv_block(self.final_layer, h, True, train)
+            h = self._conv_block(block, h, True, train, mesh)
+        h = self._conv_block(self.final_layer, h, True, train, mesh)
         out = self.final_layer[3]
         h = F.conv1d(h, out.weight.to(dt), out.bias.to(dt), padding=1)
         return h.transpose(1, 2)
@@ -166,24 +177,41 @@ class ConvVAE(nn.Module):
         return self.decode(z).reshape(-1, self.seq_len, 15, 3)
 
     def forward(self, pose: torch.Tensor, train: bool = False,
-                noise: torch.Tensor | None = None):
+                noise: torch.Tensor | None = None, mesh=None):
         """Encode, reparameterise with `noise` (z = mu without it) and
         decode: (reconstruction, mu, log_var).  `train` runs BN on the
-        batch statistics and updates the running ones, as the JAX model's
-        `train=True` with `mutable=['batch_stats']`."""
-        mu, log_var = self.encode(pose, train)
-        return self.decode(reparameterize(mu, log_var, noise), train), \
-            mu, log_var
+        batch statistics (over `mesh`'s ranks) and updates the running
+        ones, as the JAX model's `train=True` with
+        `mutable=['batch_stats']`."""
+        mu, log_var = self.encode(pose, train, mesh)
+        return self.decode(reparameterize(mu, log_var, noise), train,
+                           mesh), mu, log_var
 
 
-def _batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def _batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
     """Flax's train-mode BatchNorm on float32 (B, C, T): normalise with
     the batch mean and the biased variance E[x^2] - E[x]^2 (clamped at 0),
     and move the running statistics by momentum 0.9 towards them.  Not
     `F.batch_norm(training=True)`, whose running variance takes the
-    unbiased estimate, n/(n-1) times Flax's."""
-    mean = x.mean(dim=(0, 2))
-    var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    unbiased estimate, n/(n-1) times Flax's.
+
+    Over a `mesh` of several ranks the statistics are the global batch's:
+    the per-channel sums of x and x^2 and the row count go through the
+    differentiable all_reduce (so the backward carries the other ranks'
+    terms), and the running statistics come out equal on every rank.
+    Per-rank statistics (plain DDP) would train another model than the
+    JAX package's."""
+    if mesh is None or mesh.size == 1:
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    else:
+        c = x.shape[1]
+        sums = all_reduce(mesh, torch.cat([
+            x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+            x.new_full((1,), float(x.shape[0] * x.shape[2]))]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(mean.detach(), alpha=0.1)
         bn.running_var.mul_(0.9).add_(var.detach(), alpha=0.1)

@@ -80,19 +80,22 @@ class JointLocalGlobalVAE(nn.Module):
         return self._modules["global"]
 
     def forward(self, local_pose: torch.Tensor, cameras: torch.Tensor,
-                train: bool = False, noise=None) -> JointVAEOutput:
+                train: bool = False, noise=None,
+                mesh=None) -> JointVAEOutput:
         """local_pose: (B, T, 45) camera-frame windows; cameras: (B, T, 4,
         4) cam->world matrices; noise: None (z = mu) or the pair (local,
         global) of standard normal (B, latent) draws.  `train` runs the
-        BatchNorms on the batch statistics and moves the running ones."""
+        BatchNorms of both branches on the batch statistics (the global
+        batch's over `mesh`'s ranks) and moves the running ones; the lifts
+        are per row and need no mesh."""
         ln, gn = (None, None) if noise is None else noise
-        lmu, llv = self.local_vae.encode(local_pose, train)
+        lmu, llv = self.local_vae.encode(local_pose, train, mesh)
         local_recon = self.local_vae.decode(reparameterize(lmu, llv, ln),
-                                            train)
+                                            train, mesh)
         gmu, glv = self.global_vae.encode(_rel_global(local_pose, cameras),
-                                          train)
+                                          train, mesh)
         global_recon = self.global_vae.decode(reparameterize(gmu, glv, gn),
-                                              train)
+                                              train, mesh)
         lifted = _rel_global(local_recon.to(torch.float32), cameras)
         return JointVAEOutput(local_recon, global_recon, lmu, llv, gmu, glv,
                               lifted)

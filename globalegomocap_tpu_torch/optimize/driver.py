@@ -14,6 +14,15 @@ isolation, or with batched=True one staged flat solve a sequence, as
 configuration is built from the full resolved config, so nothing keys a
 cache on a partial view of it.
 
+Over a mesh of several ranks (`parallel/mesh.py`; `make_mesh()` at
+construction, one rank without a process group) the chunk axis is
+sharded as the JAX driver shards it over its devices: staging edge-pads
+the chunks to a multiple of the mesh size and each rank stages only its
+own slice, `optimize_chunks_batched` solves each rank's slice with no
+collective and gathers the ChunkResult once, and `optimize_chunk_sharded`
+shards one chunk's windows (`parallel/window_shard.py`).  A mesh of one
+rank pads nothing and makes no collective call.
+
 On the card a warm `optimize_chunks_batched(staged)` waits for nothing:
 the solve's constants (the camera, the weight rows, the window and merge
 tables, the step lengths) are built on the device once, so the call only
@@ -38,7 +47,6 @@ import torch
 from globalegomocap_tpu_torch.config import OptimizeConfig, with_overrides
 from globalegomocap_tpu_torch.data.test_data import (
     TestChunk, list_chunk_dirs, load_test_chunk)
-from globalegomocap_tpu_torch.device import resolve_device
 from globalegomocap_tpu_torch.energy.terms import (
     crop_coverage_mean, crop_coverage_np,
     crop_heatmaps_at_centers_channels_last,
@@ -53,6 +61,11 @@ from globalegomocap_tpu_torch.optimize import pipeline
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
 from globalegomocap_tpu_torch.optimize.prior_bank import (
     PriorBank, motion_accel_stat, motion_accel_stat_torch, nearest_index)
+from globalegomocap_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_fields, all_reduce, make_mesh, pad_to_multiple,
+    shard_batch)
+from globalegomocap_tpu_torch.parallel.window_shard import (
+    optimize_chunk_window_sharded)
 
 
 def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
@@ -119,15 +132,20 @@ class SequenceOptimizer:
     which staged pair it solves with.  Without a bank, `prior_accel_mean`
     (the held priors' training statistic, the trainer's
     `motion_stats["accel_mean"]`) warns once when a batch's statistic is
-    more than `mismatch_warn_ratio` times off, either way."""
+    more than `mismatch_warn_ratio` times off, either way.
+
+    `mesh` (default `make_mesh(device=device)`; its device is the solve
+    device) shards the batched solve's chunk axis over its ranks."""
 
     def __init__(self, model: ConvVAE, local_state: dict,
                  global_state: dict, cfg: OptimizeConfig, device=None,
                  prior_bank: PriorBank | None = None,
                  prior_accel_mean: float | None = None,
-                 mismatch_warn_ratio: float = 2.0):
+                 mismatch_warn_ratio: float = 2.0,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh(device=device)
+        self.device = self.mesh.device
         self._camera = resolve_camera(cfg)
         self._camera_dev = self._camera.to(self.device)
         self.prior_accel_mean = prior_accel_mean
@@ -268,15 +286,50 @@ class SequenceOptimizer:
         on_host=False (the JAX default) moves each chunk's full maps to
         the device once and crops there (`_stage_device`); the two are
         bit-identical (crops and origins; the coverage within float32
-        rounding, 1e-6 relative)."""
+        rounding, 1e-6 relative).
+
+        Over a mesh of several ranks the chunk axis is edge-padded to a
+        multiple of the mesh size and each rank stages only its own slice
+        of it (`n_chunks` stays the unpadded count).  The guard's coverage
+        is the mean over the unpadded chunks (each rank's sum over its
+        real chunks, summed over the ranks), and the motion statistic is
+        taken on the host over the padded stack, as in the JAX driver,
+        where duplicated edge chunks weigh in."""
         if not chunks:
             raise ValueError("stage() needs at least one chunk")
         if len({c.n_frames for c in chunks}) != 1:
             raise ValueError("stage() requires equal-length chunks; use "
                              "optimize_chunk per chunk or "
                              "optimize_sequence_dir for mixed lengths")
-        if not on_host:
-            return self._stage_device(chunks, coverage)
+        n = len(chunks)
+        if self.mesh.size == 1:
+            local, n_real = chunks, n
+        else:
+            idx = shard_batch(self.mesh,
+                              pad_to_multiple(np.arange(n), self.mesh.size)[0])
+            local = [chunks[i] for i in idx]
+            # the padding repeats the last chunk at the end of the axis
+            n_real = min(max(n - self.mesh.rank * len(idx), 0), len(idx))
+        staged = (self._stage_host if on_host else self._stage_device)(
+            local, coverage, n_real)
+        if self.mesh.size == 1:
+            return staged
+        est = pad_to_multiple(_stack(chunks, "estimated_local"),
+                              self.mesh.size)[0]
+        return replace(staged, n_chunks=n, accel_mean=self._accel_stat(est))
+
+    def _mean_over_ranks(self, total, count: int) -> float:
+        """A mean over every rank's real chunks from this rank's `total`
+        over its `count` real chunks (one all_reduce)."""
+        t = torch.stack([torch.as_tensor(total, dtype=torch.float64).cpu(),
+                         torch.tensor(float(count), dtype=torch.float64)])
+        t = all_reduce(self.mesh, t)
+        return float(t[0] / t[1])
+
+    def _stage_host(self, chunks: list[TestChunk], coverage: float | None,
+                    n_real: int) -> StagedBatch:
+        """stage(on_host=True) of this rank's chunks (the first `n_real`
+        of them real, the rest padding)."""
         cfg = self.cfg
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
@@ -293,8 +346,11 @@ class SequenceOptimizer:
                     ratios.append(crop_coverage_np(box, total))
         if coverage is not None:
             cov = coverage
-        elif guard_on:
+        elif guard_on and self.mesh.size == 1:
             cov = float(np.mean(ratios))
+        elif guard_on:
+            cov = self._mean_over_ranks(float(np.sum(ratios[:n_real])),
+                                        n_real)
         else:
             cov = None
         eff = self._cfg_for_coverage(cov)
@@ -326,19 +382,21 @@ class SequenceOptimizer:
             heat=self._put(heat), gt=self._put(_stack(chunks, "gt_global")),
             n_chunks=len(chunks), crop_coverage=cov,
             origins=None if origins is None else self._put(origins),
-            full_hw=full_hw, accel_mean=self._accel_stat(est))
+            full_hw=full_hw, accel_mean=(self._accel_stat(est)
+                                         if self.mesh.size == 1 else None))
 
     def _stage_device(self, chunks: list[TestChunk],
-                      coverage: float | None) -> StagedBatch:
-        """stage(on_host=False): each chunk's full maps go to the device
-        once; the crops are cut there (`crop_heatmaps_channels_last`, a
-        gather: the JAX package's `stage_crop_impl="onehot"` is a TPU
-        matmul trick for the same selection) over segments of
-        cfg.stage_segment_chunks chunks, as the JAX driver segments its
-        staging program; the guard's coverage is computed on the device
-        (`crop_coverage_mean`) and read back once for the batch.  The
-        estimate centres of a tripped guard come from the host estimates,
-        as in host staging, so both stagings cut the same crops."""
+                      coverage: float | None, n_real: int) -> StagedBatch:
+        """stage(on_host=False) of this rank's chunks (the first `n_real`
+        of them real): each chunk's full maps go to the device once; the
+        crops are cut there (`crop_heatmaps_channels_last`, a gather: the
+        JAX package's `stage_crop_impl="onehot"` is a TPU matmul trick for
+        the same selection) over segments of cfg.stage_segment_chunks
+        chunks, as the JAX driver segments its staging program; the
+        guard's coverage is computed on the device (`crop_coverage_mean`)
+        and read back once for the batch.  The estimate centres of a
+        tripped guard come from the host estimates, as in host staging,
+        so both stagings cut the same crops."""
         cfg = self.cfg
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
@@ -352,10 +410,13 @@ class SequenceOptimizer:
         if coverage is None and self._guard_on():
             # equal-length chunks: the mean of the segments' means,
             # weighted by their sizes, is the mean over every map
-            cov = float(sum(
-                crop_coverage_mean(torch.stack([maps[i] for i in p])
-                                   .movedim(-1, -3), kk) * len(p)
-                for p in parts) / n)
+            real = [q for q in ([i for i in p if i < n_real] for p in parts)
+                    if q]
+            total = sum(crop_coverage_mean(torch.stack([maps[i] for i in p])
+                                           .movedim(-1, -3), kk) * len(p)
+                        for p in real)
+            cov = (float(total / n) if self.mesh.size == 1
+                   else self._mean_over_ranks(total, n_real))
         eff = self._cfg_for_coverage(cov)
         k = eff.heatmap_crop if use_reproj else 0
         full_hw = tuple(maps[0].shape[-3:-1]) if k > 0 else None
@@ -385,7 +446,8 @@ class SequenceOptimizer:
             heat=heat, gt=self._put(_stack(chunks, "gt_global")),
             n_chunks=n, crop_coverage=cov,
             origins=torch.cat(orgs_l) if orgs_l else None, full_hw=full_hw,
-            accel_mean=self._accel_stat(est))
+            accel_mean=(self._accel_stat(est) if self.mesh.size == 1
+                        else None))
 
     def _estimate_centers(self, chunk: TestChunk, h: int, w: int):
         """The guard-trip crop centres (F, J, 2) of one chunk, from its
@@ -423,20 +485,35 @@ class SequenceOptimizer:
         here): mode='flat' as one flat batch of windows (the serving
         path), mode='vmap' (the JAX default) chunk by chunk through the
         per-chunk pipeline (`pipeline.optimize_chunks_batched`).  Returns
-        a ChunkResult with a leading chunk axis."""
+        a ChunkResult with a leading chunk axis.
+
+        Over a mesh of several ranks each rank solves its staged slice
+        with no collective (the JAX driver's shard_map), then one
+        all_gather collects the ChunkResult, sliced to the unpadded
+        chunks; every rank returns the whole result."""
         if mode not in ("flat", "vmap"):
             raise ValueError(f"mode={mode!r}: 'flat' or 'vmap'")
         staged = chunks if isinstance(chunks, StagedBatch) \
             else self.stage(chunks)
+        size = self.mesh.size
+        if staged.est.shape[0] != -(-staged.n_chunks // size):
+            raise ValueError(
+                f"a batch of {staged.n_chunks} chunks staged as "
+                f"{staged.est.shape[0]} a rank: it was staged for another "
+                f"mesh than this optimizer's {size} rank(s)")
         self._consume(staged)
         cfg = self._cfg_for_coverage(staged.crop_coverage)
         solve = (pipeline.optimize_chunks_flat if mode == "flat"
                  else pipeline.optimize_chunks_batched)
         stages = self._select_priors(staged.accel_mean)
         with torch.no_grad():
-            return solve(*stages, staged.est, staged.cams, staged.heat,
-                         staged.gt, self._camera_dev, cfg,
-                         origins=staged.origins, full_hw=staged.full_hw)
+            res = solve(*stages, staged.est, staged.cams, staged.heat,
+                        staged.gt, self._camera_dev, cfg,
+                        origins=staged.origins, full_hw=staged.full_hw)
+            if size == 1:
+                return res
+            return ChunkResult(*(f[:staged.n_chunks] for f in
+                                 all_gather_fields(self.mesh, res)))
 
     def optimize_chunk(self, chunk: TestChunk,
                        cfg: OptimizeConfig | None = None) -> ChunkResult:
@@ -456,6 +533,28 @@ class SequenceOptimizer:
                 f32(chunk.camera_poses), f32(chunk.heatmaps),
                 f32(chunk.gt_global),
                 self._camera_dev, cfg)
+
+    def optimize_chunk_sharded(self, chunk: TestChunk,
+                               cfg: OptimizeConfig | None = None
+                               ) -> ChunkResult:
+        """Optimise one chunk with its window axis sharded over this
+        optimizer's mesh: the path that gives one long sequence
+        more than one card (`parallel/window_shard.py`).  The guard and
+        the prior pair are resolved as in `optimize_chunk`; on a mesh of
+        one rank it is `optimize_chunk`."""
+        if cfg is None:
+            cfg = self._effective_cfg(chunk.heatmaps)
+        dev = self.device
+        f32 = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, dtype=np.float32), device=dev)
+        stages = self._select_priors(self._accel_stat(
+            np.asarray(chunk.estimated_local, dtype=np.float32)))
+        with torch.no_grad():
+            return optimize_chunk_window_sharded(
+                *stages, f32(chunk.estimated_local),
+                f32(chunk.camera_poses), f32(chunk.heatmaps),
+                f32(chunk.gt_global), self._camera_dev, cfg,
+                mesh=self.mesh)
 
     def run(self, chunk: TestChunk, with_metrics: bool = True):
         """Optimise one chunk (`optimize_chunk`) and optionally evaluate

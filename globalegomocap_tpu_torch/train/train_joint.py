@@ -1,4 +1,4 @@
-"""Joint local+global prior training on one card.
+"""Joint local+global prior training on one card or data-parallel.
 
 Counterpart of `globalegomocap_tpu/train/train_joint.py`: one loop trains
 both priors of `models/joint_vae.py` with the geometric consistency tie,
@@ -20,8 +20,14 @@ The reparameterisation noise of step `step` comes from
 draws the local branch's and then the global branch's (JAX splits
 `fold_in(PRNGKey(seed + 1), step)` into one key a branch: the same
 structure, not its threefry numbers).  The initial weights come from
-Flax's distributions, branch by branch (`init_flax_like`).  Data
-parallelism (`num_devices` above 1) is not ported (ROADMAP §A item 4).
+Flax's distributions, branch by branch (`init_flax_like`).
+
+Data parallelism (`num_devices`, a mesh of several ranks) follows
+`train/train_vae.py`: every rank starts from rank 0's state, takes its
+rows of each global batch and of the global batch's noise pair, both
+branches' BatchNorms normalise with the global batch's statistics, each
+rank's loss is its share, and one all_reduce sums the gradients and the
+metrics before Adam.  Rank 0 logs and keeps the history.
 """
 
 from __future__ import annotations
@@ -32,12 +38,13 @@ import numpy as np
 import torch
 
 from globalegomocap_tpu_torch.config import TrainConfig
-from globalegomocap_tpu_torch.device import resolve_device
 from globalegomocap_tpu_torch.models.conv_vae import init_flax_like
 from globalegomocap_tpu_torch.models.joint_vae import (
     JointLocalGlobalVAE, joint_loss, split_branches)
+from globalegomocap_tpu_torch.parallel.mesh import (
+    Mesh, replicate, shard_batch)
 from globalegomocap_tpu_torch.train.train_vae import (
-    OptimizerSpec, check_one_device, make_optimizer)
+    OptimizerSpec, all_reduce_grads, make_optimizer, train_mesh)
 
 JointNoiseFn = Callable[[int, tuple, torch.dtype], tuple]
 
@@ -60,27 +67,39 @@ def make_joint_train_step(model: JointLocalGlobalVAE,
                           optimizer: torch.optim.Optimizer,
                           spec: OptimizerSpec, kld_weight: float,
                           noise_fn: JointNoiseFn,
-                          consistency_weight: float = 1.0):
+                          consistency_weight: float = 1.0,
+                          mesh: Mesh | None = None):
     """step(poses (B, T, 45), cameras (B, T, 4, 4) on the device, count)
     -> metrics: one update of both branches with the noise of update
     `count`.  The metrics ('consistency', 'global_kld', 'global_recon',
     'local_kld', 'local_recon', 'loss', in that order) are 0-d device
-    tensors; the step reads nothing back."""
+    tensors; the step reads nothing back.  Over a `mesh` of several ranks
+    the inputs are this rank's rows of the global batch, and the metrics
+    are the global batch's."""
     latent = model.latent_dim
+    size = 1 if mesh is None else mesh.size
 
     def step(poses: torch.Tensor, cameras: torch.Tensor, count: int) -> dict:
         for group in optimizer.param_groups:
             group["lr"] = spec.lr_at(count)
-        noise = noise_fn(count, (poses.shape[0], latent), model.dtype)
-        out = model(poses, cameras, train=True, noise=noise)
+        noise = noise_fn(count, (size * poses.shape[0], latent), model.dtype)
+        if size > 1:    # the global batch's noise pair, this rank's rows
+            noise = tuple(shard_batch(mesh, n) for n in noise)
+        out = model(poses, cameras, train=True, noise=noise, mesh=mesh)
         total, metrics = joint_loss(out, poses, cameras, kld_weight,
                                     consistency_weight)
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        optimizer.step()
         metrics = dict(metrics, loss=total)
-        # in sorted order, as JAX's jitted step returns its dict
-        return {k: metrics[k].detach() for k in sorted(metrics)}
+        keys = sorted(metrics)  # JAX's jitted step returns its dict sorted
+        if size == 1:
+            total.backward()
+            optimizer.step()
+            return {k: metrics[k].detach() for k in keys}
+        (total / size).backward()
+        summed = all_reduce_grads(mesh, model.parameters(), torch.stack(
+            [metrics[k] for k in keys]).detach() / size)
+        optimizer.step()
+        return dict(zip(keys, summed.unbind()))
 
     return step
 
@@ -91,21 +110,23 @@ class JointTrainer:
     poses: (W, T, 45) local windows; cameras: (W, T, 4, 4).  Beyond the
     JAX trainer's arguments: `device` (the card unless the caller asks for
     the CPU), `variables` (a joint state dict to start from, in place of
-    the Flax-like initialisation from cfg.seed) and `noise_fn` (see
-    `default_joint_noise_fn`)."""
+    the Flax-like initialisation from cfg.seed), `noise_fn` (see
+    `default_joint_noise_fn`) and `mesh` (default `make_mesh(
+    cfg.num_devices or None)` on `device`)."""
 
     def __init__(self, cfg: TrainConfig, poses: np.ndarray,
                  cameras: np.ndarray,
                  model: JointLocalGlobalVAE | None = None,
                  consistency_weight: float = 1.0, device="cuda",
                  variables: dict | None = None,
-                 noise_fn: JointNoiseFn | None = None):
+                 noise_fn: JointNoiseFn | None = None,
+                 mesh: Mesh | None = None):
         if len(poses) != len(cameras):
             raise ValueError(f"{len(poses)} pose windows but "
                              f"{len(cameras)} camera windows")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        check_one_device(cfg.num_devices, self.device)
+        self.mesh = train_mesh(cfg, device, mesh)
+        self.device = self.mesh.device
         self.poses = poses
         self.cameras = cameras
         self.model = model or JointLocalGlobalVAE(
@@ -117,6 +138,7 @@ class JointTrainer:
         else:
             self.model.load_state_dict(variables)
         self.model.to(self.device)
+        replicate(self.mesh, self.model)
         self.opt_spec = make_optimizer(cfg)
         self.optimizer = self.opt_spec.build(self.model.parameters())
         self.step = 0
@@ -125,9 +147,12 @@ class JointTrainer:
                                                            self.device)
         self._step = make_joint_train_step(self.model, self.optimizer,
                                            self.opt_spec, kld_weight,
-                                           self.noise_fn, consistency_weight)
+                                           self.noise_fn, consistency_weight,
+                                           self.mesh)
 
     def _device_batch(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a host batch, on the device."""
+        x = shard_batch(self.mesh, x)
         t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -141,7 +166,8 @@ class JointTrainer:
 
     def train(self, log_fn=print) -> list[dict]:
         """cfg.epochs epochs; returns the history, one entry an epoch with
-        its last step's metrics (as floats)."""
+        its last step's metrics (as floats), on rank 0 (other ranks keep
+        none)."""
         cfg = self.cfg
         np_rng = np.random.default_rng(cfg.seed + 2)
         n = len(self.poses)
@@ -159,9 +185,11 @@ class JointTrainer:
                 raise ValueError(
                     f"epoch {epoch} ran no step: batch_size "
                     f"({cfg.batch_size}) exceeds the {n} windows")
-            history.append({k: float(v) for k, v in metrics.items()})
-            log_fn(f"epoch {epoch}: " + " ".join(
-                f"{k}={v:.5f}" for k, v in history[-1].items()))
+            row = {k: float(v) for k, v in metrics.items()}
+            if self.mesh.rank == 0:
+                history.append(row)
+                log_fn(f"epoch {epoch}: " + " ".join(
+                    f"{k}={v:.5f}" for k, v in row.items()))
         return history
 
     def branch_variables(self) -> tuple:

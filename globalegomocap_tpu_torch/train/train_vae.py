@@ -1,4 +1,4 @@
-"""Motion-VAE training on one card.
+"""Motion-VAE training on one card or data-parallel over several.
 
 Counterpart of `globalegomocap_tpu/train/train_vae.py`, the reference's
 training loop (networks/train.py:35-134): Adam (lr 1e-4), batch 64, the
@@ -8,7 +8,8 @@ trainer (train_local.py) is the same loop over local-pose windows
 (`TrainConfig.local_pose`).
 
 What the JAX trainer does in one jitted program, the port does in eager
-PyTorch on one device:
+PyTorch on each rank of a mesh (`parallel/mesh.py`; one rank without a
+process group):
 
 - the optimizer is `torch.optim.Adam`, or `AdamW` with weight decay,
   with optax's betas and eps, and the learning rate of optax's
@@ -30,7 +31,18 @@ PyTorch on one device:
   ({'params', 'batch_stats', 'opt_state', 'step'} in the Flax layout,
   read by its `load_checkpoint`) with the same `.json` sidecar.
 
-Data parallelism (`num_devices`) is not ported yet (ROADMAP §A item 4).
+Data parallelism (`num_devices`, the mesh of `make_mesh`) computes what
+one rank computes, as JAX's jit over a batch sharded on its 'dp' axis
+does: every rank starts from rank 0's state (`replicate`); the global
+batch (`cfg.batch_size`, which the mesh size must divide) is split by
+rows; each rank draws the global batch's noise and takes its rows; the
+train-mode BatchNorm normalises with the global batch's statistics; each
+rank's loss is its share (the shares sum to the one-rank loss), and the
+gradients and the metrics are summed over the ranks by one all_reduce
+before Adam, which runs replicated.  Rank 0 logs, keeps `history` and
+writes the checkpoints; the eval edge-pads each batch to a multiple of
+the mesh size and masks the padding out (JAX's eval), and sums over the
+ranks.  A mesh of one rank makes no collective call.
 """
 
 from __future__ import annotations
@@ -46,7 +58,6 @@ import numpy as np
 import torch
 
 from globalegomocap_tpu_torch.config import TrainConfig
-from globalegomocap_tpu_torch.device import resolve_device
 from globalegomocap_tpu_torch.models.checkpoint import (
     load_train_state, save_train_state)
 from globalegomocap_tpu_torch.models.conv_vae import (
@@ -55,6 +66,8 @@ from globalegomocap_tpu_torch.models.convert import (
     opt_state_from_flax, opt_state_to_flax, params_from_flax,
     params_to_flax)
 from globalegomocap_tpu_torch.optimize.prior_bank import windows_accel_stat
+from globalegomocap_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce, make_mesh, pad_to_multiple, replicate, shard_batch)
 
 NoiseFn = Callable[[int, tuple, torch.dtype], torch.Tensor]
 
@@ -117,16 +130,32 @@ def make_optimizer(cfg: TrainConfig, total_steps: int = 0) -> OptimizerSpec:
     return OptimizerSpec(cfg.learning_rate, cfg.weight_decay, schedule)
 
 
-def check_one_device(num_devices: int, device: torch.device) -> None:
-    """NotImplementedError where `num_devices` asks for data parallelism:
-    above 1, or 0 (all) with more than one card visible."""
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if num_devices > 1 or (num_devices == 0 and cards > 1):
-        raise NotImplementedError(
-            "not yet ported to the PyTorch package: data-parallel training "
-            f"over more than one device (--num_devices {num_devices}, "
-            f"{cards} visible; ROADMAP §A item 4); pass --num_devices 1 or "
-            "make one card visible")
+def train_mesh(cfg: TrainConfig, device=None, mesh: Mesh | None = None
+               ) -> Mesh:
+    """The trainer's mesh: `mesh`, or `make_mesh(cfg.num_devices or
+    None)` on `device` (num_devices 0 is every rank).  A mesh size that
+    does not divide cfg.batch_size raises ValueError."""
+    mesh = mesh or make_mesh(cfg.num_devices or None, device=device)
+    if cfg.batch_size % mesh.size:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                         f"into {mesh.size} equal shards")
+    return mesh
+
+
+def all_reduce_grads(mesh: Mesh, params, extra: torch.Tensor
+                     ) -> torch.Tensor:
+    """Sum every parameter's gradient and the vector `extra` over the
+    ranks, in one all_reduce of one flat buffer; returns the summed
+    `extra`."""
+    params = list(params)
+    flat = all_reduce(mesh, torch.cat(
+        [p.grad.reshape(-1) for p in params]
+        + [extra.to(params[0].grad.dtype)]))
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+        at += p.numel()
+    return flat[at:]
 
 
 def default_noise_fn(seed: int, device: torch.device) -> NoiseFn:
@@ -144,25 +173,39 @@ def default_noise_fn(seed: int, device: torch.device) -> NoiseFn:
 
 def make_train_step(model: ConvVAE, optimizer: torch.optim.Optimizer,
                     spec: OptimizerSpec, kld_weight: float,
-                    noise_fn: NoiseFn):
+                    noise_fn: NoiseFn, mesh: Mesh | None = None):
     """step(batch (B, T, 45) on the device, count) -> metrics: one
     update, with the noise and learning rate of update `count`.  The
     metrics ('loss', 'recon_loss', 'kld_loss') are 0-d device tensors; the
-    step reads nothing back."""
+    step reads nothing back.  Over a `mesh` of several ranks `batch` is
+    this rank's rows of the global batch, and the metrics are the global
+    batch's."""
+    size = 1 if mesh is None else mesh.size
 
     def step(batch: torch.Tensor, count: int) -> dict:
         for group in optimizer.param_groups:
             group["lr"] = spec.lr_at(count)
-        mu, log_var = model.encode(batch, train=True)
-        z = reparameterize(mu, log_var, noise_fn(count, mu.shape, mu.dtype))
-        recon = model.decode(z, train=True)
+        mu, log_var = model.encode(batch, train=True, mesh=mesh)
+        if size == 1:
+            noise = noise_fn(count, mu.shape, mu.dtype)
+        else:       # the global batch's noise, this rank's rows
+            noise = shard_batch(mesh, noise_fn(
+                count, (size * mu.shape[0],) + mu.shape[1:], mu.dtype))
+        z = reparameterize(mu, log_var, noise)
+        recon = model.decode(z, train=True, mesh=mesh)
         loss, recon_loss, kld = vae_loss(recon, batch, mu, log_var,
                                          kld_weight)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if size == 1:
+            loss.backward()
+            optimizer.step()
+            return {"loss": loss.detach(), "recon_loss": recon_loss.detach(),
+                    "kld_loss": kld.detach()}
+        (loss / size).backward()
+        total = all_reduce_grads(mesh, model.parameters(), torch.stack(
+            [loss, recon_loss, kld]).detach() / size)
         optimizer.step()
-        return {"loss": loss.detach(), "recon_loss": recon_loss.detach(),
-                "kld_loss": kld.detach()}
+        return dict(zip(("loss", "recon_loss", "kld_loss"), total.unbind()))
 
     return step
 
@@ -192,17 +235,22 @@ class Trainer:
 
     Beyond the JAX trainer's arguments: `device` (the card unless the
     caller asks for the CPU), `variables` (a port state dict to start
-    from, in place of the Flax-like initialisation from cfg.seed) and
-    `noise_fn` (see `default_noise_fn`)."""
+    from, in place of the Flax-like initialisation from cfg.seed),
+    `noise_fn` (see `default_noise_fn`) and `mesh` (default
+    `make_mesh(cfg.num_devices or None)` on `device`; its device is the
+    trainer's).  Every rank reads the same batches and trains on its rows
+    (the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, train_ds, test_ds,
                  model: ConvVAE | None = None, device="cuda",
                  variables: dict | None = None,
-                 noise_fn: NoiseFn | None = None):
+                 noise_fn: NoiseFn | None = None,
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.train_ds = train_ds
         self.test_ds = test_ds
-        self.device = resolve_device(device)
+        self.mesh = train_mesh(cfg, device, mesh)
+        self.device = self.mesh.device
         dt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
               else torch.float32)
         self.model = model or ConvVAE(latent_dim=cfg.latent_dim,
@@ -213,6 +261,7 @@ class Trainer:
         else:
             self.model.load_state_dict(variables)
         self.model.to(self.device)
+        replicate(self.mesh, self.model)
         steps_per_epoch = max(1, len(train_ds) // max(1, cfg.batch_size))
         self.opt_spec = make_optimizer(cfg, steps_per_epoch * cfg.epochs)
         self.optimizer = self.opt_spec.build(self.model.parameters())
@@ -223,7 +272,7 @@ class Trainer:
                                                      self.device)
         self._train_step = make_train_step(self.model, self.optimizer,
                                            self.opt_spec, kld_weight,
-                                           self.noise_fn)
+                                           self.noise_fn, self.mesh)
         self._eval_step = make_eval_step(self.model)
         self.history: list[dict] = []
         # the training windows' motion regime, written into each
@@ -240,7 +289,11 @@ class Trainer:
         """The prior's state dict (parameters and BN running statistics)."""
         return self.model.state_dict()
 
-    def _device_batch(self, batch: np.ndarray) -> torch.Tensor:
+    def _device_batch(self, batch: np.ndarray, axis: int = 0
+                      ) -> torch.Tensor:
+        """This rank's rows (along `axis`) of a host batch, on the
+        device."""
+        batch = shard_batch(self.mesh, batch, axis)
         t = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
         if self.device.type == "cuda":
             # from pinned memory the copy is asynchronous
@@ -267,12 +320,15 @@ class Trainer:
         zero = torch.zeros((), device=self.device)
         running = {"loss": zero, "recon_loss": zero}
 
+        lead = self.mesh.rank == 0     # logs, keeps history, writes
+
         def log():
             nonlocal running
             vals = {k: float(v) for k, v in running.items()}
-            log_fn(f"step {count}: running loss {vals['loss']:.5f} "
-                   f"recon {vals['recon_loss']:.5f}")
-            self.history.append({"step": count, **vals})
+            if lead:
+                log_fn(f"step {count}: running loss {vals['loss']:.5f} "
+                       f"recon {vals['recon_loss']:.5f}")
+                self.history.append({"step": count, **vals})
             running = {"loss": zero, "recon_loss": zero}
 
         for epoch in range(cfg.epochs):
@@ -288,12 +344,12 @@ class Trainer:
                 for batch in batches:
                     pending.append(batch)
                     if len(pending) == block:
-                        epoch_steps += self._run(
-                            self._device_batch(np.stack(pending)), running)
+                        epoch_steps += self._run(self._device_batch(
+                            np.stack(pending), axis=1), running)
                         pending.clear()
                 if len(pending) >= 2:
-                    epoch_steps += self._run(
-                        self._device_batch(np.stack(pending)), running)
+                    epoch_steps += self._run(self._device_batch(
+                        np.stack(pending), axis=1), running)
                     pending.clear()
                 if pending:     # a single leftover step
                     epoch_steps += self._run(
@@ -309,7 +365,7 @@ class Trainer:
                     count += 1
                     if cfg.log_step and count % cfg.log_step == 0:
                         log()
-            if epoch_steps == 0:
+            if epoch_steps == 0 and lead:
                 log_fn(f"WARNING: epoch {epoch} ran 0 steps — batch_size "
                        f"({cfg.batch_size}) exceeds the dataset "
                        f"({len(self.train_ds)} windows) with drop_last")
@@ -318,6 +374,8 @@ class Trainer:
             if every == 1 or (epoch + 1) % every == 0 \
                     or epoch == cfg.epochs - 1:
                 eval_mpjpe = self.evaluate()
+                if not lead:
+                    continue
                 log_fn(f"epoch {epoch}: eval reconstruction MPJPE "
                        f"{eval_mpjpe:.5f}  ({dt:.1f}s)")
                 self.history.append({"epoch": epoch,
@@ -328,16 +386,30 @@ class Trainer:
         return self.step
 
     def evaluate(self) -> float:
-        """The mean reconstruction MPJPE over the test windows."""
+        """The mean reconstruction MPJPE over the test windows.  Over a
+        mesh of several ranks each batch is edge-padded to a multiple of
+        the mesh size with the padded rows masked out, and the sums are
+        summed over the ranks."""
+        size = self.mesh.size
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         count = torch.zeros((), dtype=torch.float64, device=self.device)
         for batch in self.test_ds.epoch_batches(
                 np.random.default_rng(0), self.cfg.batch_size,
                 drop_last=False, shuffle=False):
-            mask = torch.ones(len(batch), device=self.device)
+            if size == 1:
+                mask = torch.ones(len(batch), device=self.device)
+            else:
+                n = len(batch)
+                batch, _ = pad_to_multiple(batch, size)
+                mask = np.zeros(len(batch), dtype=np.float32)
+                mask[:n] = 1.0
+                mask = self._device_batch(mask)
             s, c = self._eval_step(self._device_batch(batch), mask)
             total += s.double()
             count += c.double()
+        if size > 1:
+            total, count = all_reduce(self.mesh,
+                                      torch.stack([total, count])).unbind()
         total, count = float(total), float(count)
         return total / count if count else float("nan")
 
@@ -375,8 +447,9 @@ class Trainer:
     def load_checkpoint(self, path: str) -> int:
         """Resume from an epoch checkpoint (this trainer's or the JAX
         trainer's msgpack file or Orbax directory under the same
-        TrainConfig): the prior, the Adam moments and count, and the step.
-        Returns the step."""
+        TrainConfig): the prior, the Adam moments and count, and the step
+        (every rank reads it and ends with rank 0's state).  Returns the
+        step."""
         blob = load_train_state(path)
         self.model.load_state_dict(params_from_flax(
             {"params": blob["params"], "batch_stats": blob["batch_stats"]}))
@@ -384,5 +457,6 @@ class Trainer:
                             self.model.named_parameters(),
                             bool(self.cfg.weight_decay),
                             self.opt_spec.schedule is not None)
+        replicate(self.mesh, self.model, self.optimizer)
         self.step = int(blob["step"])
         return self.step

@@ -9,7 +9,10 @@ train step against the CPU's; the preprocessing ETL's argmax and
 unprojection, RANSAC, the two-view pose and `process_sequence`, card
 against CPU; Orbax checkpoints on the card: the JAX-written fixture read
 and resumed, a trainer's Orbax checkpoint resumed like its msgpack twin,
-and an Orbax prior feeding a solve through kernels 1 and 2.
+and an Orbax prior feeding a solve through kernels 1 and 2; the parallel
+paths on the card: the collectives over two gloo ranks sharing cuda:0
+and chip_smoke's phase 3n (one NCCL rank, two gloo ranks) at a small
+size.
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -788,3 +791,43 @@ def test_orbax_prior_feeds_a_solve_with_kernels_1_and_2(gen, tmp_path):
     assert cb.LAUNCHES["fused_stage_energy"] > 0
     assert cb.LAUNCHES["fused_stage_energy_noreproj"] > 0
     assert torch.equal(got, want)
+
+
+def test_gloo_collectives_on_card_tensors(gen):
+    """Two gloo ranks sharing cuda:0 (`parallel.mesh.spawn`): all_reduce
+    and its backward, all_gather, one all_gather of a float32 and a bf16
+    field and replicate, on CUDA tensors, which gloo takes as they are;
+    each result back on the card.  (The worker module is imported from
+    this file's directory: a package named `tests` may be installed on
+    the machine with the card.)"""
+    from globalegomocap_tpu_torch.parallel import mesh as pm
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_workers as workers
+    r0, r1 = pm.spawn(workers.collectives, 2, ["cuda:0", "cuda:0"], "gloo",
+                      timeout_s=300)
+    for r, rec in enumerate((r0, r1)):
+        assert (rec["rank"], rec["size"], rec["backend"], rec["device"]) \
+            == (r, 2, "gloo", "cuda:0")
+        assert rec["on"] == "cuda:0" * 3
+        np.testing.assert_array_equal(rec["sum"], [0.0, 3.0, 6.0])
+        np.testing.assert_array_equal(rec["grad"], [2.0, 4.0, 6.0])
+        np.testing.assert_array_equal(rec["gather"],
+                                      [[0, 0, 1, 1], [0, 0, 1, 1]])
+        np.testing.assert_array_equal(rec["fb"], [[0.5] * 4, [1.5] * 4])
+        assert rec["fb_dtype"] == "torch.bfloat16"
+    np.testing.assert_array_equal(r0["weight"], r1["weight"])
+    np.testing.assert_array_equal(r0["moment"], r1["moment"])
+
+
+def test_parallel_phase_at_a_small_size(gen, tmp_path):
+    """chip_smoke's phase 3n on three 26-frame chunks and a corpus of 4
+    steps of 16 (latent 16): one NCCL rank bit for bit against no group,
+    two gloo ranks on cuda:0 against it, with the launches each rank's
+    share predicts, every check passing."""
+    fails = chip_smoke.Failures()
+    work = chip_smoke.make_work(torch, 0, str(tmp_path), shape=(1, 3, 26))
+    launches = chip_smoke.parallel_phase(
+        torch, 0, "cuda", fails, "test", work, chunks=3, corpus=(11, 74),
+        train_flags=["--latent_dim", "16", "--batch_size", "16"])
+    assert fails.items == []
+    assert launches["fused_stage_energy"] == 13

@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
                 "cli.preprocess", "cli.introspect", "tools.process_test_data",
                 "tools.slam_reader", "tools.bvh", "tools.captury_camera",
                 "tools.prior_tools", "ops.epipolar", "native.zstd",
-                "models.ocdbt", "models.orbax"):
+                "models.ocdbt", "models.orbax", "parallel.mesh",
+                "parallel.window_shard"):
         assert "globalegomocap_tpu_torch." + mod in rec["modules"]
 
 

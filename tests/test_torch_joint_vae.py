@@ -42,6 +42,7 @@ from globalegomocap_tpu_torch.models import joint_vae as tjoint
 from globalegomocap_tpu_torch.models.convert import (
     joint_params_from_flax, joint_params_to_flax, params_from_flax)
 from globalegomocap_tpu_torch.optimize import driver as tdriver
+from globalegomocap_tpu_torch.parallel.mesh import Mesh
 from globalegomocap_tpu_torch.train import train_joint as ttrain
 
 HIDDEN = (8, 8, 16, 16, 32)
@@ -319,10 +320,21 @@ def test_default_noise_is_a_function_of_the_step():
     assert not torch.equal(a, b) and not torch.equal(a, c)
 
 
-def test_more_than_one_device_is_refused(windows):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 4"):
-        ttrain.JointTrainer(TCfg(**dict(BASE, num_devices=2)), *windows,
-                            _models()[1], device="cpu")
+def test_camera_windows_must_match_the_poses(windows):
     with pytest.raises(ValueError, match="camera windows"):
         ttrain.JointTrainer(TCfg(**BASE), windows[0], windows[1][:3],
                             _models()[1], device="cpu")
+
+
+def test_num_devices_is_the_mesh_size(windows):
+    """num_devices=2 asks for a mesh of two ranks: without a process
+    group it raises naming both counts (tests/test_torch_dp_train.py
+    trains on two ranks); a batch the ranks do not divide raises too."""
+    with pytest.raises(ValueError, match=r"make_mesh\(2\).* 1 rank"):
+        ttrain.JointTrainer(TCfg(**dict(BASE, num_devices=2)), *windows,
+                            _models()[1], device="cpu")
+    with pytest.raises(ValueError, match="batch_size 31 does not split"):
+        ttrain.JointTrainer(TCfg(**dict(BASE, batch_size=31)), *windows,
+                            _models()[1], device="cpu",
+                            mesh=Mesh(None, "gloo", 0, 2,
+                                      torch.device("cpu")))

@@ -128,8 +128,8 @@ def forward_case(data):
     return v, batch, noise, out
 
 
-def _torch_unbiased_bn(bn, x):
-    """What torch.nn.BatchNorm1d's train mode would do."""
+def _torch_unbiased_bn(bn, x, mesh=None):
+    """What torch.nn.BatchNorm1d's train mode would do (on one rank)."""
     return torch.nn.functional.batch_norm(
         x, bn.running_mean, bn.running_var, bn.weight, bn.bias, True, 0.1,
         bn.eps)

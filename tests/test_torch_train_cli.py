@@ -1,7 +1,8 @@
 """The port's train CLI (`cli/train.py`) on the CPU: the JAX train CLI
 test's run (tests/test_cli_train.py) with --device cpu, --resume, the
-parser against the JAX package's flag for flag, the options not ported
-yet, and the card it asks for by default."""
+parser against the JAX package's flag for flag, the ranks --num_devices
+asks for (tests/test_torch_dp_train.py trains on two), and the card it
+asks for by default."""
 
 import os
 import pickle
@@ -64,17 +65,16 @@ def test_parser_has_the_jax_flags_and_defaults():
     assert t["device"][1] == "cuda"
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--num_devices", "2"], "item 4")], ids=["num_devices"])
-def test_unported_options_raise(amass_dir, tmp_path, monkeypatch, flag,
-                                item):
-    """Data parallelism is refused before any data is read or any file
-    written.  (Orbax checkpoints run with every data source:
-    test_orbax_epoch_checkpoints_resume_in_both_clis.)"""
+def test_more_ranks_than_cards_raise(amass_dir, tmp_path, monkeypatch):
+    """--num_devices above the visible cards raises ValueError naming
+    both counts, before any data is read or any file written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        tcli.main(["--train_data_path", amass_dir, "--device", "cpu"]
-                  + ARGS + flag)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"--num_devices 2 .* the 1 "
+                                         r"visible card"):
+        tcli.main(["--train_data_path", amass_dir, "--num_devices", "2"]
+                  + ARGS)
     assert not os.path.exists(tmp_path / "logs")
 
 
@@ -107,16 +107,17 @@ def test_orbax_epoch_checkpoints_resume_in_both_clis(
     assert port.step == int(jax_run.state.step) == 2 * first.step
 
 
-def test_all_cards_means_one_card_only(amass_dir, tmp_path, monkeypatch):
-    """--num_devices 0 (all) with two cards visible would be data
-    parallel in JAX: refused, where one card trains."""
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    args = tcli.build_parser().parse_args(["--train_data_path", amass_dir])
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 4"):
-        tcli.check_supported(args, torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    tcli.check_supported(args, torch.device("cuda"))
+@pytest.mark.parametrize("cards", [1, 3])
+def test_zero_means_every_visible_card(cards, monkeypatch):
+    """--num_devices 0 (the default) asks for a rank a visible card, so
+    one process where one card is visible; on the CPU it is one rank,
+    and N is N ranks there."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert tcli.build_parser().get_default("num_devices") == 0
+    assert tcli.ranks_for(0, cuda) == cards
+    assert tcli.ranks_for(1, cuda) == 1
+    assert tcli.ranks_for(0, cpu) == 1 and tcli.ranks_for(4, cpu) == 4
 
 
 def test_the_cli_asks_for_the_card_by_default(amass_dir, tmp_path,
