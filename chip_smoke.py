@@ -215,6 +215,22 @@ Phases (any failure exits non-zero and prints no result line):
               (eval within 1e-2 of (a)'s); windows/s a rank, the
               ChunkResult gather's ms and bytes, train ms a step.  Its
               launches stay out of the JSON line.
+3o. sample  - --init sample and the ranks of serve and evaluate_all, at
+              full width on phase 3's priors: (a) JAX's threefry normal
+              draw at (192, 2048), float32 and bf16, on the card against
+              the CPU (bits equal, float32 within 1e-6, bf16 within one
+              step), a draw from an offset equal to the slice; (b) serve
+              at its defaults with --init sample --init_seed 7 on the
+              192-window request: kernels 1 and 2 launched as with mu,
+              stage 1's start mu + the CPU's draw x std, the 17 metrics
+              beside mu's, two float32 2 + 1 runs bit for bit and seed 8
+              apart; (c) serve (prefetch 2, 3 in flight, float32 2 + 1)
+              over 4 sequences x 2 chunks and evaluate_all with no group,
+              on one NCCL rank (bit for bit) and on two gloo ranks on
+              cuda:0 (rank 1 silent, poses within 1e-6 m of the same
+              batches solved with no group), and --init sample over the
+              two ranks (each draws rank 0's rows).  No scaling is
+              measured: the machine has one card.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -4507,6 +4523,347 @@ def parallel_phase(torch, seed, dev, fails, card, work, chunks=CHUNKS,
     return {k: v for k, v in a["solves"]["flat"][1].items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 3o: --init sample, and serve and evaluate_all over ranks
+# ---------------------------------------------------------------------------
+
+SHAPE_3O = (4, 2, FRAMES)       # (c)'s sequences, chunks, frames
+SAMPLE_SEED = 7
+TIMINGS = ("latency_ms", "windows_per_sec")
+
+
+@contextlib.contextmanager
+def draw_log():
+    """Inside the block each sample draw (`conv_vae.normal`, as
+    `sample_init` calls it) is recorded: its start, shape, dtype and
+    device, the float64 sum of its values and its first row (host)."""
+    from globalegomocap_tpu_torch.models import conv_vae
+    real, log = conv_vae.normal, []
+
+    def normal(key, shape, dtype, start=0, device=None):
+        out = real(key, shape, dtype, start=start, device=device)
+        log.append({"start": start, "shape": tuple(shape),
+                    "dtype": str(dtype), "device": str(out.device),
+                    "sum": float(out.double().sum()),
+                    "row0": out[0].float().cpu().numpy()})
+        return out
+    conv_vae.normal = normal
+    try:
+        yield log
+    finally:
+        conv_vae.normal = real
+
+
+@contextlib.contextmanager
+def first_sample():
+    """Inside the block the first `sample_init` call of the pipeline is
+    kept: {'mu', 'log_var', 'z', 'row'} (host copies)."""
+    from globalegomocap_tpu_torch.optimize import pipeline
+    real, kept = pipeline.sample_init, {}
+
+    def sample_init(mu, log_var, seed, row=0):
+        z = real(mu, log_var, seed, row)
+        if not kept:
+            kept.update(mu=mu.cpu(), log_var=log_var.cpu(), z=z.cpu(),
+                        row=row, seed=seed)
+        return z
+    pipeline.sample_init = sample_init
+    try:
+        yield kept
+    finally:
+        pipeline.sample_init = real
+
+
+def o_rank(mesh, runs) -> dict:
+    """A rank of phase 3o (c), or the same calls with no group: each
+    (label, 'serve' or 'evaluate_all', argv) through the CLI's main (it
+    takes this rank's group, as under torchrun) under cuDNN's
+    deterministic algorithms: {label: (value, printout, launches, draws,
+    wall s)}."""
+    import torch
+
+    from globalegomocap_tpu_torch.cli import evaluate_all, serve
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    mains = {"serve": serve.main, "evaluate_all": evaluate_all.main}
+    out = {}
+    with cudnn_deterministic(torch):
+        for label, name, argv in runs:
+            cb.reset_launches()
+            with draw_log() as draws:
+                value, text, wall = run_cli(mains[name], argv)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            out[label] = (value, text,
+                          {k: v for k, v in cb.LAUNCHES.items() if v},
+                          draws, wall)
+    return out
+
+
+def o_records(text) -> list:
+    return [{k: v for k, v in json.loads(line).items() if k not in TIMINGS}
+            for line in text.splitlines() if line.startswith("{")]
+
+
+def sample_ranks_phase(torch, seed, dev, fails, card, work,
+                       shape=SHAPE_3O, request=None) -> None:
+    """Phase 3o: --init sample and the ranks of serve and evaluate_all,
+    at the prior's full width on phase 3's priors.  (a) JAX's threefry
+    normal draw at (192, 2048) in float32 and bfloat16 on the card
+    against the CPU's: the bits equal, the normals within the CPU tests'
+    tolerance (float32 1e-6; bf16 equal, one bf16 step allowed where the
+    two devices' float32 erf_inv round apart), a draw from `start` equal
+    to the slice of the whole.  (b) `--init sample --init_seed 7`
+    through serve at its defaults on one 192-window request: kernels 1
+    and 2 launched as with mu, stage 1's starting latent mu plus the
+    CPU's draw times the std, the 17 metrics beside mu's (library); at
+    float32 2 + 1 two runs of one seed bit for bit, another seed apart.
+    (c) serve at its defaults (prefetch 2, 3 in flight) at float32 2 + 1
+    on `shape` and evaluate_all (lbfgs_fixed, kernels 1 and 2, 2 + 1)
+    with no group, on one NCCL rank (bit for bit against no group) and
+    on two gloo ranks sharing the card (rank 1 printing nothing, rank
+    0's records no group's, poses within 1e-6 m of no group's flat
+    solves of the same batches, the 17 metrics of evaluate_all within
+    1 %, each rank's launches those of one rank); `--init sample` over
+    the two ranks on serve's shard_map path draws the same rows from
+    index 0 on both.  Multi-card scaling is not
+    measured: the machine has one card.  `request` cuts (b)'s request
+    only in a rehearsal on the CPU."""
+    import numpy as np
+
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import (
+        METRIC_KEYS, calculate_errors)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops.random import (
+        normal, prng_key, random_bits)
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model)
+    from globalegomocap_tpu_torch.parallel.mesh import make_mesh, spawn
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tmp, data, local_ckpt, global_ckpt = work
+    base = os.path.join(tmp, "sample")
+    ck = ["--local_ckpt", local_ckpt, "--global_ckpt", global_ckpt,
+          "--device", dev]
+    keys = METRIC_KEYS[:17]
+
+    # (a) the draws, on the card and on the CPU
+    key = prng_key(SAMPLE_SEED)
+    n, d = 192, LATENT
+    for dtype, width in ((torch.float32, 32), (torch.bfloat16, 8)):
+        normal(key, (n, d), dtype, device=dev)          # warm-up
+        sync()
+        t0 = time.perf_counter()
+        here = normal(key, (n, d), dtype, device=dev)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        host = normal(key, (n, d), dtype)
+        bits = torch.equal(random_bits(key, width, (n, d), device=dev).cpu(),
+                           random_bits(key, width, (n, d)))
+        diff = (here.cpu().float() - host.float()).abs()
+        off = int((diff > 0).sum())
+        step = 2.0 ** -7 * host.float().abs().clamp(min=1.0)
+        ok = bool((diff <= 1e-6).all()) if dtype == torch.float32 \
+            else bool((diff <= step).all())
+        part = normal(key, (n // 2, d), dtype, start=n // 2 * d, device=dev)
+        sliced = torch.equal(part, here[n // 2:])
+        fails.check(bits and ok and sliced,
+                    f"(a) normal({n}, {d}) {str(dtype)[6:]}: {width}-bit "
+                    f"words on the card equal the CPU's {bits}; normals "
+                    f"within {float(diff.max()):.3e} of the CPU's ({off} of "
+                    f"{n * d} unequal; bar "
+                    f"{'1e-6' if dtype == torch.float32 else 'one bf16 step'}"
+                    f"); the draw from start {n // 2 * d} equals the slice "
+                    f"{sliced}; {ms:.3f} ms a draw [{card}]")
+
+    # (b) one 192-window request through serve at its defaults
+    root_b = os.path.join(base, "one")
+    first = os.path.join(data, sorted(os.listdir(data))[0])
+    link_sequence(first, os.path.join(root_b, "seq0"))
+    argv_b = ["--data_root", root_b] + ck
+    runs = {}
+    for label, extra in (("mu", []), ("sample", [
+            "--init", "sample", "--init_seed", str(SAMPLE_SEED)])):
+        cb.reset_launches()
+        with first_sample() as kept:
+            recs, wall = run_serve(serve, argv_b + extra)
+        runs[label] = ({k: v for k, v in cb.LAUNCHES.items() if v}, kept,
+                       recs)
+    (l_mu, _, r_mu), (l_s, kept, r_s) = runs["mu"], runs["sample"]
+    fails.check(l_s == l_mu and bool(l_s) and r_s[0]["windows"] ==
+                r_mu[0]["windows"],
+                f"(b) serve --init sample --init_seed {SAMPLE_SEED} on a "
+                f"{r_s[0]['windows']}-window request: launches {l_s}, with "
+                f"mu {l_mu}; optimized_global_mpjpe "
+                f"{r_s[0]['optimized_global_mpjpe']} (mu "
+                f"{r_mu[0]['optimized_global_mpjpe']}) [{card}]")
+    mu, lv = kept["mu"], kept["log_var"]
+    want = mu + normal(prng_key(SAMPLE_SEED), tuple(mu.shape), mu.dtype) \
+        * torch.exp(0.5 * lv)
+    gap = float((kept["z"].float() - want.float()).abs().max())
+    moved = float((kept["z"].float() - mu.float()).abs().max())
+    fails.check(kept["seed"] == SAMPLE_SEED and kept["row"] == 0
+                and gap <= 1e-5 * max(1.0, float(want.abs().max())),
+                f"(b) stage 1's starting latent {tuple(mu.shape)} "
+                f"{str(mu.dtype)[6:]}: within {gap:.3e} of mu + the CPU's "
+                f"draw x std (bar 1e-5 relative), {moved:.3f} from mu")
+
+    chunks = [load_test_chunk(c) for c in list_chunk_dirs(first)]
+    if request:
+        chunks = chunks[:request]
+    parser = serve.build_parser()
+
+    def library(extra, deterministic=True):
+        cfg = serve.config_from_args(parser.parse_args(argv_b + extra))
+        opt = SequenceOptimizer(build_model(cfg),
+                                serve.load_state(local_ckpt),
+                                serve.load_state(global_ckpt), cfg,
+                                device=dev)
+        with (cudnn_deterministic(torch) if deterministic
+              else contextlib.nullcontext()):
+            res = opt.optimize_chunks_batched(
+                opt.stage(chunks, on_host=True), mode="flat")
+            sync()
+        return res
+    m = {label: mean_metrics([library(extra)], calculate_errors, keys)
+         for label, extra in (("mu", []), ("sample", [
+             "--init", "sample", "--init_seed", str(SAMPLE_SEED)]))}
+    print("  (b) the 17 metrics at serve's defaults, mu | sample: "
+          + "; ".join(f"{k} {m['mu'][k]:.5f} | {m['sample'][k]:.5f}"
+                      for k in keys), flush=True)
+    fails.check(all(np.isfinite(v) for v in m["sample"].values()),
+                "(b) the sample run's 17 metrics are finite")
+    f32 = ["--compute_dtype", "float32", "--max_iter", "2",
+           "--global_max_iter", "1", "--init", "sample", "--init_seed"]
+    a1, a2, b1 = (library(f32 + [s]).mid_local.cpu()
+                  for s in (str(SAMPLE_SEED), str(SAMPLE_SEED), "8"))
+    apart = float((a1 - b1).abs().max())
+    fails.check(torch.equal(a1, a2) and apart > 1e-3,
+                f"(b) float32 2 + 1 under cuDNN's deterministic algorithms: "
+                f"two runs of seed {SAMPLE_SEED} bit for bit "
+                f"{torch.equal(a1, a2)}; seed 8 {apart:.3e} m apart")
+
+    # (c) serve and evaluate_all: no group, one NCCL rank, two gloo ranks
+    root_c = os.path.join(base, "many")
+    write_sequences(root_c, shape[0], shape[1], shape[2], seed + 17)
+    wins = shape[0] * shape[1] * ((shape[2] - 10) // 8 + 1)
+
+    def runs_for(who, sample=False):
+        out = os.path.join(base, who)
+        argv = ["--data_root", root_c] + ck
+        r = [("serve", "serve", argv + [
+                  "--compute_dtype", "float32", "--max_iter", "2",
+                  "--global_max_iter", "1", "--save_pose", "true",
+                  "--out_dir", out]),
+             ("evaluate_all", "evaluate_all", argv + [
+                  "--solver", "lbfgs_fixed", "--fused_energy", "true",
+                  "--heatmap_crop", "8", "--max_iter", "2",
+                  "--global_max_iter", "1"])]
+        if sample:
+            r.append(("sample", "serve", argv + [
+                "--init", "sample", "--init_seed", str(SAMPLE_SEED)]))
+        return r
+
+    def poses(who):
+        return {s: np.load(os.path.join(base, who, s, "optimized.npy"))
+                for s in sorted(os.listdir(root_c))}
+    t0 = time.perf_counter()
+    none = o_rank(make_mesh(device=dev), runs_for("none"))
+    t_none = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (one,) = spawn(o_rank, 1, ["cuda:0" if cuda else dev],
+                   "nccl" if cuda else "gloo", timeout_s=300,
+                   args=(runs_for("nccl1"),))
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = spawn(o_rank, 2, ["cuda:0" if cuda else dev] * 2, "gloo",
+                timeout_s=300, args=(runs_for("gloo2", sample=True),))
+    t_two = time.perf_counter() - t0
+    print(f"  (c) no group {t_none:.1f} s, one {'NCCL' if cuda else 'gloo'}"
+          f" rank {t_one:.1f} s, two gloo ranks {t_two:.1f} s (with the "
+          f"sample run); {wins} windows a serve pass", flush=True)
+    # no group's flat solves of the batches each of two ranks solves
+    # (chunks [0, h) and [h, C) edge-padded), under cuDNN's deterministic
+    # algorithms as the ranks run
+    cfg32 = serve.config_from_args(parser.parse_args(runs_for("none")[0][2]))
+    opt32 = SequenceOptimizer(build_model(cfg32),
+                              serve.load_state(local_ckpt),
+                              serve.load_state(global_ckpt), cfg32,
+                              device=dev)
+    halves = {}
+    with cudnn_deterministic(torch):
+        for s in sorted(os.listdir(root_c)):
+            cs = [load_test_chunk(c)
+                  for c in list_chunk_dirs(os.path.join(root_c, s))]
+            h = -(-len(cs) // 2)
+            parts = [cs[:h], cs[h:] + cs[-1:] * (2 * h - len(cs))]
+            halves[s] = np.concatenate([
+                opt32.optimize_chunks_batched(
+                    opt32.stage(p, on_host=True), mode="flat")
+                .optimized.cpu().numpy() for p in parts])[:len(cs)]
+    p_none, p_one, p_two = poses("none"), poses("nccl1"), poses("gloo2")
+    same = all(np.array_equal(p_one[s], p_none[s]) for s in p_none)
+    ev_same = all(np.array_equal(one["evaluate_all"][0][s][k],
+                                 none["evaluate_all"][0][s][k])
+                  for s in none["evaluate_all"][0]
+                  for k in none["evaluate_all"][0][s])
+    fails.check(same and ev_same
+                and o_records(one["serve"][1]) == o_records(
+                    none["serve"][1])
+                and one["serve"][2] == none["serve"][2]
+                and one["evaluate_all"][2] == none["evaluate_all"][2],
+                f"(c) one {'NCCL' if cuda else 'gloo'} rank: serve's poses "
+                f"bit for bit against no group {same}, its records equal, "
+                f"evaluate_all's averages bit for bit {ev_same}; launches "
+                f"serve {one['serve'][2]}, evaluate_all "
+                f"{one['evaluate_all'][2]} (no group {none['serve'][2]}, "
+                f"{none['evaluate_all'][2]}); serve "
+                f"{wins / one['serve'][4]:.1f} windows/s with the CLI's "
+                f"start-up [{card}]")
+    gap = max(float(np.abs(p_two[s] - halves[s]).max()) for s in p_none)
+    alt = max(float(np.abs(p_two[s] - p_none[s]).max()) for s in p_none)
+    ev_gap, ev_at = max(
+        (abs(float(np.mean(two[0]["evaluate_all"][0][s][k]))
+             - float(np.mean(none["evaluate_all"][0][s][k])))
+         / max(abs(float(np.mean(none["evaluate_all"][0][s][k]))), 1e-12),
+         f"{s} {k}")
+        for s in none["evaluate_all"][0] for k in none["evaluate_all"][0][s])
+    silent = all(two[1][lab][1].strip() == "" for lab in two[1])
+    recs = [{k: v for k, v in r.items() if "mpjpe" not in k}
+            for r in o_records(two[0]["serve"][1])]
+    want_recs = [{k: v for k, v in r.items() if "mpjpe" not in k}
+                 for r in o_records(none["serve"][1])]
+    launches_ok = all(two[r][lab][2] == none[lab][2] for r in (0, 1)
+                      for lab in ("serve", "evaluate_all"))
+    fails.check(silent and recs == want_recs and gap <= 1e-6
+                and ev_gap <= 1e-2 and launches_ok
+                and two[0]["serve"][0] == two[1]["serve"][0] == shape[0],
+                f"(c) two gloo ranks on one card, serve at prefetch 2 / 3 in "
+                f"flight over {shape[0]} sequences: rank 1 printed nothing "
+                f"{silent}; rank 0's records are no group's "
+                f"{recs == want_recs}; poses within {gap:.3e} m of no "
+                f"group's flat solves of the same batches (bar 1e-6 m; "
+                f"{alt:.3e} m from its {shape[1]}-chunk batches, which "
+                f"cuDNN convolves by other algorithms: ROADMAP section C); "
+                f"evaluate_all's 17 metrics within {ev_gap:.3e} relative "
+                f"at {ev_at} (bar 1e-2); each rank's "
+                f"launches "
+                f"those of no group {launches_ok} "
+                f"({two[0]['serve'][2]}, {two[1]['evaluate_all'][2]}) "
+                f"[{card}]")
+    d0, d1 = two[0]["sample"][3], two[1]["sample"][3]
+    rows = (len(d0) == len(d1) > 0 and all(
+        a["start"] == b["start"] == 0 and a["shape"] == b["shape"]
+        and a["sum"] == b["sum"] and np.array_equal(a["row0"], b["row0"])
+        for a, b in zip(d0, d1)))
+    fails.check(rows,
+                f"(c) --init sample over two ranks on serve's shard_map path"
+                f" (fused_energy): each rank drew {[a['shape'] for a in d0]}"
+                f" from index 0, rank 1's rows rank 0's {rows}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4675,6 +5032,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         parallel_phase(torch, args.seed, "cuda", fails, card, work)
         phase_done("parallel", t0)
+        # ---- 3o. --init sample, serve and evaluate_all over ranks ---------
+        print("[3o] --init sample (JAX's threefry stream) and serve and "
+              "evaluate_all over ranks (no group, one NCCL rank, two gloo "
+              "ranks sharing the card)", flush=True)
+        t0 = time.perf_counter()
+        sample_ranks_phase(torch, args.seed, "cuda", fails, card, work)
+        phase_done("sample and ranks", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -17,6 +17,14 @@ Every configuration flag of the parser reaches the solve
 configuration from a subset of them; at the defaults the two agree.
 --profile_dir traces the sweep; --save and --save_pose write nothing
 here, as in the JAX CLI.
+
+Its batched solves run over every visible card, as the JAX CLI's shard
+over every device, with no flag (`optimize_sequence.run_on_ranks`: the
+group under `torchrun`, else one NCCL rank a visible card, one rank on
+the CPU).  Every rank takes rank 0's sequence listing and chunk
+listing; rank 0 alone prints and traces, and `main` returns rank 0's
+averages.  A sequence of unequal chunk lengths is solved chunk by chunk
+on every rank, with no collective.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import numpy as np
 
 from globalegomocap_tpu_torch.cli.optimize_sequence import (
     build_parser as sequence_parser, config_from_args, load_optimizer,
-    str2bool, trace_context)
+    run_on_ranks, str2bool, trace_context)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,20 +56,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Run the sweep; returns {sequence: its metric averages}."""
-    args = build_parser().parse_args(argv)
+    from globalegomocap_tpu_torch.cli import evaluate_all
+    return run_on_ranks(evaluate_all.evaluate_rank, build_parser().parse_args(
+        argv))
 
+
+def evaluate_rank(mesh, args) -> dict:
+    """The sweep on this rank of `mesh`: rank 0's averages on every
+    rank."""
     from globalegomocap_tpu_torch.optimize.driver import (
         optimize_sequence_dir)
+    from globalegomocap_tpu_torch.parallel.mesh import broadcast_object
 
-    opt = load_optimizer(args, config_from_args(args))
-    sequences = sorted(
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    opt = load_optimizer(args, config_from_args(args), mesh)
+    sequences = broadcast_object(mesh, sorted(
         d for d in os.listdir(args.data_root)
-        if os.path.isdir(os.path.join(args.data_root, d)))
+        if os.path.isdir(os.path.join(args.data_root, d))) if lead else None)
     t0 = time.perf_counter()
     per_seq = {}
-    with trace_context(args.profile_dir):
+    with trace_context(args.profile_dir if lead else None):
         for seq in sequences:
-            print(f"================ sequence: {seq} ================")
+            say(f"================ sequence: {seq} ================")
             _, averages, _ = optimize_sequence_dir(
                 opt, os.path.join(args.data_root, seq),
                 batched=args.batched)
@@ -69,11 +86,11 @@ def main(argv=None) -> dict:
     total = time.perf_counter() - t0
 
     if per_seq:
-        print("================ overall averages ================")
+        say("================ overall averages ================")
         for k in next(iter(per_seq.values())):
-            print(f"{k}: {np.mean([v[k] for v in per_seq.values()], axis=0)}")
-    print(f"total wall-clock for {len(per_seq)} sequences: {total:.2f}s")
-    return per_seq
+            say(f"{k}: {np.mean([v[k] for v in per_seq.values()], axis=0)}")
+    say(f"total wall-clock for {len(per_seq)} sequences: {total:.2f}s")
+    return broadcast_object(mesh, per_seq)
 
 
 if __name__ == "__main__":

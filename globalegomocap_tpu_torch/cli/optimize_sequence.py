@@ -18,8 +18,15 @@ suffix, flax msgpack files as the JAX package's trainer writes them.
 --camera takes a built-in name or a calibration JSON.  --save true
 writes PLY meshes of the globally aligned sequences under
 --out_dir/<chunk>/; --profile_dir writes a torch.profiler Chrome trace of
-the solve there.  --init sample raises NotImplementedError
-(`optimize/pipeline.check_supported`).
+the solve there.  --init sample --init_seed s starts each stage from mu
+plus JAX's own threefry normal draw times the prior's std
+(`models/conv_vae.py::sample_init`), as the JAX CLI does.
+
+It solves chunk by chunk on one rank, as the JAX CLI solves on one
+device.  Under `torchrun` it runs on every rank of the group (nothing
+to shard: each rank solves every chunk), and rank 0 alone prints and
+writes.  serve and evaluate_all shard their batched solves over ranks
+through `run_on_ranks`.
 """
 
 from __future__ import annotations
@@ -164,9 +171,10 @@ def load_variables(path: str, model) -> dict:
     return check_state(state, model, path)
 
 
-def load_optimizer(args, cfg):
+def load_optimizer(args, cfg, mesh=None):
     """The SequenceOptimizer of `cfg` on the priors the arguments name,
-    on --device."""
+    over `mesh` (default: `make_mesh` on --device, which takes the
+    default group where one exists)."""
     from globalegomocap_tpu_torch.optimize.driver import (
         SequenceOptimizer, build_model)
     from globalegomocap_tpu_torch.optimize.pipeline import check_supported
@@ -174,7 +182,43 @@ def load_optimizer(args, cfg):
     model = build_model(cfg)
     return SequenceOptimizer(model, load_variables(args.local_ckpt, model),
                              load_variables(args.global_ckpt, model), cfg,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
+
+
+def rank_mesh(device):
+    """This process's mesh on `device` (resolved): under a default group
+    (`torchrun`) its rank of the group, where a card named without an
+    index is cuda:LOCAL_RANK under NCCL (`make_mesh`); else one rank."""
+    from globalegomocap_tpu_torch.parallel.mesh import make_mesh
+    card = device.type == "cuda" and device.index is None
+    return make_mesh(device=None if card else device)
+
+
+def run_on_ranks(fn, args):
+    """`fn(mesh, args)` on the ranks a batched command runs on, as the
+    JAX package shards its batched solve over every visible device:
+    under `torchrun` (a default group exists) on this process's rank of
+    it; with --device cuda and no group one rank a visible card
+    (`cli/train.py::ranks_for` at --num_devices 0), NCCL ranks started by
+    `parallel/mesh.py::spawn` where more than one card is visible, and no
+    spawn and no group where one is (or where the device names its
+    card); on the CPU one rank.  Returns rank 0's result (this rank's
+    under torchrun).  A rank that raises makes this raise: nothing is
+    retried on fewer ranks."""
+    import torch.distributed as dist
+
+    from globalegomocap_tpu_torch.cli.train import ranks_for
+    from globalegomocap_tpu_torch.device import resolve_device
+    from globalegomocap_tpu_torch.parallel.mesh import spawn
+
+    device = resolve_device(args.device)
+    if dist.is_available() and dist.is_initialized():
+        return fn(rank_mesh(device), args)
+    world = 1 if device.index is not None else ranks_for(0, device)
+    if world == 1:
+        return fn(rank_mesh(device), args)
+    return spawn(fn, world, [f"cuda:{i}" for i in range(world)],
+                 args=(args,))[0]
 
 
 def trace_context(profile_dir):
@@ -193,11 +237,14 @@ def main(argv=None):
     from globalegomocap_tpu_torch.optimize.driver import (
         optimize_sequence_dir)
 
-    opt = load_optimizer(args, config_from_args(args))
-    with trace_context(args.profile_dir):
+    from globalegomocap_tpu_torch.device import resolve_device
+    opt = load_optimizer(args, config_from_args(args),
+                         rank_mesh(resolve_device(args.device)))
+    lead = opt.mesh.rank == 0
+    with trace_context(args.profile_dir if lead else None):
         errors, averages, _ = optimize_sequence_dir(opt, args.data_path)
 
-    if args.save_pose and errors:
+    if args.save_pose and errors and lead:
         for chunk_dir in list_chunk_dirs(args.data_path):
             _, est, mid_local, opt_seq, gt = opt.run(
                 load_test_chunk(chunk_dir), with_metrics=False)
@@ -211,7 +258,7 @@ def main(argv=None):
                              "mid_optimized_pose": mid_local,
                              "gt_pose": gt}, f)
 
-    if args.save and errors:
+    if args.save and errors and lead:
         import torch
         from globalegomocap_tpu_torch.evaluation.metrics import (
             align_sequence_globally)

@@ -52,6 +52,19 @@ every flag of the parity CLI (`cli/optimize_sequence.py`), with the
 production defaults above.  Runs on the card unless --device cpu; a
 failed staging or solve raises, with no fall back to the CPU or to
 inline staging.
+
+It runs over every visible card with no flag, as the JAX serve shards
+its batched solve over every device (`optimize_sequence.run_on_ranks`):
+under `torchrun` on the group's ranks, else one NCCL rank a visible card
+(spawned where more than one is visible; one card runs as one process
+with no group), one rank on the CPU.  Each rank stages and solves its
+slice of a sequence's chunks and gathers the result.  Rank 0 scans the
+root, loads, counts the load retries and decides; every rank takes its
+decisions (`broadcast_object`) and loads the sequences to solve itself.
+Rank 0 alone prints and writes --save_pose; every rank returns the same
+count.  A sequence of unequal chunk lengths is solved chunk by chunk on
+every rank, with no collective, so no rank waits in one meanwhile.  A
+rank that fails makes the command fail.
 """
 
 from __future__ import annotations
@@ -174,8 +187,15 @@ LOAD_ERRORS = (OSError, EOFError, KeyError, ValueError,
 def main(argv=None) -> int:
     """Run the service; returns the number of sequences emitted (load
     errors not counted)."""
-    args = build_parser().parse_args(argv)
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli.optimize_sequence import run_on_ranks
+    return run_on_ranks(serve.serve_rank, build_parser().parse_args(argv))
 
+
+def serve_rank(mesh, args) -> int:
+    """The service on this rank of `mesh`."""
+    from globalegomocap_tpu_torch.cli.optimize_sequence import (
+        load_optimizer)
     from globalegomocap_tpu_torch.data.test_data import (
         list_chunk_dirs, load_test_chunk)
     from globalegomocap_tpu_torch.evaluation.metrics import calculate_errors
@@ -184,11 +204,11 @@ def main(argv=None) -> int:
     from globalegomocap_tpu_torch.optimize.streaming import (
         StagePrefetcher, StreamingOptimizer)
     from globalegomocap_tpu_torch.optimize.window import num_windows
+    from globalegomocap_tpu_torch.parallel.mesh import broadcast_object
 
-    from globalegomocap_tpu_torch.cli.optimize_sequence import (
-        load_optimizer)
+    lead = mesh.rank == 0
     cfg = config_from_args(args)
-    opt = load_optimizer(args, cfg)
+    opt = load_optimizer(args, cfg, mesh)
     service = StreamingOptimizer(opt, max_in_flight=args.max_in_flight,
                                  stage_on_host=args.stage_on_host)
 
@@ -196,9 +216,16 @@ def main(argv=None) -> int:
     pending: list[tuple[str, list, float]] = []  # (name, chunks, t_submit)
     emitted = 0
 
+    def say(rec):
+        if lead:
+            print(json.dumps(rec), flush=True)
+
     def emit(name, chunks, t_submit, res):
         """One record for a completed submission (its event has fired)."""
         nonlocal emitted
+        emitted += 1
+        if not lead:
+            return
         latency = time.perf_counter() - t_submit
         wins = sum(num_windows(c.n_frames, cfg.window.seq_len,
                                cfg.window.stride) for c in chunks)
@@ -216,8 +243,7 @@ def main(argv=None) -> int:
             os.makedirs(out, exist_ok=True)
             np.save(os.path.join(out, "optimized.npy"),
                     res.optimized.cpu().numpy())
-        print(json.dumps(rec), flush=True)
-        emitted += 1
+        say(rec)
 
     def emit_completed():
         """Emit the submissions that have completed, in order."""
@@ -234,38 +260,50 @@ def main(argv=None) -> int:
 
     watch = args.watch_interval > 0
     fail_counts: dict[str, int] = {}
-    while True:
-        progressed = False          # did this pass submit or emit anything?
-        ready: list[tuple[str, list]] = []   # this pass's batches
-        seqs = sorted(d for d in os.listdir(args.data_root)
-                      if os.path.isdir(os.path.join(args.data_root, d))
-                      and d not in done)
-        for name in seqs:
-            if args.max_batches and emitted + len(pending) + len(ready) \
+    loaded: dict[str, list] = {}          # rank 0's chunks of this pass
+
+    def scan() -> list:
+        """Rank 0's pass over the root: (name, chunk dirs, 'solve' or
+        'error', the error) a sequence to act on, in order; a sequence
+        whose load fails is retried on later scans in watch mode."""
+        plan, taken = [], 0
+        for name in sorted(d for d in os.listdir(args.data_root)
+                           if os.path.isdir(os.path.join(args.data_root, d))
+                           and d not in done):
+            if args.max_batches and emitted + len(pending) + taken \
                     >= args.max_batches:
                 break
-            seq_dir = os.path.join(args.data_root, name)
-            chunk_dirs = list_chunk_dirs(seq_dir)
+            chunk_dirs = list_chunk_dirs(os.path.join(args.data_root, name))
             if not chunk_dirs:
                 continue      # an empty directory: rescanned, no progress
             try:
-                chunks = [load_test_chunk(d) for d in chunk_dirs]
+                loaded[name] = [load_test_chunk(d) for d in chunk_dirs]
             except LOAD_ERRORS as e:
                 fail_counts[name] = fail_counts.get(name, 0) + 1
                 if watch and fail_counts[name] < args.max_load_retries:
                     continue                 # likely still being written
-                print(json.dumps({"sequence": name, "error": repr(e)}),
-                      flush=True)
-                done.add(name)
-                progressed = True
+                plan.append((name, chunk_dirs, "error", repr(e)))
                 continue
+            plan.append((name, chunk_dirs, "solve", None))
+            taken += 1
+        return plan
+
+    while True:
+        plan = broadcast_object(mesh, scan() if lead else None)
+        ready: list[tuple[str, list]] = []   # this pass's batches
+        for name, chunk_dirs, kind, err in plan:
             done.add(name)
-            progressed = True
+            if kind == "error":
+                say({"sequence": name, "error": err})
+                continue
+            chunks = loaded.pop(name) if lead else [
+                load_test_chunk(d) for d in chunk_dirs]
             if len({c.n_frames for c in chunks}) != 1:
-                # unequal chunk lengths: the per-chunk fallback
+                # unequal chunk lengths: the per-chunk fallback, on every
+                # rank (no collective)
                 t0 = time.perf_counter()
-                _, avg, timing = optimize_sequence_dir(opt, seq_dir,
-                                                       verbose=False)
+                _, avg, timing = optimize_sequence_dir(
+                    opt, os.path.join(args.data_root, name), verbose=False)
                 failed = timing["failed_chunks"]
                 if failed:
                     # a metric over the chunks that survived would hide
@@ -278,7 +316,7 @@ def main(argv=None) -> int:
                                1e3 * (time.perf_counter() - t0), 1),
                            "optimized_global_mpjpe": round(float(
                                avg["optimized_global_mpjpe"]), 5)}
-                print(json.dumps(rec), flush=True)
+                say(rec)
                 emitted += 1
                 continue
             ready.append((name, chunks))
@@ -302,7 +340,7 @@ def main(argv=None) -> int:
             break
         if not watch:
             break
-        if not progressed:
+        if not plan:
             # an idle pass: finish and emit what is in flight, then sleep
             # (gating on progress also keeps a root of empty or failing
             # directories from spinning)

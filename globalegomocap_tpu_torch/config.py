@@ -2,9 +2,10 @@
 
 A copy of the fields of `globalegomocap_tpu/config.py` that the optimizer
 and the trainer read, with the same names and defaults, so one set of
-values configures both packages.  The one option the port does not run, solver.init =
-'sample', is kept as a field and rejected by name
-(optimize/pipeline.py `check_supported`).
+values configures both packages.  Every option runs, solver.init =
+'sample' included (JAX's own threefry draw, `ops/random.py`); a value
+neither package knows is refused by name (optimize/pipeline.py
+`check_supported`).
 """
 
 from __future__ import annotations

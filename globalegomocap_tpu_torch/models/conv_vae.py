@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from globalegomocap_tpu_torch.ops.random import normal, prng_key
 from globalegomocap_tpu_torch.parallel.mesh import all_reduce
 
 
@@ -227,6 +228,18 @@ def reparameterize(mu: torch.Tensor, log_var: torch.Tensor,
     if noise is None:
         return mu
     return mu + noise * torch.exp(0.5 * log_var)
+
+
+def sample_init(mu: torch.Tensor, log_var: torch.Tensor, seed: int,
+                row: int = 0) -> torch.Tensor:
+    """The solver's sample init, the JAX stage's `reparameterize(mu,
+    log_var, PRNGKey(seed))`: mu plus JAX's own normal draw of mu's shape
+    and dtype (`ops/random.py`; bf16 at bfloat16_pure, else float32)
+    times exp(0.5 log_var).  `row` > 0 takes rows row.. of a larger draw
+    (one rank's slice of a draw over every rank's windows)."""
+    noise = normal(prng_key(int(seed)), tuple(mu.shape), mu.dtype,
+                   start=row * mu.shape[-1], device=mu.device)
+    return reparameterize(mu, log_var, noise)
 
 
 def vae_loss(reconstruction: torch.Tensor, target: torch.Tensor,

@@ -61,9 +61,10 @@ from globalegomocap_tpu_torch.optimize import pipeline
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
 from globalegomocap_tpu_torch.optimize.prior_bank import (
     PriorBank, motion_accel_stat, motion_accel_stat_torch, nearest_index)
+from globalegomocap_tpu_torch.optimize.window import num_windows
 from globalegomocap_tpu_torch.parallel.mesh import (
-    Mesh, all_gather_fields, all_reduce, make_mesh, pad_to_multiple,
-    shard_batch)
+    Mesh, all_gather_fields, all_reduce, broadcast_object, make_mesh,
+    pad_to_multiple, shard_batch)
 from globalegomocap_tpu_torch.parallel.window_shard import (
     optimize_chunk_window_sharded)
 
@@ -320,10 +321,12 @@ class SequenceOptimizer:
 
     def _mean_over_ranks(self, total, count: int) -> float:
         """A mean over every rank's real chunks from this rank's `total`
-        over its `count` real chunks (one all_reduce)."""
+        over its `count` real chunks (one all_reduce, on the mesh's
+        staging group: staging may run on a prefetch thread while the
+        solve gathers on the world group)."""
         t = torch.stack([torch.as_tensor(total, dtype=torch.float64).cpu(),
                          torch.tensor(float(count), dtype=torch.float64)])
-        t = all_reduce(self.mesh, t)
+        t = all_reduce(self.mesh.staging(), t)
         return float(t[0] / t[1])
 
     def _stage_host(self, chunks: list[TestChunk], coverage: float | None,
@@ -490,7 +493,16 @@ class SequenceOptimizer:
         Over a mesh of several ranks each rank solves its staged slice
         with no collective (the JAX driver's shard_map), then one
         all_gather collects the ChunkResult, sliced to the unpadded
-        chunks; every rank returns the whole result."""
+        chunks; every rank returns the whole result.
+
+        The sample init (solver.init='sample') draws what the JAX
+        driver's program draws on each device.  Where it runs shard_map
+        (several ranks with solver.fused_energy or batched_solver) every
+        rank draws at its own shape, so its rows repeat rank 0's; where it
+        runs one program sharded by jit (several ranks and neither flag)
+        the flat mode draws once over every rank's windows and each rank
+        takes its rows of that draw.  The vmap mode draws the same rows
+        for every chunk either way."""
         if mode not in ("flat", "vmap"):
             raise ValueError(f"mode={mode!r}: 'flat' or 'vmap'")
         staged = chunks if isinstance(chunks, StagedBatch) \
@@ -506,10 +518,16 @@ class SequenceOptimizer:
         solve = (pipeline.optimize_chunks_flat if mode == "flat"
                  else pipeline.optimize_chunks_batched)
         stages = self._select_priors(staged.accel_mean)
+        kw = {}
+        if mode == "flat" and size > 1 and not (
+                cfg.solver.fused_energy or cfg.solver.batched_solver):
+            per_chunk = num_windows(staged.est.shape[1], cfg.window.seq_len,
+                                    cfg.window.stride)
+            kw["draw_row"] = self.mesh.rank * staged.est.shape[0] * per_chunk
         with torch.no_grad():
             res = solve(*stages, staged.est, staged.cams, staged.heat,
                         staged.gt, self._camera_dev, cfg,
-                        origins=staged.origins, full_hw=staged.full_hw)
+                        origins=staged.origins, full_hw=staged.full_hw, **kw)
             if size == 1:
                 return res
             return ChunkResult(*(f[:staged.n_chunks] for f in
@@ -619,7 +637,15 @@ def optimize_sequence_dir(opt: SequenceOptimizer, data_dir: str,
     not end the sequence.  batched=True solves the sequence's chunks in
     one staged flat solve (`stage` and `optimize_chunks_batched(mode=
     'flat')`), and falls back to the per-chunk loop where their lengths
-    differ.  Returns (per_chunk_errors, averages, timing)."""
+    differ.  Returns (per_chunk_errors, averages, timing).
+
+    Over a mesh of several ranks rank 0 alone prints.  The batched solve
+    takes rank 0's listing and the chunks that loaded there (a chunk
+    that loads on rank 0 and fails on another raises there).  The
+    per-chunk loop makes no collective call: every rank solves every
+    chunk itself, so no rank waits in a collective while another
+    solves."""
+    verbose = verbose and opt.mesh.rank == 0
     if batched:
         res = _optimize_sequence_dir_batched(opt, data_dir, verbose)
         if res is not None:
@@ -651,17 +677,22 @@ def optimize_sequence_dir(opt: SequenceOptimizer, data_dir: str,
 def _optimize_sequence_dir_batched(opt: SequenceOptimizer, data_dir: str,
                                    verbose: bool = True):
     """One staged flat solve over a sequence directory's chunks (those
-    that load; the others are listed as failed).  None where their
-    lengths differ (the caller falls back to the per-chunk loop)."""
+    that load on rank 0; the others are listed as failed).  None where
+    their lengths differ (the caller falls back to the per-chunk loop)."""
     dirs, chunks, failures = [], [], []
-    for chunk_dir in list_chunk_dirs(data_dir):
-        try:
-            chunks.append(load_test_chunk(chunk_dir))
-            dirs.append(chunk_dir)
-        except Exception as e:  # noqa: BLE001 - isolate a corrupt chunk
-            failures.append((chunk_dir, repr(e)))
-            if verbose:
-                print(f"SKIPPED corrupt chunk {chunk_dir}: {e!r}")
+    if opt.mesh.rank == 0:
+        for chunk_dir in list_chunk_dirs(data_dir):
+            try:
+                chunks.append(load_test_chunk(chunk_dir))
+                dirs.append(chunk_dir)
+            except Exception as e:  # noqa: BLE001 - isolate a corrupt chunk
+                failures.append((chunk_dir, repr(e)))
+                if verbose:
+                    print(f"SKIPPED corrupt chunk {chunk_dir}: {e!r}")
+    if opt.mesh.size > 1:
+        dirs, failures = broadcast_object(opt.mesh, (dirs, failures))
+        if opt.mesh.rank:
+            chunks = [load_test_chunk(d) for d in dirs]
     if not chunks:
         return [], {}, {"total_s": 0.0, "per_chunk_s": 0.0,
                         "failed_chunks": failures}

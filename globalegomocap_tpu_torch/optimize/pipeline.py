@@ -54,7 +54,7 @@ from globalegomocap_tpu_torch.energy.terms import (
     EnergyWeights, crop_heatmaps_at_centers_channels_last,
     crop_heatmaps_channels_last, overlap_consistency_energy,
     projected_estimate_centers, total_energy_from_pose)
-from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
+from globalegomocap_tpu_torch.models.conv_vae import ConvVAE, sample_init
 from globalegomocap_tpu_torch.models.dense_decoder import (
     make_dense_decoder, make_shift_decoder)
 from globalegomocap_tpu_torch.ops import fisheye
@@ -90,14 +90,8 @@ class ChunkResult(NamedTuple):
 
 
 def check_supported(cfg: OptimizeConfig) -> None:
-    """Raise for what the port does not run: solver.init='sample' (the
-    port would need JAX's threefry stream to draw the JAX package's sample
-    from init_seed), NotImplementedError; an option value neither package
-    knows, ValueError."""
-    if cfg.solver.init != "mu":
-        if cfg.solver.init == "sample":
-            raise NotImplementedError(
-                "not yet ported to the PyTorch package: solver.init='sample'")
+    """Raise ValueError for an option value neither package knows."""
+    if cfg.solver.init not in ("mu", "sample"):
         raise ValueError(f"solver.init={cfg.solver.init!r}")
     impl = cfg.decoder_impl or ("dense" if cfg.dense_decoder else "conv")
     unknown = [
@@ -298,7 +292,8 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
                    mean_bl, camera: fisheye.FisheyeParams,
                    weights: EnergyWeights, use_reproj: bool,
                    cfg: OptimizeConfig, origins=None, full_hw=None,
-                   residual: bool = False) -> torch.Tensor:
+                   residual: bool = False, draw_row: int = 0
+                   ) -> torch.Tensor:
     """One optimisation stage over a batch of windows.
 
     model: the prior, as `stage_models` built it for cfg.compute_dtype (a
@@ -316,7 +311,16 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
     per-window solver runs that tier with the mixed tier's semantics, as
     the JAX one does.  With solver.fused_decode, stage 1 on crops without
     a residual offset runs kernel 5 (`ops/fused_decode_energy.py`) on the
-    float32 weights of the decoder at every tier."""
+    float32 weights of the decoder at every tier.
+
+    solver.init='sample' starts from mu plus JAX's normal draw of the
+    stage's (W, latent) shape times the prior's std, keyed by
+    solver.init_seed (`conv_vae.sample_init`), at the point where JAX's
+    stage draws: after the encode, so the residual offset, the delta
+    state and every energy branch take the sample as their mu.  The key
+    is the same in both stages and for every call; `draw_row` > 0 takes
+    the rows of a larger draw from that row on (a rank's windows of a
+    draw over every rank's)."""
     w, t = init_pose.shape[0], init_pose.shape[1]
     L = t * J
     s = cfg.solver
@@ -336,7 +340,9 @@ def optimize_stage(model: ConvVAE | StageModels, init_pose, heatmaps,
                          f"{cfg.compute_dtype!r} with {decoder_impl(cfg)}")
     eval_decode, out_decode = sm.decode_eval, sm.decode_out
     with torch.no_grad():
-        mu, _ = sm.enc.encode(init_pose.reshape(w, t, 3 * J))
+        mu, log_var = sm.enc.encode(init_pose.reshape(w, t, 3 * J))
+        if s.init == "sample":
+            mu = sample_init(mu, log_var, s.init_seed, draw_row)
         offset = (init_pose - out_decode(mu)) if residual else None
     latent = mu.shape[-1]
     smoothed = None
@@ -508,15 +514,17 @@ def solve_windows(local_model: ConvVAE | StageModels,
                   global_model: ConvVAE | StageModels, win_local,
                   win_cam, win_heat, win_gt, win_bl,
                   camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
-                  win_org=None, full_hw=None) -> WindowFields:
+                  win_org=None, full_hw=None,
+                  draw_row: int = 0) -> WindowFields:
     """Both stages and the coordinate lifts over a batch of windows (no
-    cross-window coupling)."""
+    cross-window coupling); `draw_row` as `optimize_stage` takes it."""
     local_w, global_w = stage_weights(cfg)
     use_reproj = cfg.energy.reproj != 0.0
     mid_local = optimize_stage(local_model, win_local, win_heat, win_bl,
                                camera, local_w, use_reproj, cfg,
                                origins=win_org, full_hw=full_hw,
-                               residual=cfg.energy.local_residual)
+                               residual=cfg.energy.local_residual,
+                               draw_row=draw_row)
     # world lifts go straight through the per-frame cameras
     # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs the
     # relative hop
@@ -526,7 +534,8 @@ def solve_windows(local_model: ConvVAE | StageModels,
     mid_world = transform_pose(mid_local, win_cam)
     opt_rel = optimize_stage(global_model, mid_rel, None, win_bl, camera,
                              global_w, False, _stage2_cfg(cfg),
-                             residual=cfg.energy.global_residual)
+                             residual=cfg.energy.global_residual,
+                             draw_row=draw_row)
     opt_world = relative_to_global_pose(opt_rel, cam0)
     return WindowFields(est_world, mid_world, mid_local, opt_world, win_gt)
 
@@ -594,12 +603,14 @@ def optimize_chunks_flat(local_model: ConvVAE | StageModels,
                          global_model: ConvVAE | StageModels,
                          estimated_local, camera_seq, heatmap_seq, gt_seq,
                          camera: fisheye.FisheyeParams, cfg: OptimizeConfig,
-                         origins=None, full_hw=None) -> ChunkResult:
+                         origins=None, full_hw=None,
+                         draw_row: int = 0) -> ChunkResult:
     """Optimise many equal-length chunks with the windows of all chunks
     concatenated into one flat solver batch.  All inputs carry a leading
     chunk axis (C, N, ...); heatmap_seq is the raw maps (C, N, H, W, J),
     or staged crops (flat (C, N, k*k*J) or (C, N, k, k, J)) with origins
-    (C, N, J, 2) and full_hw.  Returns (C, covered, 15, 3) fields."""
+    (C, N, J, 2) and full_hw.  Returns (C, covered, 15, 3) fields.  The
+    sample init draws (C * W, latent) from row `draw_row` on."""
     check_supported(cfg)
     if cfg.energy.overlap_consistency != 0.0:
         raise ValueError(
@@ -637,7 +648,8 @@ def optimize_chunks_flat(local_model: ConvVAE | StageModels,
     bl_flat = bl.repeat_interleave(w_per, dim=0)          # (C*W, 15)
     fields = solve_windows(local_model, global_model, flat(win_local),
                            flat(win_cam), f_heat, flat(win_gt), bl_flat,
-                           camera, cfg, win_org=f_org, full_hw=full_hw)
+                           camera, cfg, win_org=f_org, full_hw=full_hw,
+                           draw_row=draw_row)
 
     return merge_window_fields(
         WindowFields(*(x.reshape((c, w_per) + x.shape[1:]) for x in fields)),
@@ -655,7 +667,9 @@ def optimize_chunks_batched(local_model: ConvVAE | StageModels,
     the fields stacked on a leading chunk axis: what the JAX package's
     vmap over the chunk axis computes, as a loop over chunks.  Inputs as
     for `optimize_chunks_flat`.  The mode that runs
-    energy.overlap_consistency, whose coupling stays inside a chunk."""
+    energy.overlap_consistency, whose coupling stays inside a chunk.
+    The sample init draws the same (W, latent) rows for every chunk, as
+    JAX's vmap does with its unbatched key."""
     per_chunk = [
         optimize_chunk(local_model, global_model, estimated_local[i],
                        camera_seq[i], heatmap_seq[i], gt_seq[i], camera, cfg,

@@ -182,7 +182,9 @@ class StagePrefetcher:
     (`StagedBatch.ready`), which the solve's stream waits on.  A worker
     exception re-raises on the consumer at the point of consumption.  The
     queue holds at most `depth` staged batches, which bounds their device
-    memory.
+    memory.  Over a mesh of several ranks staging's collectives run on
+    the mesh's staging group (`parallel/mesh.py`), so the worker's
+    all_reduce never pairs with the consumer's gathers on another rank.
 
         for staged in StagePrefetcher(opt, batches, depth=2):
             service.submit_batch(staged)

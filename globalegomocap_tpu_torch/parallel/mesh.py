@@ -24,6 +24,20 @@ lies.
 `torch.multiprocessing.spawn`; `torchrun`'s environment (MASTER_ADDR,
 RANK, WORLD_SIZE) serves as well, once the caller has initialised the
 default group.
+
+Two threads must not issue collectives on one group: nothing makes
+their order the same on every rank, and ranks that pair one thread's
+collective with the other's hang or mix tensors.  Staging (the
+guard's coverage, summed over the ranks) runs on the serve prefetcher's
+worker thread while the main thread gathers solves, so a mesh of several
+ranks carries a second group over the same ranks, `stage_group`, made
+once per default group by `make_mesh`; `Mesh.staging()` is the mesh on
+it.  Each thread then owns one ordered channel.  The staging group is a
+gloo group whatever the world's backend: its one collective sums two
+host numbers, so it never touches a card, and under NCCL it is not a
+second NCCL communicator used beside the first from another thread
+(which NCCL warns can deadlock).  `broadcast_object` hands rank 0's
+Python value (a directory listing, a retry decision) to every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import pickle
 import tempfile
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -54,6 +68,29 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
+    stage_group: Any = None
+
+    def staging(self) -> "Mesh":
+        """This mesh on its staging group (itself where it has none): the
+        gloo group that staging's collectives take, on host tensors."""
+        if self.stage_group is None:
+            return self
+        return replace(self, group=self.stage_group, backend="gloo")
+
+
+# (default group, its staging group): one staging group a default group,
+# however often make_mesh is called
+_STAGE_GROUP: list = [None, None]
+
+
+def _stage_group():
+    """The gloo staging group of the default group, made at the first
+    call on every rank (making a group is a collective step)."""
+    world = dist.group.WORLD
+    if _STAGE_GROUP[0] is not world:
+        _STAGE_GROUP[:] = [world, dist.new_group(
+            list(range(dist.get_world_size())), backend="gloo")]
+    return _STAGE_GROUP[1]
 
 
 def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
@@ -74,7 +111,8 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
     if n_devices and n_devices != size:
         raise ValueError(f"make_mesh({n_devices}): the process group has "
                          f"{size} rank(s); a mesh spans every rank")
-    return Mesh(group, backend, rank, size, resolve_device(device))
+    return Mesh(group, backend, rank, size, resolve_device(device),
+                _stage_group() if size > 1 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +211,18 @@ def all_gather_fields(mesh: Mesh, fields) -> list:
     return out
 
 
+def broadcast_object(mesh: Mesh, obj):
+    """Rank 0's `obj` (any picklable value) on every rank; `obj` itself
+    on a mesh of one rank."""
+    if mesh.size == 1:
+        return obj
+    box = [obj if mesh.rank == 0 else None]
+    dist.broadcast_object_list(
+        box, group=mesh.group, group_src=0,
+        device=mesh.device if mesh.backend == "nccl" else None)
+    return box[0]
+
+
 def _broadcast(mesh: Mesh, x: torch.Tensor) -> None:
     t = _route(mesh, x)
     dist.broadcast(t, src=0, group=mesh.group)
@@ -207,16 +257,19 @@ def replicate(mesh: Mesh, *objs):
 # ---------------------------------------------------------------------------
 
 def spawn(fn: Callable, world: int, devices=None, backend: str | None = None,
-          args: tuple = (), timeout_s: float | None = None) -> list:
+          args: tuple = (), timeout_s: float | None = None,
+          threads: int | None = None) -> list:
     """Run `fn(mesh, *args)` on `world` ranks, one process each
     (`torch.multiprocessing.spawn`), and return their results in rank
     order.  `devices`: one device a rank (default: cards
     cuda:0..world-1, through `resolve_device`; the CPU only where the
     caller lists it); `backend`: 'nccl' where every device is a card,
     else 'gloo', unless given.  The ranks meet at a FileStore in
-    a temporary directory (no TCP port to choose), pin one intra-op
-    thread each, and tear the group down on every exit.  `fn` is pickled
-    by its import path, and so are `args` and the results.  If a rank
+    a temporary directory (no TCP port to choose) and tear the group
+    down on every exit.  Each rank runs `threads` intra-op threads
+    (default: this process's, split over the ranks, at least one).
+    `fn` is pickled by its import path, and so are `args` and the
+    results.  If a rank
     raises, rank 0's exception (else the lowest failing rank's) is raised
     here.  `timeout_s` bounds each collective and the whole run (the
     ranks still running then are terminated and TimeoutError raised);
@@ -231,10 +284,12 @@ def spawn(fn: Callable, world: int, devices=None, backend: str | None = None,
                                  for d in devices) else "gloo")
     if len(devices) != world:
         raise ValueError(f"{len(devices)} devices for {world} ranks")
+    if threads is None:
+        threads = max(1, torch.get_num_threads() // world)
     with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
         ctx = torch.multiprocessing.spawn(
             _rank_main, args=(fn, world, devices, backend, tuple(args), tmp,
-                              timeout_s), nprocs=world, join=False)
+                              timeout_s, threads), nprocs=world, join=False)
         deadline = None if timeout_s is None else \
             time.monotonic() + timeout_s
         try:
@@ -269,9 +324,10 @@ def _dump(obj, path: str) -> None:
 
 
 def _rank_main(rank: int, fn, world: int, devices: list, backend: str,
-               args: tuple, tmp: str, timeout_s: float) -> None:
+               args: tuple, tmp: str, timeout_s: float,
+               threads: int) -> None:
     """One rank of `spawn`: the group, `fn`, its result or exception."""
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)

@@ -97,7 +97,8 @@ def _joint_args(case, n):
 def ranks(case):
     """Both ranks' results, and the one-rank reference of the same
     workers."""
-    out = pm.spawn(workers.several, 2, ["cpu"] * 2, timeout_s=300, args=([
+    out = pm.spawn(workers.several, 2, ["cpu"] * 2, timeout_s=300,
+                   threads=1, args=([
         ("dp_train", _vae_args(case, 2)),
         ("dp_joint", _joint_args(case, 2))],))
     one = pm.make_mesh(device="cpu")

@@ -804,7 +804,7 @@ def test_gloo_collectives_on_card_tensors(gen):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch_parallel_workers as workers
     r0, r1 = pm.spawn(workers.collectives, 2, ["cuda:0", "cuda:0"], "gloo",
-                      timeout_s=300)
+                      timeout_s=300, threads=1)
     for r, rec in enumerate((r0, r1)):
         assert (rec["rank"], rec["size"], rec["backend"], rec["device"]) \
             == (r, 2, "gloo", "cuda:0")

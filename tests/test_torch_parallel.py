@@ -181,7 +181,8 @@ def test_a_mesh_of_one_rank_makes_no_collective(case, monkeypatch):
 def ranks(case):
     """The two ranks' results (collectives, the chunk-sharded solves and
     the bank) and the one-rank reference of the same worker."""
-    out = pm.spawn(workers.several, 2, ["cpu"] * 2, timeout_s=300, args=([
+    out = pm.spawn(workers.several, 2, ["cpu"] * 2, timeout_s=300,
+                   threads=1, args=([
         ("collectives", ()), ("chunk_sharded", _worker_args(case))],))
     one = workers.chunk_sharded(cpu_mesh(), *_worker_args(case))
     return out, one
@@ -192,7 +193,7 @@ def test_spawn_hands_back_rank_zeros_exception():
     and the group is torn down: a later spawn works (the fixture's)."""
     with pytest.raises(ValueError, match="rank 0 failed on purpose"):
         pm.spawn(workers.fails_on, 2, ["cpu"] * 2, timeout_s=120,
-                 args=(0,))
+                 threads=1, args=(0,))
 
 
 def test_collectives_over_two_gloo_ranks(ranks):

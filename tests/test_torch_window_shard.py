@@ -89,6 +89,7 @@ def solved(case):
     cases, _ = case
     one = workers.window_sharded(pm.make_mesh(device="cpu"), cases)
     out = pm.spawn(workers.two_and_all, 3, ["cpu"] * 3, timeout_s=300,
+                   threads=1,
                    args=([("window_sharded", (cases,))],
                          [("window_sharded", (cases,))]))
     return {3: [r["all"][0] for r in out],

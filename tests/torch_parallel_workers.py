@@ -1,5 +1,6 @@
 """The rank functions of the data-parallel tests (test_torch_parallel.py,
-test_torch_window_shard.py, test_torch_dp_train.py).
+test_torch_window_shard.py, test_torch_dp_train.py,
+test_torch_sample_init.py, test_torch_serve_ranks.py).
 
 `globalegomocap_tpu_torch.parallel.mesh.spawn` starts each rank as a
 fresh process that imports its function by this module's path, so this
@@ -9,6 +10,8 @@ returns host values (numpy arrays, floats, dicts), which `spawn` hands
 back to the test in rank order; the test holds them against JAX."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -222,3 +225,94 @@ def two_and_all(mesh, calls_all, calls_two) -> dict:
         two = pm.Mesh(sub, mesh.backend, mesh.rank, 2, mesh.device)
         out["two"] = several(two, calls_two)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sample init over ranks
+# ---------------------------------------------------------------------------
+
+def sample_sharded(mesh, cases) -> dict:
+    """Per case (name, cfg, state, chunks, mode): the chunk-sharded
+    batched solve of `chunks` in `mode` ('flat' or 'vmap'), or with mode
+    'window' the window-sharded solve of chunks[0]."""
+    out = {}
+    for name, cfg, state, chunks, mode in cases:
+        opt = driver.SequenceOptimizer(driver.build_model(cfg), state, state,
+                                       cfg, mesh=mesh)
+        if mode == "window":
+            out[name] = fields(opt.optimize_chunk_sharded(chunks[0], cfg=cfg))
+        else:
+            out[name] = fields(opt.optimize_chunks_batched(
+                opt.stage(chunks, on_host=True), mode=mode))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve and evaluate_all over ranks
+# ---------------------------------------------------------------------------
+
+def _captured(fn, *args):
+    """(fn(*args), what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args)
+    return value, buf.getvalue()
+
+
+def arrive_on_sleep(root: str, name: str, src: str, write: bool):
+    """A stand-in for serve's time.sleep: at the first idle pass the
+    sequence directory `src` is copied to `root/name` (by the caller's
+    rank 0 alone, `write`), as a capture arriving mid-run."""
+    import shutil
+
+    def sleep(_):
+        if write and not os.path.exists(os.path.join(root, name)):
+            shutil.copytree(src, os.path.join(root, name))
+    return sleep
+
+
+def cli_ranks(mesh, serve_argv, eval_argv, watch=None) -> dict:
+    """serve's and evaluate_all's `main` on this rank of the group (they
+    take the default group, as under torchrun): their values and what
+    each printed; with `watch` = (argv, root, name, src) also serve in
+    watch mode with a sequence arriving at its first idle pass."""
+    from globalegomocap_tpu_torch.cli import evaluate_all, serve
+    out = {"serve": _captured(serve.main, serve_argv),
+           "eval": _captured(evaluate_all.main, eval_argv),
+           "rank": mesh.rank}
+    if watch is not None:
+        argv, root, name, src = watch
+        real = serve.time.sleep
+        serve.time.sleep = arrive_on_sleep(root, name, src, mesh.rank == 0)
+        try:
+            out["watch"] = _captured(serve.main, argv)
+        finally:
+            serve.time.sleep = real
+    return out
+
+
+def prefetch_under_gathers(mesh, cfg, state, batches, lag: float) -> list:
+    """Stage `batches` on a StagePrefetcher (depth 2, the guard measured
+    on every batch, so every staging all-reduces the coverage) while the
+    main thread solves and gathers each batch.  Rank 0's source hands
+    its batches out at once, the other ranks' each `lag` seconds late:
+    rank 0's worker then issues its next all_reduce before its main
+    thread's all_gather, the other ranks after it.  Returns each batch's
+    gathered fields."""
+    import time
+
+    from globalegomocap_tpu_torch.optimize.streaming import StagePrefetcher
+    opt = driver.SequenceOptimizer(driver.build_model(cfg), state, state,
+                                   cfg, mesh=mesh)
+
+    def source():
+        for i, b in enumerate(batches):
+            if i and mesh.rank:
+                time.sleep(lag)
+            yield b
+
+    return [fields(opt.optimize_chunks_batched(staged, mode="flat"))
+            for staged in StagePrefetcher(opt, source(), depth=2,
+                                          on_host=True, guard="every")]
