@@ -16,8 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
               integer cells; the heatmap
               sampler forward and backward on f32 and bf16 64x64 maps,
               points in [-1.3, 1.3], R in {1, 4}, at the shapes of paths A
-              and B; the L-BFGS direction at m in {2, 10, 25}, B in {12,
-              13, 192}, d = 2048 with partly filled histories, float32
+              and B (both forward variants, the residual, and the backward
+              over the kernel's residual, bit for bit the plain one); the
+              L-BFGS direction at m in {2, 10, 25}, B in {12, 13, 192},
+              d = 2048 with partly filled histories, float32
               and bf16 (the solver's bf16 state), and d = 2050 float32
               and d = 36 bf16 (zero-padded to the plan's width); the
               decoder
@@ -235,7 +237,11 @@ Phases (any failure exits non-zero and prints no result line):
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
               valid history slots), the plain version's time and, for the
-              sampler, F.grid_sample's; kernels 1 and 2 at their plan (one
+              sampler, F.grid_sample's; the sampler's value-only forward,
+              its forward with the residual and its backward over it, the
+              value-and-grad pair against F.grid_sample +
+              grid_sampler_2d_backward in turns, and the three at blocks
+              of 64, 128 and 256 threads in turns; kernels 1 and 2 at their plan (one
               row a block), beside the record bound (every crop byte, k*k
               cells) too; the launch floor (a no-op kernel) beside
               kernels 1-3; kernel 5 beside its plan (rows a CTA, ring
@@ -316,9 +322,16 @@ DEC_DIMS = (512, 256, 128, 64, 64, 64, 45)
 DEC_OPS_PER_ROW = 2 * 2 * (3 * 10 - 2) * sum(
     a * b for a, b in zip(DEC_DIMS[:-1], DEC_DIMS[1:]))
 # float32 operations per sampled point, counted from
-# csrc/heatmap_sample.cu (coordinates, taps, weights, the two pairs)
+# csrc/heatmap_sample.cu: the value-only forward (coordinates, taps,
+# weights, the three pairs), the forward with its residual (also the four
+# derivatives and the three pairs of dix and diy), and the backward over
+# the residual (two products a coordinate)
 OPS_PER_SAMPLE = 30
-OPS_PER_SAMPLE_BWD = 50
+OPS_PER_SAMPLE_RES = 50
+OPS_PER_SAMPLE_BWD = 4
+# rounds of kernel 3's timings in turns (the pair against the library's,
+# the block sizes)
+PAIR_ROUNDS = 6
 T, J = 10, 15
 L = T * J
 # the serve traffic: two requests of 16 chunks x 100 frames (192 windows)
@@ -618,24 +631,37 @@ def dir_agreement(torch, out_k, out_p):
 
 
 def compare_sampler(torch, hs, cb, r, n, dtype, gen):
-    """The sampler's forward and backward kernels against the plain
-    version on the same CUDA inputs.  Returns (ok, message, max |error|
-    forward, backward)."""
+    """The sampler's kernels against the plain version on the same CUDA
+    inputs: the value-only forward and the residual forward (the same
+    samples bit for bit; the residual held as `bwd_agreement` holds a
+    gradient), and the backward over the kernel's residual (bit for bit
+    the plain backward over that residual, and within `bwd_agreement` of
+    the plain backward over the plain residual).  Returns (ok, message,
+    max |error| forward, backward)."""
     maps, pts = sampler_inputs(r, n, dtype, gen, torch)
+    size = tuple(maps.shape[1:])
     g = torch.randn((r, n), generator=gen, device="cuda")
     out_k = hs.heatmap_sample_fwd(maps, pts)
-    d_k = hs.heatmap_sample_bwd(maps, pts, g)
+    out_r, res_k = hs.heatmap_sample_fwd(maps, pts, residual=True)
+    d_k = hs.heatmap_sample_bwd(res_k, g, size)
     with cb.plain_versions_on_cuda():
-        out_p = hs.heatmap_sample_fwd(maps, pts)
-        d_p = hs.heatmap_sample_bwd(maps, pts, g)
+        out_p, res_p = hs.heatmap_sample_fwd(maps, pts, residual=True)
+        d_p = hs.heatmap_sample_bwd(res_p, g, size)
+        d_own = hs.heatmap_sample_bwd(res_k, g, size)
     torch.cuda.synchronize()
+    same = bool(torch.equal(out_k, out_r))
+    exact = bool(torch.equal(d_k, d_own))
     ok_f, de = fwd_agreement(torch, out_k, out_p)
+    ok_r, dr, _ = bwd_agreement(torch, maps, pts, res_k, res_p)
     ok_b, dd, n_kink = bwd_agreement(torch, maps, pts, d_k, d_p)
-    msg = (f"heatmap_sample fwd+bwd {str(dtype).split('.')[-1]} R={r} "
-           f"N={n}: max|dout|={de:.3e} max|ddpts|={dd:.3e} "
+    msg = (f"heatmap_sample fwd (both variants{'' if same else ' DIFFER'}) "
+           f"+ residual + bwd {str(dtype).split('.')[-1]} R={r} N={n}: "
+           f"max|dout|={de:.3e} max|dres|={dr:.3e} max|ddpts|={dd:.3e} "
            f"(|dpts|~{float(d_p.abs().mean()):.3e}; {n_kink} of {r * n} "
-           f"points at a kink left out)")
-    return ok_f and ok_b, msg, de, dd
+           f"points at a kink left out); bwd on the kernel's residual "
+           f"{'bit for bit' if exact else 'NOT bit for bit'} the plain "
+           f"backward")
+    return ok_f and ok_r and ok_b and same and exact, msg, de, dd
 
 
 def direction_inputs(b, m, d, gen, torch, dtype=None):
@@ -888,19 +914,26 @@ def shadowed_new(torch, hs, ld, cb, log):
     orig = (hs.heatmap_sample_fwd, hs.heatmap_sample_bwd,
             ld.lbfgs_direction)
 
-    def fwd(maps, pts):
-        out = orig[0](maps, pts)
+    def fwd(maps, pts, residual=False):
+        out = orig[0](maps, pts, residual)
         with cb.plain_versions_on_cuda():
-            ref = orig[0](maps, pts)
-        log.append(("heatmap_sample", fwd_agreement(torch, out, ref) + (0,)))
+            ref = orig[0](maps, pts, residual)
+        if not residual:
+            log.append(("heatmap_sample",
+                        fwd_agreement(torch, out, ref) + (0,)))
+            return out
+        ok_o, d_o = fwd_agreement(torch, out[0], ref[0])
+        ok_r, d_r, kink = bwd_agreement(torch, maps, pts, out[1], ref[1])
+        log.append(("heatmap_sample", (ok_o and ok_r, max(d_o, d_r), kink)))
         return out
 
-    def bwd(maps, pts, g):
-        out = orig[1](maps, pts, g)
+    def bwd(res, g, size):
+        out = orig[1](res, g, size)
         with cb.plain_versions_on_cuda():
-            ref = orig[1](maps, pts, g)
+            ref = orig[1](res, g, size)
         log.append(("heatmap_sample_bwd",
-                    bwd_agreement(torch, maps, pts, out, ref)))
+                    (bool(torch.equal(out, ref)),
+                     float((out - ref).abs().max()), 0)))
         return out
 
     def direction(*args):
@@ -2114,55 +2147,137 @@ def tap_bound(torch, fe, name, args):
     return bound_of(nbytes, ops) + (crop,)
 
 
-def timing_new(torch, hs, ld, cb, seed, card):
-    """The sampler at the path A (R=4 probes over one chunk's 1800 f32
-    maps) and path B (R=4 over a serve batch's 28800 bf16 maps) shapes
-    beside F.grid_sample on the same points (float32 maps of shape
-    (N, 1, 64, 64), grid (N, 1, R, 2): the library yardstick, never
-    called by the port), and the direction at path A's (12 lanes, m=25,
-    float32 and bf16) and the kernel phase's B=192 shapes, each at the
-    cluster size `plan` takes.  Each bound counts the bytes these inputs need
-    (`sampler_map_bytes`, `direction_bound`).  Returns {name: (ms,
-    plain_ms, bound_ms, bound_by, library_ms)} at path A's shapes."""
+def in_turns(torch, fns, rounds=PAIR_ROUNDS):
+    """{name: [ms of each round]}: every fn timed once a round by
+    `graph_ms`, the order reversed every other round (a, b, b, a, ...)."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            times[name].append(graph_ms(torch, fns[name]))
+    return times
+
+
+def median(xs):
+    xs = sorted(xs)
+    k = len(xs) // 2
+    return xs[k] if len(xs) % 2 else 0.5 * (xs[k - 1] + xs[k])
+
+
+def timing_sampler(torch, hs, cb, gen, card):
+    """Kernel 3 at path A's shape (R=4 probes over one chunk's 1800 f32
+    maps) and path B's (R=4 over a serve batch's 28800 bf16 maps): the
+    value-only forward, the forward with its residual and the backward
+    over the residual, each beside its bound (the bytes these inputs need:
+    `sampler_map_bytes` of map, the points, the samples, the residual,
+    g and dpts) and its plain version; the value-and-grad pair (residual
+    forward, then backward) against the library's pair, `F.grid_sample`
+    then `grid_sampler_2d_backward` on the same points (float32 maps of
+    shape (N, 1, 64, 64), grid (N, 1, R, 2); the yardstick, never called
+    by the port), timed in turns over PAIR_ROUNDS rounds; and the three
+    kernels at blocks of 64, 128 and 256 threads, in turns, beside the
+    block the source's launch rule takes.  Returns {name: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)} at path A's shape, the forward's row
+    the value-only forward's (the function `F.grid_sample` computes)."""
     F = torch.nn.functional
-    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     rows = {}
     for tag, r, n, dtype in (("path A", 4, PATH_A_POINTS, torch.float32),
                              ("path B", 4, PATH_B_POINTS, torch.bfloat16)):
         maps, pts = sampler_inputs(r, n, dtype, gen, torch)
+        size = tuple(maps.shape[1:])
         g = torch.randn((r, n), generator=gen, device="cuda")
+        _, res = hs.heatmap_sample_fwd(maps, pts, residual=True)
         inp = maps.to(torch.float32)[:, None].contiguous()
         grid = pts.permute(1, 0, 2)[:, None].contiguous()
         go = g.t()[:, None, None, :].contiguous()
         map_bytes = sampler_map_bytes(torch, maps, pts)
-        calls = {
+        pts_io = r * n * (8 + 4)                   # points in, samples out
+        lib_fwd = lambda: F.grid_sample(  # noqa: E731
+            inp, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        lib_bwd = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa
+            go, inp, grid, 0, 0, True, [False, True])
+        kernels = {
             "heatmap_sample": (
                 lambda: hs.heatmap_sample_fwd(maps, pts),
-                lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                      padding_mode="zeros",
-                                      align_corners=True),
-                r * n * (8 + 4) + map_bytes, r * n * OPS_PER_SAMPLE),
+                pts_io + map_bytes, r * n * OPS_PER_SAMPLE, lib_fwd,
+                "F.grid_sample"),
+            "heatmap_sample with residual": (
+                lambda: hs.heatmap_sample_fwd(maps, pts, residual=True),
+                pts_io + r * n * 8 + map_bytes, r * n * OPS_PER_SAMPLE_RES,
+                None, None),
             "heatmap_sample_bwd": (
-                lambda: hs.heatmap_sample_bwd(maps, pts, g),
-                lambda: torch.ops.aten.grid_sampler_2d_backward(
-                    go, inp, grid, 0, 0, True, [False, True]),
-                r * n * (8 + 4 + 8) + map_bytes,
-                r * n * OPS_PER_SAMPLE_BWD)}
+                lambda: hs.heatmap_sample_bwd(res, g, size),
+                r * n * (4 + 8 + 8), r * n * OPS_PER_SAMPLE_BWD, lib_bwd,
+                "grid_sampler_2d_backward")}
+        what = (f"{tag} R={r} N={n} {str(dtype).split('.')[-1]} maps")
         print(f"  {tag}: {map_bytes} bytes of map needed by {r * n} points "
-              f"({map_bytes / (r * n):.2f} per point)", flush=True)
-        for name, (fn, lib, nbytes, ops) in calls.items():
+              f"({map_bytes / (r * n):.2f} per point); the launch rule takes "
+              f"{hs.launch_threads()} threads a block forward, "
+              f"{hs.launch_threads(backward=True)} backward", flush=True)
+        bounds = {}
+        for name, (fn, nbytes, ops, lib, lib_name) in kernels.items():
             ms = graph_ms(torch, fn)
-            lib_ms = graph_ms(torch, lib)
             with cb.plain_versions_on_cuda():
                 plain = event_ms(torch, fn)
             bms, by = bound_of(nbytes, ops)
-            print(f"  time  {name} {tag} R={r} N={n} "
-                  f"{str(dtype).split('.')[-1]} maps: kernel {ms:.6f} ms, "
-                  f"bound {bms:.6f} ms ({by}), roofline share "
-                  f"{bms / ms:.4f}, plain version {plain:.6f} ms, "
-                  f"F.grid_sample{'' if name == 'heatmap_sample' else ' backward'}"
-                  f" {lib_ms:.6f} ms [{card}]", flush=True)
-            rows.setdefault(name, (ms, plain, bms, by, lib_ms))
+            bounds[name] = bms
+            lib_ms = graph_ms(torch, lib) if lib else None
+            print(f"  time  {name} {what}: kernel {ms:.6f} ms, bound "
+                  f"{bms:.6f} ms ({by}), roofline share {bms / ms:.4f}, "
+                  f"plain version {plain:.6f} ms"
+                  + (f", {lib_name} {lib_ms:.6f} ms" if lib else "")
+                  + f" [{card}]", flush=True)
+            if name in ("heatmap_sample", "heatmap_sample_bwd"):
+                rows.setdefault(name, (ms, plain, bms, by, lib_ms))
+
+        def pair():
+            _, res2 = hs.heatmap_sample_fwd(maps, pts, residual=True)
+            return hs.heatmap_sample_bwd(res2, g, size)
+
+        def lib_pair():
+            lib_fwd()
+            return lib_bwd()
+
+        turns = in_turns(torch, {"kernels": pair, "library": lib_pair})
+        pair_bound = (bounds["heatmap_sample with residual"]
+                      + bounds["heatmap_sample_bwd"])
+        k_ms, l_ms = median(turns["kernels"]), median(turns["library"])
+        print(f"  time  value-and-grad pair {what}, in turns over "
+              f"{PAIR_ROUNDS} rounds: kernels (residual forward + backward) "
+              f"median {k_ms:.6f} ms ("
+              + ", ".join(f"{x:.6f}" for x in turns["kernels"])
+              + f"), bound {pair_bound:.6f} ms, share "
+              f"{pair_bound / k_ms:.4f}; library (F.grid_sample + "
+              f"grid_sampler_2d_backward) median {l_ms:.6f} ms ("
+              + ", ".join(f"{x:.6f}" for x in turns["library"])
+              + f"); library / kernels {l_ms / k_ms:.4f} [{card}]",
+              flush=True)
+        sweep = {}
+        for t in hs.BLOCK_SIZES:
+            sweep[f"fwd {t}"] = lambda t=t: hs.fwd_at_block(maps, pts, t)
+            sweep[f"fwd+res {t}"] = lambda t=t: hs.fwd_at_block(
+                maps, pts, t, residual=True)
+            sweep[f"bwd {t}"] = lambda t=t: hs.bwd_at_block(res, g, size, t)
+        turns = in_turns(torch, sweep)
+        for variant in ("fwd", "fwd+res", "bwd"):
+            meds = [median(turns[f"{variant} {t}"]) for t in hs.BLOCK_SIZES]
+            print(f"  time  {variant} {what} by block size, medians in "
+                  f"turns over {PAIR_ROUNDS} rounds: "
+                  + ", ".join(f"{t} threads {ms:.6f} ms"
+                              for t, ms in zip(hs.BLOCK_SIZES, meds))
+                  + f" [{card}]", flush=True)
+    return rows
+
+
+def timing_new(torch, hs, ld, cb, seed, card):
+    """Kernel 3 (`timing_sampler`), and the direction at path A's (12
+    lanes, m=25, float32 and bf16) and the kernel phase's B=192 shapes,
+    each at the cluster size `plan` takes (bound: `direction_bound`).
+    Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)} at path
+    A's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    rows = timing_sampler(torch, hs, cb, gen, card)
     f32, bf16 = torch.float32, torch.bfloat16
     for b, m, dtype in ((WINDOWS_PER_CHUNK, 25, f32), (192, 10, f32),
                         (192, 2, f32), (WINDOWS_PER_CHUNK, 25, bf16)):

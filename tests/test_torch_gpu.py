@@ -146,9 +146,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,n", [(1, 37), (4, 1037), (4, 1800)])
 def test_heatmap_sample_matches_plain_version(gen, dtype, r, n):
+    """Both forward variants, the residual and the backward over it
+    against the plain versions (`chip_smoke.compare_sampler`)."""
     ok, msg, _, _ = chip_smoke.compare_sampler(torch, hs, cb, r, n, dtype,
                                                gen)
     assert ok, msg
+
+
+def test_heatmap_sample_matches_plain_version_at_path_b(gen):
+    """The same at path B's shape: R=4 over a serve batch's 28,800 bf16
+    maps."""
+    ok, msg, _, _ = chip_smoke.compare_sampler(
+        torch, hs, cb, 4, chip_smoke.PATH_B_POINTS, torch.bfloat16, gen)
+    assert ok, msg
+
+
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_heatmap_sample_block_sizes_agree_and_count_nothing(gen, threads):
+    """Every block size the timing sweeps gives the launch rule's
+    results bit for bit, and the sweep's entry points count no launch."""
+    maps, pts = chip_smoke.sampler_inputs(4, 1800, torch.float32, gen,
+                                          torch)
+    g = torch.randn((4, 1800), generator=gen, device="cuda")
+    out, res = hs.heatmap_sample_fwd(maps, pts, residual=True)
+    d = hs.heatmap_sample_bwd(res, g, (64, 64))
+    assert (hs.launch_threads(), hs.launch_threads(backward=True)) == (
+        128, 256)
+    cb.reset_launches()
+    assert torch.equal(hs.fwd_at_block(maps, pts, threads), out)
+    out_t, res_t = hs.fwd_at_block(maps, pts, threads, residual=True)
+    assert torch.equal(out_t, out) and torch.equal(res_t, res)
+    assert torch.equal(hs.bwd_at_block(res, g, (64, 64), threads), d)
+    assert cb.LAUNCHES["heatmap_sample"] == 0
+    assert cb.LAUNCHES["heatmap_sample_bwd"] == 0
+    with pytest.raises(ValueError, match="threads"):
+        hs.fwd_at_block(maps, pts, 96)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,19 +251,31 @@ def test_plan_raises_where_nothing_fits(gen):
 
 
 def test_heatmap_sample_counter_and_backward(gen):
-    """One forward and one backward launch through autograd; the
-    backward's point gradient is the backward kernel's output."""
+    """One forward and one backward launch for each value-and-grad
+    evaluation through autograd; the forward saves the residual alone and
+    the point gradient is the backward kernel's output over it.  A
+    value-only call (no_grad) launches the forward alone."""
     maps, pts = chip_smoke.sampler_inputs(4, 300, torch.bfloat16, gen,
                                           torch)
     ct = torch.randn((4, 300), generator=gen, device="cuda")
-    p = pts.clone().requires_grad_(True)
     cb.reset_launches()
-    out = hs.heatmap_sample(maps, p)
-    (g,) = torch.autograd.grad(out, p, grad_outputs=ct)
+    for k in range(1, 4):
+        p = pts.clone().requires_grad_(True)
+        out = hs.heatmap_sample(maps, p)
+        (res,) = out.grad_fn.saved_tensors
+        (g,) = torch.autograd.grad(out, p, grad_outputs=ct)
+        assert (cb.LAUNCHES["heatmap_sample"],
+                cb.LAUNCHES["heatmap_sample_bwd"]) == (k, k)
+    with torch.no_grad():
+        hs.heatmap_sample(maps, p)
     assert (cb.LAUNCHES["heatmap_sample"],
-            cb.LAUNCHES["heatmap_sample_bwd"]) == (1, 1)
-    torch.testing.assert_close(g, hs.heatmap_sample_bwd(maps, pts, ct),
+            cb.LAUNCHES["heatmap_sample_bwd"]) == (4, 3)
+    torch.testing.assert_close(res, hs.heatmap_sample_fwd(
+        maps, pts, residual=True)[1], rtol=0, atol=0)
+    torch.testing.assert_close(g, hs.heatmap_sample_bwd(res, ct, (64, 64)),
                                rtol=0, atol=0)
+    with pytest.raises(ValueError, match="residual"):
+        hs.heatmap_sample_bwd(None, ct, (64, 64))
     d = ld.lbfgs_direction(*chip_smoke.direction_inputs(3, 4, 64, gen,
                                                         torch))
     assert d.shape == (3, 64) and cb.LAUNCHES["lbfgs_direction"] == 1
@@ -246,6 +290,13 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
                               .transpose(0, 1))
     with pytest.raises(ValueError, match="is on cpu"):
         hs.heatmap_sample_fwd(maps, pts.cpu())
+    _, res = hs.heatmap_sample_fwd(maps, pts, residual=True)
+    g = torch.ones((2, 50), device="cuda")
+    with pytest.raises(ValueError, match="is on cpu"):
+        hs.heatmap_sample_bwd(res, g.cpu(), (64, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        hs.heatmap_sample_bwd(res.view(-1)[1:197].view(2, 49, 2),
+                              g[:, :49].contiguous(), (64, 64))
     args = list(chip_smoke.direction_inputs(3, 4, 64, gen, torch))
     bad = list(args)
     bad[4] = args[4].to(torch.uint8)

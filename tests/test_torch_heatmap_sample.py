@@ -4,7 +4,10 @@ interpret mode: forward and point gradient on the same numpy inputs,
 with the tolerances of tests/test_pallas_kernels.py (forward rtol 1e-4 /
 atol 1e-5, gradient rtol 1e-3 / atol 1e-4).  The points include ones
 outside [-1, 1] and ones on exact integer pixel coordinates, where the
-TPU backward's kink convention gives a zero derivative along that axis."""
+TPU backward's kink convention gives a zero derivative along that axis.
+The backward runs on the forward's residual (the point partials dix,
+diy): its plain form is held against JAX's `jax.vjp`, and a call with no
+graph to record writes none."""
 
 import numpy as np
 import pytest
@@ -36,12 +39,15 @@ def _inputs(size, seed, r=1):
     return maps, pts
 
 
+def _jax_maps(maps, bf16):
+    jm = jnp.asarray(maps)
+    return jm.astype(jnp.bfloat16) if bf16 else jm
+
+
 def _jax(maps, pts, ct, bf16):
     """Forward and d(sum ct * sample)/dpoints of the interpret-mode
     kernel, one probe row at a time."""
-    jm = jnp.asarray(maps)
-    if bf16:
-        jm = jm.astype(jnp.bfloat16)
+    jm = _jax_maps(maps, bf16)
     outs, grads = [], []
     for r in range(pts.shape[0]):
         p, c = jnp.asarray(pts[r]), jnp.asarray(ct[r])
@@ -69,20 +75,118 @@ def test_plain_version_matches_pallas_kernel(size, bf16, r):
     np.testing.assert_allclose(grad.numpy(), jgrad, rtol=1e-3, atol=1e-4)
 
 
+def _jax_vjp(maps, pts, ct, bf16):
+    """JAX's `_bwd_rule` through `jax.vjp`, one probe row at a time: the
+    forward and the point cotangent of `ct`."""
+    jm = _jax_maps(maps, bf16)
+    outs, grads = [], []
+    for r in range(pts.shape[0]):
+        out, vjp = jax.vjp(heatmap_sample_pallas, jm, jnp.asarray(pts[r]))
+        outs.append(np.asarray(out))
+        grads.append(np.asarray(vjp(jnp.asarray(ct[r]))[1]))
+    return np.stack(outs), np.stack(grads)
+
+
+@pytest.mark.parametrize("size", [64, 65])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 2])
+def test_residual_and_plain_backward_match_pallas_vjp(size, bf16, r):
+    """The forward's residual form (samples and the partials dix, diy)
+    and the backward over it against JAX's `jax.vjp`: the backward of a
+    cotangent, and the residual scaled by (sx, sy) as the backward of a
+    unit cotangent."""
+    maps, pts = _inputs(size, seed=size + r + 20, r=r)
+    ct = np.random.default_rng(5).normal(size=(r, N)).astype(np.float32)
+    jout, jgrad = _jax_vjp(maps, pts, ct, bf16)
+    _, junit = _jax_vjp(maps, pts, np.ones_like(ct), bf16)
+    tm = torch.from_numpy(maps)
+    if bf16:
+        tm = tm.to(torch.bfloat16)
+    out, res = ths.plain_forward(tm, torch.from_numpy(pts), residual=True)
+    assert res.shape == (r, N, 2) and res.dtype == torch.float32
+    grad = ths.plain_backward(res, torch.from_numpy(ct), (size, size))
+    scale = torch.tensor([0.5 * (size - 1)] * 2)
+    np.testing.assert_allclose(out.numpy(), jout, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), jgrad, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose((res * scale).numpy(), junit, rtol=1e-3,
+                               atol=1e-4)
+    # the wrapper on CPU tensors is that plain form, bit for bit
+    w_out, w_res = ths.heatmap_sample_fwd(tm, torch.from_numpy(pts),
+                                          residual=True)
+    assert torch.equal(w_out, out) and torch.equal(w_res, res)
+    assert torch.equal(ths.heatmap_sample_bwd(w_res, torch.from_numpy(ct),
+                                              (size, size)), grad)
+
+
 def test_kink_convention_at_integer_coordinates():
     """On an exact integer pixel coordinate the derivative along that axis
-    is 0 (the TPU backward's -sign(0) = 0), not a one-sided difference."""
+    is 0 (the TPU backward's -sign(0) = 0), not a one-sided difference:
+    through the forward's residual and the backward over it, and through
+    autograd."""
     size = 65
     maps = np.zeros((1, size, size), np.float32)
     maps[0] = np.arange(size, dtype=np.float32)[None, :] * 2.0   # ramp in x
+    tm = torch.from_numpy(maps)
+
+    def grad(pts):
+        _, res = ths.heatmap_sample_fwd(tm, torch.from_numpy(pts),
+                                        residual=True)
+        g = ths.heatmap_sample_bwd(res, torch.ones((1, 1)), (size, size))
+        p = torch.from_numpy(pts).requires_grad_(True)
+        (auto,) = torch.autograd.grad(ths.heatmap_sample(tm, p).sum(), p)
+        assert torch.equal(auto, g)
+        return res, g
+
     pts = np.array([[[0.5, 0.25]]], np.float32)       # ix = 48, iy = 40
-    g = ths.heatmap_sample_bwd(torch.from_numpy(maps), torch.from_numpy(pts),
-                               torch.ones((1, 1)))
-    assert g[0, 0, 0].item() == 0.0
+    res, g = grad(pts)
+    assert res[0, 0, 0].item() == 0.0 and g[0, 0, 0].item() == 0.0
     pts_off = pts + np.float32(1.0 / 64 / 4)            # quarter cell off
-    g = ths.heatmap_sample_bwd(torch.from_numpy(maps),
-                               torch.from_numpy(pts_off), torch.ones((1, 1)))
+    res, g = grad(pts_off)
+    np.testing.assert_allclose(res[0, 0, 0].item(), 2.0, rtol=1e-6)
     np.testing.assert_allclose(g[0, 0, 0].item(), 2.0 * 32.0, rtol=1e-6)
+
+
+def test_no_graph_saves_no_residual(monkeypatch):
+    """Under no_grad, or with points that do not require grad, the
+    sampler runs the value-only forward and saves nothing; with a graph to
+    record it runs the residual forward once and saves its residual
+    alone, not the maps."""
+    maps, pts = _inputs(64, seed=6, r=2)
+    tm, tp = torch.from_numpy(maps), torch.from_numpy(pts)
+    asked = []
+    fwd = ths.heatmap_sample_fwd
+
+    def spy(m, p, residual=False):
+        asked.append(residual)
+        return fwd(m, p, residual)
+
+    monkeypatch.setattr(ths, "heatmap_sample_fwd", spy)
+    p = tp.clone().requires_grad_(True)
+    with torch.no_grad():
+        out = ths.heatmap_sample(tm, p)
+    assert out.grad_fn is None and asked == [False]
+    out = ths.heatmap_sample(tm, tp)
+    assert out.grad_fn is None and asked == [False, False]
+    out = ths.heatmap_sample(tm, p)
+    assert asked == [False, False, True]
+    (res,) = out.grad_fn.saved_tensors
+    assert res.shape == tp.shape
+    torch.testing.assert_close(res, ths.plain_forward(tm, tp, True)[1],
+                               rtol=0, atol=0)
+
+
+def test_backward_without_a_residual_raises():
+    """The backward never gathers the maps again: with no residual (the
+    forward recorded none, as where only the maps require grad) it
+    raises."""
+    maps, pts = _inputs(64, seed=7)
+    tm, tp = torch.from_numpy(maps), torch.from_numpy(pts)
+    g = torch.ones((1, N))
+    with pytest.raises(ValueError, match="residual"):
+        ths.heatmap_sample_bwd(None, g, (64, 64))
+    out = ths.heatmap_sample(tm.clone().requires_grad_(True), tp)
+    with pytest.raises(ValueError, match="residual"):
+        out.sum().backward()
 
 
 def test_plain_version_matches_gather_sampling_and_grid_sample():
@@ -125,5 +229,8 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         ths.heatmap_sample_fwd(tm.transpose(1, 2).contiguous().transpose(
             1, 2), tp)
+    _, res = ths.heatmap_sample_fwd(tm, tp, residual=True)
     with pytest.raises(ValueError, match="shape"):
-        ths.heatmap_sample_bwd(tm, tp, torch.ones((1, N - 1)))
+        ths.heatmap_sample_bwd(res, torch.ones((1, N - 1)), (64, 64))
+    with pytest.raises(TypeError, match="dtype"):
+        ths.heatmap_sample_bwd(res.double(), torch.ones((1, N)), (64, 64))
