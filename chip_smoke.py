@@ -233,6 +233,32 @@ Phases (any failure exits non-zero and prints no result line):
               batches solved with no group), and --init sample over the
               two ranks (each draws rank 0's rows).  No scaling is
               measured: the machine has one card.
+3p. robustness and library - at full width: (a) one sequence of 4 x
+              100-frame chunks of each robustness corpus
+              (`synthetic_chunk_v2`: jerky motion, SLAM drift, occluded and
+              multimodal maps; `synthetic_chunk_v3`: footstrike contacts,
+              occlusion dropout) through serve at its defaults with 3j's
+              trained priors, each in a root of its own: the coverage
+              staging computed against `crop_mass_coverage` (1e-4), the
+              effective config the CPU port's `_effective_cfg` gives (v3
+              trips into the robust tier), kernels 1 and 2 launched as that
+              config predicts (printed before the run), the 17 metrics
+              finite, the initial and optimized MPJPE; v3 at --sampling
+              pallas --guard_crop 0 (full bf16 maps): kernel 3 launched as
+              path B counts and a shadow run; (b) the GMM prior (K=8, D=450,
+              full and diag) on 192 windows against float64 numpy (1e-4
+              relative) and as gmm_score_fn in total_energy_from_pose
+              against the CPU (relative L2 1e-4), ms a call, and
+              load_sklearn_pickle where sklearn imports; (c) the 2D
+              reprojection and camera energies on 192 windows, values and
+              gradients against the CPU (1e-5); (d) ConvVAE(with_bone_length
+              =True): eval encode against the CPU (1e-4), one train-mode
+              step at batch 64 (gradients in relative L2, 1e-2), a bf16
+              clone; (e) load_priors_from_torch on 3g's .pth.tar priors
+              against the CLI's load (bit for bit, else the 17 metrics
+              within 1 %), SpanTimer around a request against CUDA events,
+              MetricLogger, draw_joints on a 1024x1280 image (the branch
+              that ran).  Its launches stay out of the JSON line.
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -4979,6 +5005,559 @@ def sample_ranks_phase(torch, seed, dev, fails, card, work,
                 f" from index 0, rank 1's rows rank 0's {rows}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3p: the robustness corpora, the GMM prior, the camera energies,
+# the bone-length prior and the remaining tools
+# ---------------------------------------------------------------------------
+
+ROBUST_3P = (4, FRAMES)        # chunks of a corpus's sequence, frames
+WINDOWS_3P = 192               # windows of the GMM, energy and encode checks
+GMM_K_3P = 8
+BONE_BATCH_3P = 64
+IMAGE_3P = (1024, 1280)
+
+
+def write_robust_sequence(root, version, n_chunks, n_frames, seed):
+    """One sequence `seq_<version>` of `synthetic_chunk_<version>` chunks
+    under `root`; returns the chunks."""
+    from globalegomocap_tpu_torch.data import synthetic
+    from globalegomocap_tpu_torch.data.test_data import save_test_chunk
+    make = getattr(synthetic, f"synthetic_chunk_{version}")
+    out = []
+    for c in range(n_chunks):
+        out.append(make(n_frames, seed=seed + c))
+        save_test_chunk(out[-1], os.path.join(
+            root, f"seq_{version}",
+            f"data_start_{c * n_frames}_end_{(c + 1) * n_frames}"))
+    return out
+
+
+@contextlib.contextmanager
+def staged_decisions(driver, log):
+    """Inside the block every `SequenceOptimizer.stage` appends its
+    batch's (crop coverage, effective config) to `log`."""
+    orig = driver.SequenceOptimizer.stage
+
+    def stage(self, *args, **kwargs):
+        staged = orig(self, *args, **kwargs)
+        log.append((staged.crop_coverage,
+                    self._cfg_for_coverage(staged.crop_coverage)))
+        return staged
+    driver.SequenceOptimizer.stage = stage
+    try:
+        yield log
+    finally:
+        driver.SequenceOptimizer.stage = orig
+
+
+def tier_of(cfg) -> str:
+    s = cfg.solver
+    return (f"k={cfg.heatmap_crop} ({cfg.crop_center}), R="
+            f"{len(s.step_candidates)}, {s.max_iter}+{s.global_max_iter} "
+            f"iterations, history {s.history_size}")
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def rel_max(torch, got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def degraded_traffic(torch, seed, dev, fails, card, work, shape, latent):
+    """3p (a): serve at its defaults with 3j's trained priors on one
+    sequence of each robustness corpus (v2, v3), each in a root of its
+    own so that guard policy 'first' measures it; then v3 at --sampling
+    pallas --guard_crop 0 (full bf16 maps through kernel 3) with its
+    launch counts and a shadow run.  Returns the v2 chunks and the serve
+    config."""
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import serve
+    from globalegomocap_tpu_torch.cli.optimize_sequence import (
+        load_variables)
+    from globalegomocap_tpu_torch.energy.terms import crop_mass_coverage
+    from globalegomocap_tpu_torch.evaluation import metrics
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import heatmap_sample as hs
+    from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.optimize import driver
+    n_chunks, n_frames = shape
+    trained = os.path.join(work[0], "train", "logs", "{}", "checkpoints",
+                           "2.msgpack")
+    keys = [k for k in metrics.METRIC_KEYS if k != "joints_error"]
+    states = None
+    chunks_of = {}
+
+    def cpu_decision(argv, maps):
+        """The CPU port's effective config for `maps` under `argv`."""
+        nonlocal states
+        cfg = serve.config_from_args(serve.build_parser().parse_args(argv))
+        model = driver.build_model(cfg)
+        if states is None:
+            states = [load_variables(trained.format(n), model)
+                      for n in ("local", "global")]
+        opt = driver.SequenceOptimizer(model, *states, cfg, device="cpu")
+        return cfg, opt._effective_cfg(maps)
+
+    for i, version in enumerate(("v2", "v3")):
+        root = os.path.join(work[0], "robust", version)
+        chunks = write_robust_sequence(root, version, n_chunks, n_frames,
+                              seed * 1000 + 700 + 10 * i)
+        chunks_of[version] = chunks
+        maps = np.concatenate([c.heatmaps for c in chunks])
+        argv = ["--data_root", root, "--local_ckpt", trained.format("local"),
+                "--global_ckpt", trained.format("global"), "--latent_dim",
+                str(latent)] + ([] if dev == "cuda" else ["--device", "cpu"])
+        cfg, eff = cpu_decision(argv, maps)
+        host_cov = float(crop_mass_coverage(np.moveaxis(maps, -1, -3),
+                                            cfg.heatmap_crop).mean())
+        tripped = eff.heatmap_crop != cfg.heatmap_crop
+        expect = {"fused_stage_energy": 1 + eff.solver.max_iter,
+                  "fused_stage_energy_noreproj":
+                      1 + eff.solver.global_max_iter}
+        print(f"  {version}: {n_chunks} chunks x {n_frames} frames; the CPU "
+              f"port's decision at crop-mass coverage {host_cov:.5f} (bar "
+              f"{cfg.heatmap_crop_min_mass}): "
+              f"{'tripped' if tripped else 'not tripped'}, {tier_of(eff)}; "
+              f"predicted launches {expect}", flush=True)
+        if version == "v3":
+            fails.check(tripped and eff.solver.max_iter >= 15,
+                        f"v3's dropout trips the guard into the robust tier "
+                        f"(coverage {host_cov:.4f}, {tier_of(eff)})")
+        seen, decisions = [], []
+        calc = metrics.calculate_errors
+
+        def recorded(*args):
+            seen.append(calc(*args))
+            return seen[-1]
+        metrics.calculate_errors = recorded
+        try:
+            with staged_decisions(driver, decisions):
+                cb.reset_launches()
+                recs, wall = run_serve(serve, argv)
+                launches = dict(cb.LAUNCHES)
+        finally:
+            metrics.calculate_errors = calc
+        cov = decisions[0][0] if decisions else None
+        fails.check(len(decisions) == 1 and cov is not None
+                    and abs(cov - host_cov) <= 1e-4
+                    and decisions[0][1] == eff,
+                    f"{version} through serve: one staged batch at coverage "
+                    f"{cov} against crop_mass_coverage's {host_cov:.6f} "
+                    f"(1e-4), its effective config the CPU port's "
+                    f"{bool(decisions) and decisions[0][1] == eff}")
+        fails.check(len(recs) == 1 and "error" not in recs[0]
+                    and len(seen) == 1 and len(keys) == 17 and all(
+                        bool(torch.isfinite(torch.as_tensor(seen[0][k]))
+                             .all()) for k in keys),
+                    f"{version} through serve: one record, the 17 metrics "
+                    f"finite ({recs})")
+        fails.check(all(launches.get(k) == v for k, v in expect.items()),
+                    f"{version} through serve: kernel 1 and 2 launches "
+                    f"{launches} ({expect} predicted)")
+        rec = recs[0] if recs else {}
+        print(f"  {version} served ({cfg.compute_dtype}, 3j's priors): "
+              f"{rec.get('latency_ms')} ms a request, "
+              f"{rec.get('windows_per_sec')} windows/s, {wall:.2f} s with "
+              f"the CLI's start; global MPJPE initial "
+              f"{rec.get('original_global_mpjpe')}, optimized "
+              f"{rec.get('optimized_global_mpjpe')} [{card}]", flush=True)
+
+    # v3 at --sampling pallas --guard_crop 0: full bf16 maps, kernel 3
+    pargv = argv + ["--sampling", "pallas", "--guard_crop", "0"]
+    pcfg, peff = cpu_decision(pargv, maps)
+    s = peff.solver
+    expect = {"fused_stage_energy": 0,
+              "fused_stage_energy_noreproj": 1 + s.global_max_iter,
+              "heatmap_sample": 1 + s.max_iter,
+              "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0,
+              "fused_decode_stage_energy": 0}
+    print(f"  v3 at --sampling pallas --guard_crop 0: the CPU port's "
+          f"decision {tier_of(peff)}; predicted launches {expect}",
+          flush=True)
+    decisions = []
+    with staged_decisions(driver, decisions):
+        cb.reset_launches()
+        recs, wall = run_serve(serve, pargv)
+        launches = dict(cb.LAUNCHES)
+    staged_full = bool(decisions) and decisions[0][1].heatmap_crop == 0
+    fails.check(len(recs) == 1 and "error" not in recs[0] and staged_full
+                and peff.heatmap_crop == 0,
+                f"v3 at --sampling pallas --guard_crop 0: one record, full "
+                f"maps staged {staged_full} ({wall:.2f} s) [{card}]")
+    fails.check(launches == expect, f"v3 at --sampling pallas: launches "
+                f"{launches}, {expect} predicted")
+    log_new = []
+    with shadowed_new(torch, hs, ld, cb, log_new):
+        run_serve(serve, pargv)
+    check_shadow(fails, log_new, {"heatmap_sample": expect["heatmap_sample"],
+                                  "heatmap_sample_bwd":
+                                      expect["heatmap_sample_bwd"]},
+                 "v3 at --sampling pallas")
+    return chunks_of["v2"], serve.config_from_args(
+        serve.build_parser().parse_args(argv)), states
+
+
+def gmm_params_np(rng, x, k, kind):
+    """A mixture of `k` components around rows of `x` (N, D) as sklearn's
+    attributes: precision Cholesky factors with diagonals in [1, 2]."""
+    import numpy as np
+    n, d = x.shape
+    means = x[rng.choice(n, k, replace=False)] + rng.normal(0, 0.05, (k, d))
+    if kind == "full":
+        chol = np.tril(rng.normal(0, 0.02, (k, d, d)), -1)
+        chol[:, np.arange(d), np.arange(d)] = rng.uniform(1, 2, (k, d))
+    else:
+        chol = rng.uniform(1, 2, (k, d))
+    import types
+    return types.SimpleNamespace(
+        means_=means, precisions_cholesky_=chol,
+        weights_=rng.dirichlet(np.ones(k)), covariance_type=kind)
+
+
+def gmm_score_np(p, x):
+    """The mixture's log-likelihood in float64 numpy, the diagonal case
+    in the unexpanded form sum((x - mu)^2 prec)."""
+    import numpy as np
+    from scipy.special import logsumexp
+    x = np.asarray(x, np.float64)
+    d = x.shape[1]
+    chol = p.precisions_cholesky_
+    if p.covariance_type == "full":
+        y = np.einsum("nd,kde->nke", x, chol) - np.einsum(
+            "kd,kde->ke", p.means_, chol)[None]
+        maha = (y ** 2).sum(-1)
+        log_det = np.log(np.diagonal(chol, axis1=1, axis2=2)).sum(-1)
+    else:
+        maha = (((x[:, None, :] - p.means_[None]) ** 2)
+                * (chol ** 2)[None]).sum(-1)
+        log_det = np.log(chol).sum(-1)
+    lp = -0.5 * (d * np.log(2 * np.pi) + maha) + log_det + np.log(
+        p.weights_)[None]
+    return logsumexp(lp, axis=1)
+
+
+def pose_windows(seed, n, t=T):
+    """(n, t, 15, 3) camera-frame pose windows of synthetic motion."""
+    import numpy as np
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_motion
+    return synthetic_motion(n * t, seed, motion_scale=0.08).reshape(
+        n, t, J, 3).astype(np.float32)
+
+
+def gmm_check(torch, seed, dev, fails, card, work, n=WINDOWS_3P,
+              k=GMM_K_3P):
+    """3p (b): the GMM prior on `dev` against float64 numpy and the CPU."""
+    import numpy as np
+    import functools
+    from globalegomocap_tpu_torch.energy import terms
+    from globalegomocap_tpu_torch.ops import fisheye
+    from globalegomocap_tpu_torch.ops import gmm
+    from globalegomocap_tpu_torch.ops.skeleton import mean_bone_lengths
+    rng = np.random.default_rng(seed + 41)
+    pose = pose_windows(seed + 41, n)
+    x = pose.reshape(n, -1)
+    cam = fisheye.default_camera("egosyn")
+    for kind in ("full", "diag"):
+        p = gmm_params_np(rng, x.astype(np.float64), k, kind)
+        host = gmm.from_sklearn(p)
+        on = host.to(dev)
+        xd = torch.as_tensor(x, device=dev)
+        got = gmm.score_samples(on, xd)
+        ref = gmm_score_np(p, x)
+        err = float(np.max(np.abs(got.cpu().double().numpy() - ref)
+                           / np.abs(ref)))
+        fails.check(bool(torch.isfinite(got).all()) and err <= 1e-4
+                    and on.means.device.type == torch.device(dev).type,
+                    f"GMM '{kind}' (K={k}, D={x.shape[1]}) score_samples on "
+                    f"{n} windows on {dev}: {err:.3e} relative from float64 "
+                    f"numpy (1e-4)")
+        init = pose + np.float32(0.01)
+        bl = mean_bone_lengths(torch.from_numpy(init))
+        weights = terms.EnergyWeights.create(gmm=0.05)
+        out = {}
+        for where, params in (("cpu", host), (dev, on)):
+            z = torch.as_tensor(pose, device=where).requires_grad_(True)
+            e = terms.total_energy_from_pose(
+                z, torch.as_tensor(init, device=where), bl.to(where), None,
+                cam.to(where), weights, False,
+                gmm_score_fn=functools.partial(gmm.score_samples, params))
+            e.sum().backward()
+            out[where] = (e.detach(), z.grad)
+        e_err = rel_l2(torch, out[dev][0], out["cpu"][0])
+        g_err = rel_l2(torch, out[dev][1], out["cpu"][1])
+        fails.check(e_err <= 1e-4 and g_err <= 1e-4,
+                    f"GMM '{kind}' as gmm_score_fn in total_energy_from_pose "
+                    f"on {n} windows: energy {e_err:.3e}, dE/dpose "
+                    f"{g_err:.3e} from the CPU in relative L2 (1e-4)")
+        if dev == "cuda":
+            ms = event_ms(torch, lambda: gmm.score_samples(on, xd))
+            print(f"  GMM '{kind}' K={k} D={x.shape[1]}: score_samples of "
+                  f"{n} windows {ms:.4f} ms a call [{card}]", flush=True)
+    try:
+        from sklearn.mixture import GaussianMixture
+    except ImportError:
+        print("  sklearn is not installed on this machine: "
+              "load_sklearn_pickle not run", flush=True)
+        return
+    import pickle
+    import warnings
+    gm = GaussianMixture(n_components=k, covariance_type="diag",
+                         max_iter=5, reg_covar=0.1, random_state=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gm.fit(x.astype(np.float64))
+    path = os.path.join(work[0], "gmm.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(gm, f)
+    params = gmm.load_sklearn_pickle(path, device=dev)
+    got = gmm.score_samples(params, torch.as_tensor(x, device=dev))
+    ref = gm.score_samples(x.astype(np.float64))
+    err = float(np.max(np.abs(got.cpu().double().numpy() - ref)
+                       / np.abs(ref)))
+    fails.check(err <= 1e-4, f"load_sklearn_pickle of a fitted "
+                f"GaussianMixture on {dev}: score_samples {err:.3e} "
+                f"relative from sklearn's (1e-4)")
+
+
+def camera_energies(torch, seed, dev, fails, card, n=WINDOWS_3P):
+    """3p (c): reprojection_energy, camera_matrix_energy and
+    camera_constraint_energy on `n` windows, values and autograd
+    gradients on `dev` against the CPU."""
+    import numpy as np
+    from globalegomocap_tpu_torch.data.synthetic import (
+        synthetic_camera_trajectory)
+    from globalegomocap_tpu_torch.energy import terms
+    from globalegomocap_tpu_torch.ops import fisheye
+    rng = np.random.default_rng(seed + 43)
+    pose = pose_windows(seed + 43, n)
+    cam = fisheye.default_camera("egosyn")
+    est = torch.from_numpy(pose + rng.normal(
+        scale=0.02, size=pose.shape).astype(np.float32))
+    est2d = fisheye.world2camera(cam, est)
+    cams = synthetic_camera_trajectory(n * T, seed).reshape(n, T, 4, 4)
+    cams = torch.from_numpy((cams + rng.normal(
+        scale=0.05, size=cams.shape)).astype(np.float32))
+    init = cams + 0.01
+    cases = {
+        "reprojection_energy": (torch.from_numpy(pose), lambda x, w: (
+            terms.reprojection_energy(x, est2d.to(w), cam.to(w)))),
+        "camera_matrix_energy": (cams, lambda x, w: (
+            terms.camera_matrix_energy(x, init.to(w)))),
+        "camera_constraint_energy": (cams, lambda x, w: (
+            terms.camera_constraint_energy(x))),
+    }
+    for name, (x0, fn) in cases.items():
+        out = {}
+        for where in ("cpu", dev):
+            x = x0.clone().to(where).requires_grad_(True)
+            e = fn(x, where)
+            e.sum().backward()
+            out[where] = (e.detach(), x.grad)
+        v_err = float(((out[dev][0].cpu() - out["cpu"][0]).abs()
+                       / out["cpu"][0].abs()).max())
+        g_err = rel_max(torch, out[dev][1], out["cpu"][1])
+        fails.check(out[dev][0].shape == (n,) and v_err <= 1e-5
+                    and g_err <= 1e-5,
+                    f"{name} on {n} windows on {dev}: values {v_err:.3e} "
+                    f"relative, gradients {g_err:.3e} of the largest from "
+                    f"the CPU's (1e-5)")
+
+
+def bone_vae_check(torch, seed, dev, fails, card, latent=LATENT,
+                   n=WINDOWS_3P, batch=BONE_BATCH_3P):
+    """3p (d): ConvVAE(with_bone_length=True) at full width, card against
+    CPU: eval-mode encode, one train-mode forward and backward, and a
+    bf16 clone's encode."""
+    import copy
+    from globalegomocap_tpu_torch.models.conv_vae import (
+        ConvVAE, init_random, vae_loss)
+    model = init_random(ConvVAE(latent_dim=latent, with_bone_length=True),
+                        torch.Generator().manual_seed(seed + 47)).eval()
+    on = copy.deepcopy(model).to(dev)
+    x = torch.from_numpy(pose_windows(seed + 47, n).reshape(n, T, 45))
+    with torch.no_grad():
+        mu, lv = model.encode(x)
+        mu_d, lv_d = on.encode(x.to(dev))
+    err = max(rel_max(torch, mu_d, mu), rel_max(torch, lv_d, lv))
+    fails.check(err <= 1e-4, f"bone-length ConvVAE (latent {latent}) "
+                f"eval encode of {n} windows on {dev}: {err:.3e} of the "
+                f"largest from the CPU (1e-4)")
+    models = {"cpu": copy.deepcopy(model), dev: copy.deepcopy(on)}
+    losses = {}
+    for where, m in models.items():
+        xb = x[:batch].to(where)
+        out = m(xb, train=True)
+        loss = vae_loss(out.reconstruction, xb, out.mu, out.log_var, 0.5)[0]
+        loss.backward()
+        losses[where] = loss.item()
+    loss_err = abs(losses[dev] / losses["cpu"] - 1)
+    on_dev = dict(models[dev].named_parameters())
+    # a bias just before a train-mode BN has a gradient of 0 but for
+    # rounding: those are left out
+    grads = {name: rel_l2(torch, on_dev[name].grad, p.grad)
+             for name, p in models["cpu"].named_parameters()
+             if not (name.endswith(".0.bias") or name in (
+                 "bone_dense.bias", "fusion_dense.bias"))}
+    worst = max(grads, key=grads.get)
+    bone = sorted(k for k in grads if k.startswith(("bone_", "fusion_")))
+    want_bone = sorted(f"{m}.{w}" for m in ("bone_bn", "fusion_bn")
+                       for w in ("weight", "bias")) + [
+        "bone_dense.weight", "fusion_dense.weight"]
+    a, b = models["cpu"].state_dict(), models[dev].state_dict()
+    stats = max(float((b[k].cpu() - a[k]).abs().max()) for k in a
+                if "running" in k)
+    fails.check(loss_err <= 1e-5 and grads[worst] <= 1e-2
+                and bone == sorted(want_bone) and stats <= 1e-5,
+                f"bone-length ConvVAE train-mode step at batch {batch} on "
+                f"{dev}: loss {loss_err:.3e} relative (1e-5), gradients "
+                f"within {grads[worst]:.3e} in relative L2 (1e-2; worst "
+                f"{worst}) over {len(grads)} tensors ({len(bone)} of the "
+                f"bone branch), running statistics within {stats:.3e} "
+                f"(1e-5)")
+    half = on.clone(dtype=torch.bfloat16)
+    with torch.no_grad():
+        mu_h, _ = half.encode(x.to(dev))
+    fails.check(bool(torch.isfinite(mu_h.float()).all())
+                and half.fusion_dense.weight.dtype == torch.bfloat16,
+                f"bone-length ConvVAE clone(dtype=bfloat16) encode on {dev}: "
+                f"finite, {rel_max(torch, mu_h.float(), mu):.3e} of the "
+                f"largest from float32")
+    if dev == "cuda":
+        xd = x.to(dev)
+        with torch.no_grad():
+            ms = event_ms(torch, lambda: on.encode(xd))
+            ms_h = event_ms(torch, lambda: half.encode(xd))
+        print(f"  bone-length encode of {n} windows: float32 {ms:.4f} ms, "
+              f"bf16 clone {ms_h:.4f} ms [{card}]", flush=True)
+
+
+def tools_check(torch, seed, dev, fails, card, work, v2_chunks, serve_cfg,
+                states, iters=None):
+    """3p (e): load_priors_from_torch against the parity CLI's load on
+    3g's .pth.tar priors, SpanTimer around a serve request, MetricLogger
+    and draw_joints."""
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import optimize_sequence as cli
+    from globalegomocap_tpu_torch.data.test_data import (
+        list_chunk_dirs, load_test_chunk)
+    from globalegomocap_tpu_torch.evaluation.metrics import METRIC_KEYS
+    from globalegomocap_tpu_torch.ops import fisheye
+    from globalegomocap_tpu_torch.optimize.driver import (
+        SequenceOptimizer, build_model, load_priors_from_torch)
+    from globalegomocap_tpu_torch.tools import draw
+    from globalegomocap_tpu_torch.utils.logging import MetricLogger
+    from globalegomocap_tpu_torch.utils.profiling import SpanTimer
+    root = os.path.join(work[0], "path_d")
+    local_ckpt, global_ckpt = (os.path.join(root, f"{n}.pth.tar")
+                               for n in ("local", "global"))
+    seq = os.path.join(root, "seq0")
+    argv = ["--data_path", seq, "--local_ckpt", local_ckpt, "--global_ckpt",
+            global_ckpt, "--sampling", "pallas", "--device", dev]
+    if iters is not None:
+        argv += ["--max_iter", str(iters)]
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli.config_from_args(args)
+    chunk = load_test_chunk(list_chunk_dirs(seq)[0])
+    with cudnn_deterministic(torch):
+        t0 = time.perf_counter()
+        ref = cli.load_optimizer(args, cfg).run(chunk)
+        t_cli = time.perf_counter() - t0
+        lib_opt = load_priors_from_torch(cfg, local_ckpt, global_ckpt,
+                                         device=dev)
+        t0 = time.perf_counter()
+        got = lib_opt.run(chunk)
+        t_lib = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(got[1:], ref[1:]))
+    keys = [k for k in METRIC_KEYS if k != "joints_error"]
+    worst = worst_relative(got[0], ref[0], keys)
+    fails.check(lib_opt.device.type == torch.device(dev).type
+                and (same or worst <= 1e-2),
+                f"load_priors_from_torch on 3g's .pth.tar priors, one chunk "
+                f"at 3g's config ({cfg.solver.method}, --sampling pallas, "
+                f"cuDNN deterministic): poses bit for bit the CLI load's "
+                f"{same}, 17 metrics within {worst:.3e} relative (1e-2); "
+                f"{t_lib:.2f} s, the CLI load's run {t_cli:.2f} s [{card}]")
+
+    opt = SequenceOptimizer(build_model(serve_cfg), *states, serve_cfg,
+                            device=dev)
+    staged = opt.stage(v2_chunks, on_host=True)
+    opt.optimize_chunks_batched(staged, mode="flat")       # warm
+    timer = SpanTimer()
+    cuda = dev == "cuda"
+    if cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+    with timer.span("request", sync_value=staged.est):
+        if cuda:
+            start.record()
+        res = opt.optimize_chunks_batched(staged, mode="flat")
+        if cuda:
+            end.record()
+    span_ms = 1e3 * timer.summary()["request"]["total_s"]
+    event = start.elapsed_time(end) if cuda else 0.0
+    fails.check(bool(torch.isfinite(res.optimized).all())
+                and span_ms >= event > (0.0 if cuda else -1.0),
+                f"SpanTimer around one v2 request (serve's config, "
+                f"{len(v2_chunks)} chunks): span {span_ms:.3f} ms, CUDA "
+                f"events {event:.3f} ms; the span is at least the events' "
+                f"[{card}]")
+
+    log_dir = os.path.join(work[0], "metric_log")
+    lg = MetricLogger(log_dir)
+    for step in range(5):
+        lg.scalar("request_ms", span_ms, step)
+    lg.close()
+    with open(lg.path) as f:
+        rows = [json.loads(line) for line in f]
+    fails.check(len(rows) == 5 and rows[-1]["step"] == 4,
+                f"MetricLogger: {len(rows)} JSONL records in {lg.path}")
+    print(f"  MetricLogger: JSONL written; TensorBoard "
+          f"{'present' if lg.tensorboard else 'not installed'} "
+          f"on this machine", flush=True)
+
+    img = np.zeros(IMAGE_3P + (3,), np.uint8)
+    p2d = fisheye.world2camera(fisheye.default_camera("egosyn"),
+                               torch.from_numpy(np.asarray(
+                                   v2_chunks[0].estimated_local[0]))).numpy()
+    t0 = time.perf_counter()
+    draw.draw_joints(p2d, img)
+    ms = 1e3 * (time.perf_counter() - t0)
+    fails.check(int((img > 0).any(-1).sum()) > 100,
+                f"draw_joints on a {IMAGE_3P[0]}x{IMAGE_3P[1]} image: "
+                f"{int((img > 0).any(-1).sum())} pixels drawn")
+    print(f"  draw_joints ran its {draw.backend()} branch ({ms:.3f} ms on "
+          f"the host)", flush=True)
+
+
+def robust_library_phase(torch, seed, dev, fails, card, work,
+                         shape=ROBUST_3P, latent=LATENT, n=WINDOWS_3P,
+                         batch=BONE_BATCH_3P, iters=None):
+    """Phase 3p: (a) the robustness corpora v2 and v3 through serve at its
+    defaults with 3j's trained priors (the guard's staged coverage against
+    `crop_mass_coverage`, the CPU port's decision, kernels 1 and 2 as it
+    predicts; v3 at --sampling pallas --guard_crop 0 through kernel 3,
+    its launches and a shadow run); (b) the GMM prior (full and diag, K=8,
+    D=450) on `n` windows; (c) the camera and 2D reprojection energies;
+    (d) the bone-length ConvVAE at full width; (e) load_priors_from_torch
+    on 3g's priors, SpanTimer, MetricLogger, draw_joints.  Needs phases
+    3j's and 3g's files under work[0]; `shape`, `latent`, `n`, `batch` and
+    `iters` are cut only in a rehearsal on the CPU.  Its launches stay
+    out of the JSON line."""
+    v2_chunks, serve_cfg, states = degraded_traffic(
+        torch, seed, dev, fails, card, work, shape, latent)
+    gmm_check(torch, seed, dev, fails, card, work, n=n)
+    camera_energies(torch, seed, dev, fails, card, n=n)
+    bone_vae_check(torch, seed, dev, fails, card, latent=latent, n=n,
+                   batch=batch)
+    tools_check(torch, seed, dev, fails, card, work, v2_chunks, serve_cfg,
+                states, iters=iters)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5154,6 +5733,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         sample_ranks_phase(torch, args.seed, "cuda", fails, card, work)
         phase_done("sample and ranks", t0)
+        # ---- 3p. the robustness corpora and the remaining library ---------
+        print("[3p] the robustness corpora (v2, v3) through serve, the GMM "
+              "prior, the camera energies, the bone-length prior and the "
+              "remaining tools", flush=True)
+        t0 = time.perf_counter()
+        robust_library_phase(torch, args.seed, "cuda", fails, card, work)
+        phase_done("robustness and library", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)

@@ -16,6 +16,14 @@ hand-written CUDA for Hopper under `csrc/`: the fused stage energies
 `ops/fused_decode_energy.py`), the full-map heatmap sampler
 (`ops/heatmap_sample.py`) and the L-BFGS direction
 (`ops/lbfgs_direction.py`), built and bound by `ops/cuda_build.py`.
+Beside them run the prior training (`train/`), the preprocessing ETL and
+prior introspection (`tools/`, `cli/`), the parallel paths
+(`parallel/`), and the library the JAX package offers around them: the
+robustness corpora (`data/synthetic.py::synthetic_chunk_v2` and `_v3`:
+jerky motion, SLAM camera drift, occluded, multimodal and dropped-out
+maps), the GMM pose prior (`ops/gmm.py`), the camera and 2D
+reprojection energies, the bone-length ConvVAE, the Blender camera
+conversions, skeleton drawing, span timing and metric logging.
 
 The package imports neither `jax` nor anything of `globalegomocap_tpu`.
 Entry points run on the card unless the caller passes `device="cpu"`
@@ -23,3 +31,5 @@ Entry points run on the card unless the caller passes `device="cpu"`
 """
 
 from globalegomocap_tpu_torch.device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"

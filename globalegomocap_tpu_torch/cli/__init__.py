@@ -1,0 +1,2 @@
+"""Command-line entry points: optimize / serve / evaluate_all / train /
+preprocess / introspect."""

@@ -12,12 +12,20 @@ Counterpart of `globalegomocap_tpu/energy/terms.py`:
 - the heatmap term on full maps through `sampling_impl` gather, dense or
   pallas (the `heatmap_sample` kernel), and on k x k crops with their
   origins;
+- the energy library's terms that no stage sums: the 2D reprojection
+  against a 2D estimate and the camera-refinement terms
+  (`camera_matrix_energy`, `camera_constraint_energy`);
 - the peak crops, on the device for the in-solve cropping of the
   per-chunk path and in numpy for host staging (argmax and origins on the
   float32 maps; crops are a pure gather, so both are bit-exact against
   the JAX package), the projected-estimate crop centres of the guard-trip
   path and the crop-mass coverage (numpy from host staging's sums, or on
-  the device for device staging).
+  the device for device staging, or per map from an integral image,
+  `crop_mass_coverage`).  The crops of maps (..., H, W)
+  (`crop_heatmaps`, `crop_heatmaps_at_centers`) are the channels-last
+  gather on one channel.  The JAX package's staging impls 'flat' and
+  'onehot' are TPU formulations of the same selection and have no
+  counterpart.
 
 The fused stage energies live in ops/fused_energy.py (kernel and plain
 version).
@@ -98,6 +106,35 @@ def overlap_consistency_energy(poses, stride: int):
     return (tail - head).square().sum((-4, -3, -2, -1))
 
 
+def camera_matrix_energy(cam_mats, initial_cam_mats):
+    """Squared deviation from the initial camera matrices; (..., T, 4, 4)
+    -> (...)."""
+    return (cam_mats - initial_cam_mats).square().sum((-3, -2, -1))
+
+
+def camera_constraint_energy(cam_mats):
+    """SO(3) penalty on the rotation blocks of (..., T, 4, 4) camera
+    matrices, (det R - 1)^2 + ||R R^T - I||^2 summed over T -> (...).
+    The determinant is `torch.linalg.det` (an LU factorisation), whose
+    gradient at a singular block is not JAX's."""
+    rot = cam_mats[..., :3, :3]
+    e_det = (torch.linalg.det(rot) - 1.0).square().sum(-1)
+    eye = torch.eye(3, dtype=cam_mats.dtype, device=cam_mats.device)
+    rrt = rot @ rot.transpose(-1, -2)
+    return e_det + (rrt - eye).square().sum((-3, -2, -1))
+
+
+def reprojection_energy(pose, initial_pose_2d,
+                        camera: fisheye.FisheyeParams):
+    """Squared pixel distance between the projected joints of pose
+    (..., T, 15, 3) and a 2D estimate of T * 15 points a window
+    ((..., T, 15, 2), or (..., T * 15, 2) as the JAX package takes it)
+    -> (...)."""
+    p2d = fisheye.world2camera(camera, pose)
+    return (p2d - initial_pose_2d.reshape(p2d.shape)).square().sum(
+        (-3, -2, -1))
+
+
 def project_to_heatmap_grid(pose: torch.Tensor,
                             camera: fisheye.FisheyeParams) -> torch.Tensor:
     """(..., 3) camera-frame points -> (..., 2) grid coordinates in [-1, 1]
@@ -176,6 +213,21 @@ def _gather_crops(heatmaps, k: int, oy, ox):
     ix = (ox[..., None, None, :] + ar[None, :, None]).expand(
         lead + (k, k, j))
     return torch.gather(rows, -2, ix)                     # (..., k, k, J)
+
+
+def crop_heatmaps(heatmaps, k: int):
+    """Crop each map (..., H, W) to the k x k window around its argmax:
+    (crops (..., k, k), origins (..., 2) float32 as (oy, ox), (H, W))."""
+    crops, origins, hw = crop_heatmaps_channels_last(heatmaps[..., None], k)
+    return crops[..., 0], origins[..., 0, :], hw
+
+
+def crop_heatmaps_at_centers(heatmaps, k: int, centers):
+    """`crop_heatmaps` at caller-supplied centres (..., 2) float (cy, cx),
+    rounded half to even and clipped to the map."""
+    crops, origins, hw = crop_heatmaps_at_centers_channels_last(
+        heatmaps[..., None], k, centers[..., None, :])
+    return crops[..., 0], origins[..., 0, :], hw
 
 
 def crop_heatmaps_channels_last(heatmaps, k: int):
@@ -277,8 +329,8 @@ def crop_coverage_mean(heatmaps: torch.Tensor, k: int) -> torch.Tensor:
     Counterpart of the JAX package's `crop_coverage_mean`; the host
     staging's `crop_coverage_np` is the same quantity."""
     m = heatmaps.to(torch.float32).clamp_min(0.0)
-    crops, _, _ = crop_heatmaps_channels_last(m[..., None], k)
-    box = crops.sum((-3, -2, -1))
+    crops, _, _ = crop_heatmaps(m, k)
+    box = crops.sum((-2, -1))
     total = m.sum((-2, -1))
     ratio = torch.where(total > 0, box / total.clamp_min(1e-30),
                         torch.ones_like(total))
@@ -289,3 +341,23 @@ def crop_coverage_np(box, total) -> np.float32:
     """Mean fraction of (non-negative) map mass the crops retain; maps
     with no mass count as covered."""
     return np.where(total > 0, box / np.maximum(total, 1e-30), 1.0).mean()
+
+
+def crop_mass_coverage(heatmaps, k: int) -> np.ndarray:
+    """Per map, the share of non-negative mass that the k x k peak crop
+    keeps, in float64 numpy from an integral image: maps (..., H, W) ->
+    (prod(leading dims),); a map with no mass counts as covered.  The
+    guard's statistic is its mean."""
+    m = np.clip(np.asarray(heatmaps, dtype=np.float64), 0.0, None)
+    h, w = m.shape[-2], m.shape[-1]
+    k = min(int(k), h, w)
+    flat = m.reshape(-1, h, w)
+    am = flat.reshape(flat.shape[0], -1).argmax(axis=-1)
+    oy = np.clip(am // w - k // 2, 0, h - k)
+    ox = np.clip(am % w - k // 2, 0, w - k)
+    ii = np.pad(flat, ((0, 0), (1, 0), (1, 0))).cumsum(axis=1).cumsum(axis=2)
+    idx = np.arange(flat.shape[0])
+    box = (ii[idx, oy + k, ox + k] - ii[idx, oy, ox + k]
+           - ii[idx, oy + k, ox] + ii[idx, oy, ox])
+    total = ii[:, -1, -1]
+    return np.where(total > 0, box / np.maximum(total, 1e-300), 1.0)

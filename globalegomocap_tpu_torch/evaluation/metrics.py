@@ -44,13 +44,23 @@ def mpjpe(pred, gt):
     return _dist(pred, gt).mean((-2, -1))
 
 
+def per_joint_error(pred, gt):
+    """(..., 15) mean error of each joint over the frames."""
+    return _dist(pred, gt).mean(-2)
+
+
 def hip_midpoint(seq):
     """(..., N, 3) pelvis proxy: mean of the R/L hips (joints 7, 11)."""
     return (seq[..., 7, :] + seq[..., 11, :]) / 2.0
 
 
-def camera_position_error(pred, gt):
-    return _dist(hip_midpoint(pred), hip_midpoint(gt)).mean(-1)
+def camera_position_error(pred, gt, align: bool = False):
+    """Hip-midpoint trajectory error; `align` first fits the predicted
+    trajectory to the true one (Umeyama)."""
+    p, g = hip_midpoint(pred), hip_midpoint(gt)
+    if align:
+        p = umeyama_align(p, g)
+    return _dist(p, g).mean(-1)
 
 
 def align_sequence_globally(pred, gt):
@@ -59,6 +69,11 @@ def align_sequence_globally(pred, gt):
     aligned = umeyama_align(pred.reshape(lead[:-1] + (-1, 3)),
                             gt.reshape(lead[:-1] + (-1, 3)))
     return aligned.reshape(pred.shape)
+
+
+def align_per_frame(pred, gt):
+    """Per-frame Procrustes alignment: one batched SVD over all frames."""
+    return umeyama_align(pred, gt)
 
 
 def resize_to_mean3d(seq):
@@ -91,19 +106,19 @@ def calculate_errors(estimated, mid, optimized, gt) -> dict:
     out["aligned_mid_seq_mpjpe"] = mpjpe(mid_seq, gt)
     out["optimized_aligned_global_mpjpe"] = mpjpe(opt_seq, gt)
 
-    # per-frame Procrustes: one batched SVD over all frames
-    out["aligned_original_mpjpe"] = mpjpe(umeyama_align(estimated, gt), gt)
-    out["aligned_mid_optimized_mpjpe"] = mpjpe(umeyama_align(mid, gt), gt)
-    out["aligned_optimized_mpjpe"] = mpjpe(umeyama_align(optimized, gt), gt)
+    out["aligned_original_mpjpe"] = mpjpe(align_per_frame(estimated, gt), gt)
+    out["aligned_mid_optimized_mpjpe"] = mpjpe(align_per_frame(mid, gt), gt)
+    out["aligned_optimized_mpjpe"] = mpjpe(align_per_frame(optimized, gt),
+                                           gt)
 
     # bone-length-normalised: both sides resized to the mean3D skeleton
     gt_r = resize_to_mean3d(gt)
-    est_r = umeyama_align(resize_to_mean3d(estimated), gt_r)
-    mid_r = umeyama_align(resize_to_mean3d(mid), gt_r)
-    opt_r = umeyama_align(resize_to_mean3d(optimized), gt_r)
+    est_r = align_per_frame(resize_to_mean3d(estimated), gt_r)
+    mid_r = align_per_frame(resize_to_mean3d(mid), gt_r)
+    opt_r = align_per_frame(resize_to_mean3d(optimized), gt_r)
 
     out["bone_length_aligned_original_mpjpe"] = mpjpe(est_r, gt_r)
     out["bone_length_aligned_mid_optimized_mpjpe"] = mpjpe(mid_r, gt_r)
     out["bone_length_aligned_optimized_mpjpe"] = mpjpe(opt_r, gt_r)
-    out["joints_error"] = _dist(opt_r, gt_r).mean(-2)
+    out["joints_error"] = per_joint_error(opt_r, gt_r)
     return out

@@ -17,6 +17,15 @@ Public functions keep the JAX package's channels-last layout: poses are
 model with the BatchNorms structurally absent, to pair with
 `models/fold_bn.fold_batchnorm` state dicts.
 
+`with_bone_length=True` adds the reference's bone-length encoder branch
+(SeqConvVAE.py:47-57; off in every released configuration): the
+(T, 15) bone lengths of the input through `bone_dense` (Linear T*15 ->
+512), `bone_bn` and LeakyReLU, concatenated after the encoder's
+flattened features and fused by `fusion_dense` (Linear C*T + 512 ->
+C*T), `fusion_bn` and LeakyReLU before fc_mu / fc_var.  These
+BatchNorms stay when `use_bn=False` (folding reaches only the conv
+blocks), as in the JAX model.
+
 Compute dtypes follow Flax's `dtype` / `head_dtype`: the loaded
 parameters stay float32, activations and products run in `dtype`
 (inputs cast on entry, each weight used as `w.to(dtype)`), `head_dtype`
@@ -43,14 +52,22 @@ random priors of the solve paths).
 from __future__ import annotations
 
 import copy
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from globalegomocap_tpu_torch.ops.random import normal, prng_key
+from globalegomocap_tpu_torch.ops.skeleton import bone_lengths
 from globalegomocap_tpu_torch.parallel.mesh import all_reduce
+
+
+class VAEOutput(NamedTuple):
+    reconstruction: torch.Tensor  # (B, T, C)
+    mu: torch.Tensor              # (B, latent)
+    log_var: torch.Tensor         # (B, latent)
+    z: torch.Tensor               # (B, latent)
 
 
 def _block(conv: nn.Module, channels: int, use_bn: bool) -> nn.Sequential:
@@ -65,7 +82,8 @@ class ConvVAE(nn.Module):
                  hidden_dims: Sequence[int] = (64, 64, 128, 256, 512),
                  use_bn: bool = True, dtype: torch.dtype = torch.float32,
                  head_dtype: torch.dtype | None = None,
-                 logvar_bias_init: float = 0.0):
+                 logvar_bias_init: float = 0.0,
+                 with_bone_length: bool = False):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -76,6 +94,7 @@ class ConvVAE(nn.Module):
         self.dtype = dtype
         self.head_dtype = head_dtype
         self.logvar_bias_init = logvar_bias_init
+        self.with_bone_length = with_bone_length
 
         enc, c = [], in_channels
         for h in self.hidden_dims:
@@ -86,6 +105,11 @@ class ConvVAE(nn.Module):
         self.fc_mu = nn.Linear(flat, latent_dim)
         self.fc_var = nn.Linear(flat, latent_dim)
         nn.init.constant_(self.fc_var.bias, logvar_bias_init)
+        if with_bone_length:
+            self.bone_dense = nn.Linear(seq_len * 15, 512)
+            self.bone_bn = nn.BatchNorm1d(512)
+            self.fusion_dense = nn.Linear(flat + 512, flat)
+            self.fusion_bn = nn.BatchNorm1d(flat)
 
         rev = tuple(reversed(self.hidden_dims))
         self.decoder_input = nn.Linear(latent_dim, flat)
@@ -136,14 +160,29 @@ class ConvVAE(nn.Module):
         dt = self.dtype
         x = fn(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
         if isinstance(bn, nn.BatchNorm1d):
-            x32 = x.to(torch.float32)
-            if not train:
-                x32 = F.batch_norm(x32, bn.running_mean, bn.running_var,
-                                   bn.weight, bn.bias, False, 0.0, bn.eps)
-            else:
-                x32 = _batch_norm_train(bn, x32, mesh)
-            x = x32.to(dt)
+            x = self._norm(bn, x, train, mesh)
         return F.leaky_relu(x, 0.01)
+
+    def _norm(self, bn: nn.BatchNorm1d, x: torch.Tensor, train: bool,
+              mesh=None) -> torch.Tensor:
+        """BatchNorm of (B, C, T) or (B, F) in float32, returned in dtype:
+        the running statistics, or with `train` the batch's over B (and T)
+        (`_batch_norm_train`)."""
+        x32 = x.to(torch.float32)
+        if not train:
+            x32 = F.batch_norm(x32, bn.running_mean, bn.running_var,
+                               bn.weight, bn.bias, False, 0.0, bn.eps)
+        elif x32.dim() == 2:
+            x32 = _batch_norm_train(bn, x32[..., None], mesh)[..., 0]
+        else:
+            x32 = _batch_norm_train(bn, x32, mesh)
+        return x32.to(self.dtype)
+
+    def _dense_bn_act(self, dense: nn.Linear, bn: nn.BatchNorm1d,
+                      x: torch.Tensor, train: bool, mesh=None):
+        dt = self.dtype
+        x = F.linear(x.to(dt), dense.weight.to(dt), dense.bias.to(dt))
+        return F.leaky_relu(self._norm(bn, x, train, mesh), 0.01)
 
     def encode(self, pose: torch.Tensor, train: bool = False, mesh=None):
         """pose (B, T, C) -> (mu, log_var), each (B, latent); mu in the
@@ -152,6 +191,13 @@ class ConvVAE(nn.Module):
         for block in self.encoder:
             h = self._conv_block(block, h, False, train, mesh)
         h = h.flatten(1)                   # channel-major (C, T) flatten
+        if self.with_bone_length:
+            lengths = bone_lengths(pose.reshape(pose.shape[0], self.seq_len,
+                                                15, 3)).flatten(1)
+            bl = self._dense_bn_act(self.bone_dense, self.bone_bn, lengths,
+                                    train, mesh)
+            h = self._dense_bn_act(self.fusion_dense, self.fusion_bn,
+                                   torch.cat([h, bl], dim=-1), train, mesh)
         head = self.head_dtype or self.dtype
         mu = F.linear(h.to(head), self.fc_mu.weight.to(head),
                       self.fc_mu.bias.to(head))
@@ -180,13 +226,13 @@ class ConvVAE(nn.Module):
     def forward(self, pose: torch.Tensor, train: bool = False,
                 noise: torch.Tensor | None = None, mesh=None):
         """Encode, reparameterise with `noise` (z = mu without it) and
-        decode: (reconstruction, mu, log_var).  `train` runs BN on the
-        batch statistics (over `mesh`'s ranks) and updates the running
-        ones, as the JAX model's `train=True` with
+        decode: VAEOutput(reconstruction, mu, log_var, z).  `train` runs
+        BN on the batch statistics (over `mesh`'s ranks) and updates the
+        running ones, as the JAX model's `train=True` with
         `mutable=['batch_stats']`."""
         mu, log_var = self.encode(pose, train, mesh)
-        return self.decode(reparameterize(mu, log_var, noise), train,
-                           mesh), mu, log_var
+        z = reparameterize(mu, log_var, noise)
+        return VAEOutput(self.decode(z, train, mesh), mu, log_var, z)
 
 
 def _batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor,

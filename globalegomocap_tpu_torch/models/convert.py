@@ -10,6 +10,10 @@ The port's own jax-free code, following the layout rules of
   3. Flax flattens sequences time-major (T, C), torch channel-major
      (C, T): the Linear layers touching the flattened activations
      (fc_mu, fc_var in-columns; decoder_input out-rows) are permuted.
+     With the bone-length branch the flattened activations meet
+     fusion_dense instead: its first C*T in-columns are permuted and its
+     512 bone columns are not, and fc_mu / fc_var, which then read
+     fusion_bn's plain feature vector, are not permuted.
 
 Variables are the Flax {'params', 'batch_stats'} tree with numpy (or
 array-like) leaves; BN-folded trees (empty 'batch_stats', no 'bn'
@@ -99,10 +103,27 @@ def _from_flax(params, stats) -> dict:
 
     for i in range(n_enc):
         block(f"encoder.{i}.0", f"encoder.{i}.1", f"enc_{i}", False)
+    bone = "fusion_dense" in params
     for name in ("fc_mu", "fc_var"):
         w = a(params[name]["kernel"])                      # (in_tc, out)
-        out[f"{name}.weight"] = np.transpose(w[inv_perm, :])
+        out[f"{name}.weight"] = np.transpose(w if bone else w[inv_perm, :])
         out[f"{name}.bias"] = a(params[name]["bias"])
+    if bone:
+        ct = len(inv_perm)
+        w = a(params["fusion_dense"]["kernel"])        # (in_tc + 512, out)
+        out["fusion_dense.weight"] = np.transpose(
+            np.concatenate([w[:ct][inv_perm], w[ct:]]))
+        out["fusion_dense.bias"] = a(params["fusion_dense"]["bias"])
+        out["bone_dense.weight"] = np.transpose(
+            a(params["bone_dense"]["kernel"]))
+        out["bone_dense.bias"] = a(params["bone_dense"]["bias"])
+        for bn in ("bone_bn", "fusion_bn"):
+            out[f"{bn}.weight"] = a(params[bn]["scale"])
+            out[f"{bn}.bias"] = a(params[bn]["bias"])
+            if stats is not None:
+                out[f"{bn}.running_mean"] = a(stats[bn]["mean"])
+                out[f"{bn}.running_var"] = a(stats[bn]["var"])
+                out[f"{bn}.num_batches_tracked"] = np.asarray(0)
     w = a(params["decoder_input"]["kernel"])               # (in, out_tc)
     out["decoder_input.weight"] = np.transpose(w[:, inv_perm])
     out["decoder_input.bias"] = a(params["decoder_input"]["bias"])[inv_perm]
@@ -145,10 +166,27 @@ def params_to_flax(state: dict) -> dict:
 
     for i in range(n_enc):
         block(f"encoder.{i}.0", f"encoder.{i}.1", f"enc_{i}", False)
+    bone = "fusion_dense.weight" in state
     for name in ("fc_mu", "fc_var"):
+        w = a(f"{name}.weight").T
         params[name] = {
-            "kernel": np.ascontiguousarray(a(f"{name}.weight").T[perm, :]),
+            "kernel": np.ascontiguousarray(w if bone else w[perm, :]),
             "bias": a(f"{name}.bias")}
+    if bone:
+        w = a("fusion_dense.weight").T
+        params["fusion_dense"] = {
+            "kernel": np.ascontiguousarray(
+                np.concatenate([w[:len(perm)][perm], w[len(perm):]])),
+            "bias": a("fusion_dense.bias")}
+        params["bone_dense"] = {
+            "kernel": np.ascontiguousarray(a("bone_dense.weight").T),
+            "bias": a("bone_dense.bias")}
+        for bn in ("bone_bn", "fusion_bn"):
+            params[bn] = {"bias": a(f"{bn}.bias"),
+                          "scale": a(f"{bn}.weight")}
+            if f"{bn}.running_mean" in state:
+                stats[bn] = {"mean": a(f"{bn}.running_mean"),
+                             "var": a(f"{bn}.running_var")}
     params["decoder_input"] = {
         "kernel": np.ascontiguousarray(a("decoder_input.weight").T[:, perm]),
         "bias": a("decoder_input.bias")[perm]}

@@ -47,7 +47,8 @@ def _folded(model: ConvVAE) -> ConvVAE:
     if not model.use_bn:
         return model
     m = ConvVAE(model.in_channels, model.out_channels, model.latent_dim,
-                model.seq_len, model.hidden_dims, use_bn=False)
+                model.seq_len, model.hidden_dims, use_bn=False,
+                with_bone_length=model.with_bone_length)
     m.load_state_dict(fold_batchnorm(
         {k: v.to(torch.float32) for k, v in model.state_dict().items()}))
     return m.to(model.decoder_input.weight.device)

@@ -18,14 +18,19 @@ _EPS = 1e-5
 
 
 def fold_batchnorm(state_dict: dict) -> dict:
-    """Fold every conv block's BN of a ConvVAE state dict.  ConvTranspose1d
+    """Fold every conv block's BN of a ConvVAE state dict (the JAX
+    package's drops the bone-length branch's statistics with the rest;
+    here they are kept).  ConvTranspose1d
     weights are (in, out, k) and Conv1d weights (out, in, k); the block's
     kind is read from its name (decoder.* and final_layer.0 are
     transposed).  Exact for eval-mode inference only."""
     sd = dict(state_dict)
     out = {}
-    bn_prefixes = {k[:-len(".running_var")] for k in sd
-                   if k.endswith(".running_var")}
+    # the conv blocks' BNs ("<seq>.<i>.1"); a bone-length prior's
+    # bone_bn and fusion_bn follow dense layers and stay as they are
+    stats = [k[:-len(".running_var")] for k in sd
+             if k.endswith(".running_var")]
+    bn_prefixes = {bn for bn in stats if "." in bn}
     for bn in sorted(bn_prefixes):
         head, idx = bn.rsplit(".", 1)
         conv = f"{head}.{int(idx) - 1}"

@@ -13,6 +13,14 @@ import torch
 
 NUM_JOINTS = 15
 
+JOINT_NAMES = (
+    "Neck",
+    "Right_shoulder", "Right_elbow", "Right_wrist",
+    "Left_shoulder", "Left_elbow", "Left_wrist",
+    "Right_hip", "Right_knee", "Right_ankle", "Right_foot",
+    "Left_hip", "Left_knee", "Left_ankle", "Left_foot",
+)
+
 # parent joint index of each joint (joint 0 is its own parent / root)
 KINEMATIC_PARENTS = (0, 0, 1, 2, 0, 4, 5, 1, 7, 8, 9, 4, 11, 12, 13)
 

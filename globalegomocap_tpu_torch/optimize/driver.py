@@ -10,7 +10,8 @@ modes 'flat' and 'vmap', `optimize_chunk`, `run`, and the selection among
 the prior pairs of a `prior_bank` by each batch's motion statistic), and
 `optimize_sequence_dir` (its per-chunk loop with the per-chunk fault
 isolation, or with batched=True one staged flat solve a sequence, as
-`cli/evaluate_all.py` runs it) and `print_summary`.  Every derived
+`cli/evaluate_all.py` runs it), `print_summary` and
+`load_priors_from_torch`.  Every derived
 configuration is built from the full resolved config, so nothing keys a
 cache on a partial view of it.
 
@@ -226,7 +227,8 @@ class SequenceOptimizer:
         m = ConvVAE(model.in_channels, model.out_channels,
                     model.latent_dim, model.seq_len, model.hidden_dims,
                     use_bn=use_bn, dtype=model.dtype,
-                    head_dtype=model.head_dtype)
+                    head_dtype=model.head_dtype,
+                    with_bone_length=model.with_bone_length)
         m.load_state_dict(copy.deepcopy(state))
         return m.to(self.device).eval().requires_grad_(False)
 
@@ -588,6 +590,20 @@ class SequenceOptimizer:
                 res.estimated, res.mid, res.optimized, res.gt).items()}
         return (errors, _numpy(res.estimated), _numpy(res.mid_local),
                 _numpy(res.optimized), _numpy(res.gt))
+
+
+def load_priors_from_torch(cfg: OptimizeConfig, local_ckpt: str,
+                           global_ckpt: str, device=None
+                           ) -> SequenceOptimizer:
+    """A SequenceOptimizer of `cfg` on two reference-format priors
+    (.pth.tar training checkpoints or bare torch state dicts, read by
+    `cli/serve.py::load_state` and checked against the model), on
+    `device` (CUDA unless the caller passes "cpu")."""
+    from globalegomocap_tpu_torch.cli.serve import load_state
+    model = build_model(cfg)
+    return SequenceOptimizer(model, load_state(local_ckpt, model),
+                             load_state(global_ckpt, model), cfg,
+                             device=device)
 
 
 def _stack(chunks: list[TestChunk], name: str) -> np.ndarray:

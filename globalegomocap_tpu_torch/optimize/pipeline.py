@@ -19,7 +19,11 @@ Three entry points, as in the JAX package:
   one flat batch (`lbfgs_minimize_fixed_batched`), on staged crops or on
   full maps (the guard-trip fallback with `guard_crop` = 0);
 - `optimize_chunks_batched`: many equal-length chunks, `optimize_chunk`
-  on each (the JAX package's mode="vmap").
+  on each (the JAX package's mode="vmap");
+
+and `make_chunk_optimizer`, `optimize_chunk` as a closure over a config
+and a camera that takes the priors' state dicts (eager: the JAX
+package's jit has no counterpart).
 
 `optimize_stage` picks the energy as the JAX one does: the fused stage-1
 kernel on staged crops (or, with `solver.fused_decode`, kernel 5, which
@@ -41,6 +45,7 @@ ConvVAEs, converted per stage."""
 
 from __future__ import annotations
 
+import copy
 import functools
 from dataclasses import replace
 from typing import Callable, NamedTuple
@@ -597,6 +602,32 @@ def optimize_chunk(local_model: ConvVAE | StageModels,
                            win_heat, win_gt, win_bl, camera, cfg,
                            win_org=win_org, full_hw=full_hw)
     return merge_window_fields(fields, cfg)
+
+
+def make_chunk_optimizer(model: ConvVAE, cfg: OptimizeConfig,
+                         camera: fisheye.FisheyeParams):
+    """fn(local_variables, global_variables, estimated_local, camera_seq,
+    heatmap_seq, gt_seq) -> ChunkResult: `optimize_chunk` at `cfg` and
+    `camera` over `model`'s architecture, the priors given as its state
+    dicts and loaded into copies of `model` at each call.  The JAX
+    package jit-compiles this closure once a chunk length; here it runs
+    eagerly, with nothing to compile."""
+    check_supported(cfg)
+
+    def prior(state: dict) -> ConvVAE:
+        m = copy.deepcopy(model)
+        m.load_state_dict(state)
+        return m.eval().requires_grad_(False)
+
+    def run(local_variables, global_variables, estimated_local, camera_seq,
+            heatmap_seq, gt_seq) -> ChunkResult:
+        with torch.no_grad():
+            return optimize_chunk(prior(local_variables),
+                                  prior(global_variables), estimated_local,
+                                  camera_seq, heatmap_seq, gt_seq, camera,
+                                  cfg)
+
+    return run
 
 
 def optimize_chunks_flat(local_model: ConvVAE | StageModels,

@@ -24,6 +24,13 @@ def num_windows(n_frames: int, seq_len: int = 10, stride: int = 8) -> int:
     return (n_frames - seq_len) // stride + 1
 
 
+def covered_frames(n_frames: int, seq_len: int = 10, stride: int = 8) -> int:
+    """Frames the merged output covers (tail frames that no window reaches
+    are dropped, as in the reference's merge)."""
+    w = num_windows(n_frames, seq_len, stride)
+    return (w - 1) * stride + seq_len if w else 0
+
+
 def window_indices(n_frames: int, seq_len: int = 10,
                    stride: int = 8) -> np.ndarray:
     """(W, T) frame-index table of the windows."""

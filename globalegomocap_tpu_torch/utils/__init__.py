@@ -1,0 +1,1 @@
+"""Cross-cutting utilities: profiling and metric logging."""

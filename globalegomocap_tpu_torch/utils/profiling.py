@@ -1,17 +1,20 @@
-"""Throughput accounting and the device trace.
+"""Span timing, throughput accounting and the device trace.
 
-Counterparts of `ThroughputMeter` and `device_trace` in
-`globalegomocap_tpu/utils/profiling.py` (its span timer waits for a later
-slice).  The trace is torch.profiler's Chrome trace, where the JAX
-package writes jax.profiler's TensorBoard trace.
+Counterparts of `SpanTimer`, `ThroughputMeter` and `device_trace` in
+`globalegomocap_tpu/utils/profiling.py`.  A `sync_value` tensor on a
+CUDA device makes a span or a measurement end only after the card has
+finished the work queued on that device (the JAX package's
+`block_until_ready`).  The trace is torch.profiler's Chrome trace, where
+the JAX package writes jax.profiler's TensorBoard trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -33,6 +36,39 @@ def device_trace(log_dir: str):
                                           f"trace_{os.getpid()}.json"))
 
 
+def _wait_for(sync_value) -> None:
+    """Wait for the card's queued work on `sync_value`'s device (nothing
+    to wait for on the CPU)."""
+    if sync_value is not None and sync_value.device.type == "cuda":
+        torch.cuda.synchronize(sync_value.device)
+
+
+@dataclass
+class SpanTimer:
+    """Named wall-clock spans; with `sync_value` (a tensor) a span ends
+    only after the card has finished the work queued so far on that
+    tensor's device."""
+    spans: dict = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def span(self, name: str, sync_value=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _wait_for(sync_value)
+            self.spans.setdefault(name, []).append(
+                time.perf_counter() - t0)
+
+    def summary(self) -> dict:
+        import numpy as np
+        return {k: {"mean_s": float(np.mean(v)), "total_s": float(np.sum(v)),
+                    "count": len(v)} for k, v in self.spans.items()}
+
+    def report(self) -> str:
+        return json.dumps(self.summary(), indent=1)
+
+
 @dataclass
 class ThroughputMeter:
     """windows/sec (or any unit/sec) accounting."""
@@ -49,8 +85,7 @@ class ThroughputMeter:
         try:
             yield
         finally:
-            if sync_value is not None and sync_value.device.type == "cuda":
-                torch.cuda.synchronize(sync_value.device)
+            _wait_for(sync_value)
             self.total_seconds += time.perf_counter() - t0
             self.total_units += units
 

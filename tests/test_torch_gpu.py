@@ -12,7 +12,8 @@ and resumed, a trainer's Orbax checkpoint resumed like its msgpack twin,
 and an Orbax prior feeding a solve through kernels 1 and 2; the parallel
 paths on the card: the collectives over two gloo ranks sharing cuda:0
 and chip_smoke's phase 3n (one NCCL rank, two gloo ranks) at a small
-size.
+size; the GMM prior, the camera and reprojection energies and the
+bone-length ConvVAE, card against CPU (chip_smoke's phase 3p (b)-(d)).
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -882,3 +883,34 @@ def test_parallel_phase_at_a_small_size(gen, tmp_path):
         train_flags=["--latent_dim", "16", "--batch_size", "16"])
     assert fails.items == []
     assert launches["fused_stage_energy"] == 13
+
+
+def test_gmm_prior_on_the_card_matches_numpy_and_the_cpu(gen, tmp_path):
+    """chip_smoke's phase 3p (b) on 64 windows: the GMM score (full and
+    diag, K=8, D=450) on the card against float64 numpy (1e-4 relative),
+    as gmm_score_fn in total_energy_from_pose against the CPU (relative
+    L2 1e-4), and a pickled sklearn fit where sklearn imports."""
+    fails = chip_smoke.Failures()
+    chip_smoke.gmm_check(torch, 0, "cuda", fails, "test", (str(tmp_path),),
+                         n=64)
+    assert fails.items == []
+
+
+def test_camera_energies_on_the_card_match_the_cpu(gen):
+    """chip_smoke's phase 3p (c) on 64 windows: reprojection_energy,
+    camera_matrix_energy and camera_constraint_energy, values and
+    autograd gradients within 1e-5 of the CPU's."""
+    fails = chip_smoke.Failures()
+    chip_smoke.camera_energies(torch, 0, "cuda", fails, "test", n=64)
+    assert fails.items == []
+
+
+def test_bone_length_vae_on_the_card_matches_the_cpu(gen):
+    """chip_smoke's phase 3p (d) at latent 32 and the reference's hidden
+    widths: eval encode of 64 windows (1e-4 of the largest), one
+    train-mode step at batch 32 (gradients in relative L2, 1e-2; the
+    running statistics 1e-5), a bf16 clone's encode finite."""
+    fails = chip_smoke.Failures()
+    chip_smoke.bone_vae_check(torch, 0, "cuda", fails, "test", latent=32,
+                              n=64, batch=32)
+    assert fails.items == []
