@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    - nvcc builds the four sources of globalegomocap_tpu_torch/csrc/
+1. build    - nvcc builds the five sources of globalegomocap_tpu_torch/csrc/
               for sm_90a, one process each, all started together; prints
               what ptxas reports (registers, spills, smem).
 2. kernels  - each kernel against its plain PyTorch version on the same
@@ -259,6 +259,25 @@ Phases (any failure exits non-zero and prints no result line):
               within 1 %), SpanTimer around a request against CUDA events,
               MetricLogger, draw_joints on a 1024x1280 image (the branch
               that ran).  Its launches stay out of the JSON line.
+3q. draws   - JAX's random streams on the card: the draw kernel
+              (csrc/threefry.cu) against its plain version at (64, 2048),
+              (192, 2048) and (2048, 5120): 8-, 16- and 32-bit words
+              equal, uniform, normal and truncated normal in float32 and
+              bfloat16 equal (an element that differs is listed, and none
+              may differ by more than one ulp), a draw from an offset
+              equal to the rows of the whole; its time (CUDA graph
+              replay) beside its bound, the plain draw's and
+              torch.randn's (another stream, for scale); then the counted
+              run: a Trainer at 3j's defaults on 3j's corpus (its initial
+              weights, Flax's init from the seed drawn on the card,
+              against init_flax_like on the CPU within 1e-6 of each
+              leaf's largest magnitude), 30 train steps and introspect
+              sample --seed 3 on 3j's local prior (against --device cpu),
+              the draw kernel launched once an init leaf, a step and a
+              sample and no plain draw on the card; ms a train step in
+              turns with the kernel, with the plain draw (the kernel's
+              the lower) and with torch.randn's noise (a record, beside
+              the band PERF.md records).
 4. timing   - each kernel at its path's shapes (CUDA graph replay, CUDA
               events) beside its bound (from the bytes these inputs need:
               the map and crop sectors that hold an in-range tap, the
@@ -324,7 +343,8 @@ SOURCES = {"fused_stage_energy": CSRC + "fused_energy.cu",
            "heatmap_sample": CSRC + "heatmap_sample.cu",
            "heatmap_sample_bwd": CSRC + "heatmap_sample.cu",
            "lbfgs_direction": CSRC + "lbfgs_direction.cu",
-           "fused_decode_stage_energy": CSRC + "fused_decode_energy.cu"}
+           "fused_decode_stage_energy": CSRC + "fused_decode_energy.cu",
+           "threefry_draw": CSRC + "threefry.cu"}
 REPLACES = {
     "fused_stage_energy":
         "globalegomocap_tpu/ops/pallas/fused_energy.py:350",
@@ -338,6 +358,9 @@ REPLACES = {
         "globalegomocap_tpu/ops/pallas/lbfgs_direction.py:137",
     "fused_decode_stage_energy":
         "globalegomocap_tpu/ops/pallas/fused_decode_energy.py:244",
+    # no Pallas kernel: XLA's fusion of jax.random's draw, here the train
+    # step's reparameterisation noise
+    "threefry_draw": "globalegomocap_tpu/models/conv_vae.py:221",
 }
 # the production prior's decoder conv chain (hidden 64,64,128,256,512):
 # kernel 5's channels, and its float32 operations per (probe, window):
@@ -1081,7 +1104,8 @@ def path_a_phase(torch, seed, dev, fails, card, work,
     expect = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
               "heatmap_sample": n_chunks * (1 + 2 * it1),
               "heatmap_sample_bwd": n_chunks * (1 + it1),
-              "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
+              "lbfgs_direction": 0, "fused_decode_stage_energy": 0,
+              "threefry_draw": 0}
     print(f"  {n_chunks} chunks x {n_frames} frames, {it1}+{it2} "
           f"iterations, history {cfg.solver.history_size}, "
           f"{len(cfg.solver.step_candidates)} step candidates, fused "
@@ -1286,7 +1310,8 @@ def path_d_phase(torch, seed, dev, fails, card, work,
         stage1 = sum(calls[0::2])
         return {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
                 "heatmap_sample": stage1, "heatmap_sample_bwd": stage1,
-                "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
+                "lbfgs_direction": 0, "fused_decode_stage_energy": 0,
+                "threefry_draw": 0}
 
     calls = []                                 # 1. the CLI
     cb.reset_launches()
@@ -1434,7 +1459,7 @@ def path_b_phase(torch, dev, fails, card, work,
               "fused_stage_energy_noreproj": 1 + s.global_max_iter,
               "heatmap_sample": 1 + s.max_iter,
               "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0,
-              "fused_decode_stage_energy": 0}
+              "fused_decode_stage_energy": 0, "threefry_draw": 0}
     cb.reset_launches()
     recs, wall = run_serve(serve, base)
     launches = dict(cb.LAUNCHES)
@@ -2056,9 +2081,10 @@ def graph_ms(torch, fn, per_graph=20, reps=25):
     return start.elapsed_time(end) / (reps * per_graph)
 
 
-def event_ms(torch, fn, reps=20):
-    """Time of one call between CUDA events, host launch cost included."""
-    for _ in range(3):
+def event_ms(torch, fn, reps=20, warm=3):
+    """Time of one call between CUDA events, host launch cost included,
+    after `warm` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2675,7 +2701,8 @@ def serve_phase(torch, seed, dev, fails, card, work, profile=False,
         "fused_stage_energy": 1 + robust.max_iter,
         "fused_stage_energy_noreproj": 1 + robust.global_max_iter,
         "heatmap_sample": 0, "heatmap_sample_bwd": 0,
-        "lbfgs_direction": 0, "fused_decode_stage_energy": 0},
+        "lbfgs_direction": 0, "fused_decode_stage_energy": 0,
+        "threefry_draw": 0},
         f"guard trip launches {g_launch} (robust tier: "
         f"{robust.max_iter} iterations, {len(robust.step_candidates)} "
         f"step candidates)")
@@ -4833,10 +4860,13 @@ def sample_ranks_phase(torch, seed, dev, fails, card, work,
         runs[label] = ({k: v for k, v in cb.LAUNCHES.items() if v}, kept,
                        recs)
     (l_mu, _, r_mu), (l_s, kept, r_s) = runs["mu"], runs["sample"]
-    fails.check(l_s == l_mu and bool(l_s) and r_s[0]["windows"] ==
-                r_mu[0]["windows"],
+    solve_s = {k: v for k, v in l_s.items() if k != "threefry_draw"}
+    drew = l_s.get("threefry_draw", 0) >= 1 or not cuda
+    fails.check(solve_s == l_mu and bool(l_s) and drew
+                and r_s[0]["windows"] == r_mu[0]["windows"],
                 f"(b) serve --init sample --init_seed {SAMPLE_SEED} on a "
-                f"{r_s[0]['windows']}-window request: launches {l_s}, with "
+                f"{r_s[0]['windows']}-window request: launches {l_s} (the "
+                f"draws through the draw kernel), with "
                 f"mu {l_mu}; optimized_global_mpjpe "
                 f"{r_s[0]['optimized_global_mpjpe']} (mu "
                 f"{r_mu[0]['optimized_global_mpjpe']}) [{card}]")
@@ -5175,7 +5205,7 @@ def degraded_traffic(torch, seed, dev, fails, card, work, shape, latent):
               "fused_stage_energy_noreproj": 1 + s.global_max_iter,
               "heatmap_sample": 1 + s.max_iter,
               "heatmap_sample_bwd": 1 + s.max_iter, "lbfgs_direction": 0,
-              "fused_decode_stage_energy": 0}
+              "fused_decode_stage_energy": 0, "threefry_draw": 0}
     print(f"  v3 at --sampling pallas --guard_crop 0: the CPU port's "
           f"decision {tier_of(peff)}; predicted launches {expect}",
           flush=True)
@@ -5558,6 +5588,304 @@ def robust_library_phase(torch, seed, dev, fails, card, work,
                 states, iters=iters)
 
 
+# ---------------------------------------------------------------------------
+# phase 3q: JAX's random streams on the card (the draw kernel)
+# ---------------------------------------------------------------------------
+
+# the shapes the port draws at: a train step's noise (batch 64 x latent
+# 2048), serve's sample init (192 windows), the init's largest leaf
+# (fc_mu's kernel, 5120 x 2048)
+DRAW_SHAPES = ((64, 2048), (192, 2048), (2048, 5120))
+# 32-bit operations an element of a draw costs, counted from
+# csrc/threefry.cu: the hash (20 rounds of an add, a funnel shift and an
+# xor, 6 key injections of two or three adds, the counter words) ~82, the
+# uniform ~6; the normal's erf_inv (a multiply, log1pf ~20, a square root
+# or a subtract, 8 Horner steps of a float64 multiply, add and two
+# conversions) and the sqrt(2) product ~60 more, the truncated normal's
+# clamp 2 more.  All counted at the float32 rate (the card's integer and
+# float64 rates are lower, so the operations bound is a lower bound).
+DRAW_OPS = {"normal": 148, "truncated": 150}
+# a float32 train step at 3j's defaults on an H100, the band PERF.md
+# section 5 records, printed as a record: host clocks vary 1.5-3x between
+# calls (PERF.md section 2), and rounds of one call by up to a fifth, so
+# the step with the draw kernel is printed beside the step with
+# torch.randn's noise, in turns in one call, and gated only against the
+# step with the plain draw (a third slower on an H100)
+TRAIN_STEP_BAND_MS = (11.177, 14.387)
+DRAW_SEED = 3
+
+
+def ulp_gap(torch, a, b):
+    """Units in the last place between two float32 or bfloat16 tensors
+    of one sign pattern, elementwise (int64)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return (a.contiguous().view(view).to(torch.int64)
+            - b.contiguous().view(view).to(torch.int64)).abs()
+
+
+def draw_agreement(torch, fails, shapes=DRAW_SHAPES, seed=DRAW_SEED,
+                   listed=8) -> float:
+    """The draw kernel against its plain version on the card, on the same
+    key: the bits (8, 16 and 32) equal; uniform, normal and truncated
+    normal in float32 and bfloat16 equal, or each element that differs
+    listed (index, both values, ulps; none may differ by more than one
+    ulp); a draw from `start` equal to the rows of the whole.  Launches
+    made here count in no run.  Returns the largest absolute gap."""
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import random as R
+    key = R.prng_key(seed)
+    worst = 0.0
+
+    def both(fn):
+        got = fn()
+        with cb.plain_versions_on_cuda():
+            want = fn()
+        return got, want
+
+    for shape in shapes:
+        for width in (32, 16, 8):
+            got, want = both(lambda: R.random_bits(key, width, shape,
+                                                   device="cuda"))
+            fails.check(got.dtype == want.dtype == torch.int64
+                        and torch.equal(got, want),
+                        f"draw kernel {width}-bit words at {shape} equal "
+                        f"to the plain version's")
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind, fn in (
+                    ("uniform", lambda: R.uniform(key, shape, dtype,
+                                                  device="cuda")),
+                    ("normal", lambda: R.normal(key, shape, dtype,
+                                                device="cuda")),
+                    ("truncated", lambda: R.truncated_normal(
+                        key, -2.0, 2.0, shape, dtype, device="cuda"))):
+                got, want = both(fn)
+                off = (got != want).flatten().nonzero().flatten()
+                ulps = ulp_gap(torch, got, want)
+                gap = float((got.float() - want.float()).abs().max())
+                worst = max(worst, gap)
+                where = ", ".join(
+                    f"[{int(i)}] {float(got.flatten()[i])!r} vs "
+                    f"{float(want.flatten()[i])!r} "
+                    f"({int(ulps.flatten()[i])} ulp)" for i in off[:listed])
+                fails.check(got.dtype == dtype and bool(
+                    torch.isfinite(got).all()) and int(ulps.max()) <= 1,
+                    f"draw kernel {kind} {str(dtype)[6:]} at {shape}: "
+                    f"{len(off)} of {got.numel()} differ from the plain "
+                    f"version (max {gap:.3e})" + (f": {where}" if where
+                                                  else ""))
+        rows, d = shape
+        half = rows // 2
+        whole = R.normal(key, shape, device="cuda")
+        part = R.normal(key, (rows - half, d), start=half * d,
+                        device="cuda")
+        words = R.random_bits(key, 32, shape, device="cuda")
+        fails.check(torch.equal(part, whole[half:]) and torch.equal(
+            R.random_bits(key, 32, (rows - half, d), start=half * d,
+                          device="cuda"), words[half:]),
+            f"draw kernel from start {half * d} at {shape}: the rows "
+            f"{half}.. of the whole draw, normals and bits")
+    torch.cuda.synchronize()
+    return worst
+
+
+def draw_timing(torch, card, shapes=DRAW_SHAPES, seed=DRAW_SEED) -> tuple:
+    """The draw kernel's time (CUDA graph replay) at each shape, normal
+    float32 (and bf16 and truncated at the first and last shapes),
+    beside its bound, the plain version's time (the normals') and
+    torch.randn's at the same shape (another stream: for scale only).
+    Returns the first shape's float32 normal row (ms, plain ms, bound
+    ms, bound by, None)."""
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import random as R
+    key = R.prng_key(seed)
+    row = None
+    cases = [(s, "normal", torch.float32) for s in shapes] + [
+        (shapes[0], "normal", torch.bfloat16),
+        (shapes[-1], "truncated", torch.float32)]
+    for shape, kind, dtype in cases:
+        if kind == "normal":
+            fn = lambda: R.normal(key, shape, dtype, device="cuda")  # noqa
+        else:
+            fn = lambda: R.truncated_normal(key, -2.0, 2.0, shape,  # noqa
+                                            dtype, device="cuda")
+        ms = graph_ms(torch, fn)
+        plain = float("nan")
+        if kind == "normal":
+            with cb.plain_versions_on_cuda():
+                plain = event_ms(torch, fn, reps=2, warm=1)
+        lib = graph_ms(torch, lambda: torch.randn(shape, dtype=dtype,
+                                                  device="cuda"))
+        n = shape[0] * shape[1]
+        elem = 4 if dtype == torch.float32 else 2
+        bms, by = bound_of(n * elem, n * DRAW_OPS[kind])
+        timed = f"plain {plain:.3f} ms" if plain == plain else \
+            "plain not timed"
+        print(f"  draw {kind} {str(dtype)[6:]} {shape}: kernel "
+              f"{ms * 1e3:.3f} us, {timed}, torch.randn {lib * 1e3:.3f} us "
+              f"(another stream); bound {bms * 1e3:.3f} us ({by}), share "
+              f"{bms / ms:.3f} [{card}]", flush=True)
+        if row is None:
+            row = (ms, plain, bms, by, None)
+    return row
+
+
+def draw_phase(torch, seed, dev, fails, card, work, latent=LATENT,
+               batch=TRAIN_BATCH, steps=30, rounds=2):
+    """Phase 3q: JAX's random streams on the card.  The draw kernel
+    against its plain version (`draw_agreement`) and timed
+    (`draw_timing`); then the counted run, which must draw through the
+    kernel and never through the plain ops on the card: a `Trainer` at
+    3j's defaults (latent 2048, hidden 64-512, batch 64, float32) on
+    3j's corpus, its initial weights (Flax's `init` from the seed, drawn
+    on the card) against `init_flax_like` on the CPU within 1e-6 of each
+    leaf's largest magnitude, ms a train step in turns with the plain
+    draw (the kernel's the lower) and with torch.randn's noise (a record,
+    PERF.md's band printed beside); and `introspect sample --seed 3` on 3j's
+    local prior on the card against --device cpu (the latents within
+    1e-6, the motions within 1e-4 of their largest magnitude, cuDNN
+    deterministic).  Returns (the draw kernel's launches in the counted
+    run, its largest gap to the plain version, its timing row); on the
+    CPU the kernel checks are skipped and the launch check fails.
+    `latent`, `batch` and `steps` are cut only in a rehearsal."""
+    import numpy as np
+
+    from globalegomocap_tpu_torch.cli import introspect
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.models.conv_vae import (
+        ConvVAE, init_flax_like)
+    from globalegomocap_tpu_torch.ops import cuda_build as cb
+    from globalegomocap_tpu_torch.ops import random as R
+    from globalegomocap_tpu_torch.train import train_vae
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    worst, row = 0.0, None
+    if cuda:
+        worst = draw_agreement(torch, fails)
+        row = draw_timing(torch, card)
+
+    # the counted run: every draw on the card through the kernel
+    plain_on_card = []
+    real_plain = R.plain_draw
+
+    def plain_draw(kind, key, shape, *a, **k):
+        out = real_plain(kind, key, shape, *a, **k)
+        if out.device.type == "cuda":
+            plain_on_card.append((kind, tuple(shape)))
+        return out
+    base = os.path.join(work[0], "draws")
+    train_ds = AmassWindows.from_dir(os.path.join(work[0], "train", "amass"),
+                                     local_pose=True)
+    cfg = TrainConfig(latent_dim=latent, batch_size=batch, local_pose=True,
+                      seed=seed)
+    model = ConvVAE(latent_dim=latent, seq_len=cfg.seq_length)
+    n_kernels = sum(1 for m in model.modules() if isinstance(
+        m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d, torch.nn.Linear)))
+    ckpt = os.path.join(work[0], "train", "logs", "local", "checkpoints",
+                        "2.msgpack")
+    out = {}
+    R.plain_draw = plain_draw
+    try:
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, train_ds, AmassWindows(
+            train_ds.windows[:batch]), model, device=dev)
+        sync()
+        t_init = time.perf_counter() - t0
+        start = {k: v.detach().cpu().clone()
+                 for k, v in trainer.model.state_dict().items()}
+        n_steps, secs, running = epoch_steps(torch, trainer, 0, sync,
+                                             max_steps=steps)
+        for where in (dev, "cpu"):
+            with cudnn_deterministic(torch):
+                out[where], _, _ = run_cli(introspect.main, [
+                    "sample", "--ckpt", ckpt, "--latent_dim", str(latent),
+                    "--out", os.path.join(base, where), "--num", "10",
+                    "--seed", str(DRAW_SEED), "--device", where])
+            if where == dev:
+                sync()
+                launches = cb.LAUNCHES["threefry_draw"]
+    finally:
+        R.plain_draw = real_plain
+    expect = n_kernels + n_steps + 1
+    fails.check(launches == expect and not plain_on_card,
+                f"the counted run (a Trainer's init, {n_steps} train steps, "
+                f"introspect sample) launched the draw kernel {launches} "
+                f"times ({n_kernels} init leaves + {n_steps} steps + 1 "
+                f"sample = {expect} expected); plain draws on the card: "
+                f"{plain_on_card}")
+    fails.check(bool(torch.isfinite(running["loss"])),
+                f"{n_steps} train steps at 3j's defaults from the seeded "
+                f"init: loss finite")
+
+    # the card's init against the CPU's, leaf for leaf
+    t0 = time.perf_counter()
+    host = init_flax_like(ConvVAE(latent_dim=latent, seq_len=cfg.seq_length),
+                          seed).state_dict()
+    t_host = time.perf_counter() - t0
+    gaps = {k: float((start[k].float() - w.float()).abs().max())
+            / (float(w.float().abs().max()) or 1.0)
+            for k, w in host.items()}
+    name = max(gaps, key=gaps.get)
+    fails.check(set(host) == set(start) and gaps[name] <= 1e-6,
+                f"init_flax_like at full width on {dev} ({t_init:.2f} s with "
+                f"the trainer) against the CPU ({t_host:.2f} s): worst leaf "
+                f"{name} {gaps[name]:.3e} of its largest magnitude (1e-6)")
+
+    # introspect sample on the card against the CPU
+    z_dev = R.normal(R.prng_key(DRAW_SEED), (10, latent), device=dev)
+    z_cpu = R.normal(R.prng_key(DRAW_SEED), (10, latent))
+    z_gap = float((z_dev.cpu() - z_cpu).abs().max())
+    m_gap = float(np.abs(out[dev] - out["cpu"]).max()) / float(
+        np.abs(out["cpu"]).max())
+    fails.check(z_gap <= 1e-6 and m_gap <= 1e-4 and out[dev].shape == (
+        10, cfg.seq_length, 15, 3),
+        f"introspect sample --seed {DRAW_SEED} on {dev} against cpu: "
+        f"latents {z_gap:.3e} apart (1e-6), motions {m_gap:.3e} of their "
+        f"largest magnitude (1e-4)")
+
+    # ms a train step in turns: the draw kernel, torch.randn's noise (the
+    # parent's trainer drew it so, reseeded each step) and the plain draw
+    if cuda:
+        real_noise = train_vae.step_noise
+
+        def randn_noise(key, step, shape, dtype, device, row=0):
+            gen = torch.Generator(device=device)
+            gen.manual_seed((key[1] << 32) + step)
+            return torch.randn(tuple(shape), generator=gen, device=device,
+                               dtype=dtype)
+        times = {"kernel": [], "randn": [], "plain": []}
+        order = ("kernel", "randn", "plain", "plain", "randn", "kernel")
+        for r, how in enumerate(order * (rounds // 2)):
+            ctx = cb.plain_versions_on_cuda() if how == "plain" \
+                else contextlib.nullcontext()
+            train_vae.step_noise = randn_noise if how == "randn" \
+                else real_noise
+            try:
+                with ctx:
+                    n, secs, _ = epoch_steps(torch, trainer, r + 1, sync,
+                                             max_steps=steps)
+            finally:
+                train_vae.step_noise = real_noise
+            times[how].append(secs * 1e3 / n)
+        med = {k: median(v) for k, v in times.items()}
+        fails.check(med["kernel"] < med["plain"],
+                    f"a train step at 3j's defaults (float32, batch {batch}, "
+                    f"{steps} steps a round, in turns): with the draw kernel "
+                    + " / ".join(f"{m:.3f}" for m in times["kernel"])
+                    + " ms, with the plain draw "
+                    + " / ".join(f"{m:.3f}" for m in times["plain"])
+                    + " ms (the kernel's median the lower); with "
+                    "torch.randn's noise "
+                    + " / ".join(f"{m:.3f}" for m in times["randn"])
+                    + f" ms, kernel / randn medians "
+                    f"{med['kernel'] / med['randn']:.4f} (a record); "
+                    f"PERF.md's band {TRAIN_STEP_BAND_MS[0]}-"
+                    f"{TRAIN_STEP_BAND_MS[1]} ms [{card}]")
+    return launches, worst, row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5586,6 +5914,7 @@ def main(argv=None) -> int:
     from globalegomocap_tpu_torch.ops import fused_energy as fe
     from globalegomocap_tpu_torch.ops import heatmap_sample as hs
     from globalegomocap_tpu_torch.ops import lbfgs_direction as ld
+    from globalegomocap_tpu_torch.ops import random as random_ops
     from globalegomocap_tpu_torch.optimize.window import num_windows
 
     card = card_line()
@@ -5605,9 +5934,10 @@ def main(argv=None) -> int:
     print("[1] build", flush=True)
     t0 = time.perf_counter()
     sources = ("fused_energy", "heatmap_sample", "lbfgs_direction",
-               "fused_decode_energy")
+               "fused_decode_energy", "threefry")
     built = cb.build_all(sources)
     fe._library(), hs._library(), ld._library(), fde._library()
+    random_ops._library()
     for name in sources:
         print(f"  built {os.path.relpath(built[name], HERE)}", flush=True)
         for line in cb.BUILD_LOG.get(name, "").splitlines():
@@ -5740,6 +6070,15 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         robust_library_phase(torch, args.seed, "cuda", fails, card, work)
         phase_done("robustness and library", t0)
+        # ---- 3q. JAX's random streams on the card --------------------------
+        print("[3q] JAX's random streams on the card (the draw kernel "
+              "against its plain version and timed; a Trainer's seeded "
+              "init, train steps and introspect sample through it)",
+              flush=True)
+        t0 = time.perf_counter()
+        launches["threefry_draw"], max_err["threefry_draw"], draw_row = \
+            draw_phase(torch, args.seed, "cuda", fails, card, work)
+        phase_done("draws", t0)
 
     # ---- 4. timing ----------------------------------------------------------
     print("[4] timing at the paths' shapes", flush=True)
@@ -5750,6 +6089,7 @@ def main(argv=None) -> int:
     launch_floor(torch, fe, card, rows)
     rows["fused_decode_stage_energy"] = timing_decode(
         torch, fe, fde, fisheye, args.seed, wins, card)
+    rows["threefry_draw"] = draw_row
     phase_done("timing", t0)
     kernels = []
     for name in SOURCES:

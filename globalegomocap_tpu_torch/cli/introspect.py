@@ -21,7 +21,8 @@ manifest.ocdbt).
 --data is a pickle of (W, T, 45) windows.  `sample` writes
 <out>/sample_<i>/out_<frame>.ply, `interpolate` <out>/<k>/out_<frame>.ply
 (k = 0 .. steps + 1).  Runs on the card unless --device cpu; sampling
-draws its latents from a torch.Generator seeded by --seed on that device.
+draws JAX's latents of --seed (`normal(PRNGKey(seed), (num,
+latent_dim))`) on that device, so `sample` writes the JAX CLI's motions.
 `main` returns what it computed: the sampled or interpolated motions
 (N, T, 15, 3), or `tools/prior_tools.py::latent_statistics`'s dict.
 """

@@ -44,21 +44,26 @@ With a `mesh` of several ranks (data parallelism, `parallel/mesh.py`)
 the batch statistics are those of the global batch, every rank's rows,
 as JAX's jit over a sharded batch computes them.
 `reparameterize` takes its noise from the caller, `vae_loss` is the
-reference's ELBO, and `init_flax_like` draws a fresh prior from Flax's
-default distributions (`init_random`, PyTorch-like, makes the seeded
-random priors of the solve paths).
+reference's ELBO, and `init_flax_like` draws a fresh prior as Flax's
+`init` draws it from the same seed (`init_random`, PyTorch-like, makes
+the seeded random priors of the solve paths and the tests).
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from globalegomocap_tpu_torch.ops.random import normal, prng_key
+from globalegomocap_tpu_torch.models.convert import (
+    params_from_flax, params_to_flax)
+from globalegomocap_tpu_torch.ops.random import (
+    fold_in_static, normal, prng_key, truncated_normal)
 from globalegomocap_tpu_torch.ops.skeleton import bone_lengths
 from globalegomocap_tpu_torch.parallel.mesh import all_reduce
 
@@ -270,7 +275,7 @@ def reparameterize(mu: torch.Tensor, log_var: torch.Tensor,
                    noise: torch.Tensor | None = None) -> torch.Tensor:
     """z = mu + noise * exp(0.5 log_var), or mu without noise.  The JAX
     model draws the noise itself, in mu's dtype; here the caller passes
-    it (the trainer's `noise_fn`)."""
+    it (the trainers' `step_noise`, JAX's draw of the same key)."""
     if noise is None:
         return mu
     return mu + noise * torch.exp(0.5 * log_var)
@@ -302,16 +307,15 @@ def vae_loss(reconstruction: torch.Tensor, target: torch.Tensor,
     return recon + kld_weight * kld, recon, kld
 
 
-def sample_prior(model: ConvVAE, num_samples: int,
-                 generator: torch.Generator | None = None,
+def sample_prior(model: ConvVAE, num_samples: int, seed: int = 0,
                  z: torch.Tensor | None = None) -> torch.Tensor:
     """Decode N(0, I) latents into (N, T, 15, 3) motions (reference:
     SeqConvVAE.py:221-235).  `z` gives the latents; otherwise they are
-    drawn from `generator` on the model's device."""
+    JAX's `normal(PRNGKey(seed), (N, latent_dim))`, drawn on the model's
+    device."""
     if z is None:
-        w = model.fc_mu.weight
-        z = torch.randn(num_samples, model.latent_dim, generator=generator,
-                        device=w.device, dtype=torch.float32)
+        z = normal(prng_key(seed), (num_samples, model.latent_dim),
+                   device=model.fc_mu.weight.device)
     return model.decode(z).reshape(num_samples, model.seq_len, 15, 3)
 
 
@@ -337,35 +341,73 @@ def init_random(model: ConvVAE, generator: torch.Generator) -> ConvVAE:
     return model
 
 
-def init_flax_like(model: ConvVAE, generator: torch.Generator,
-                   logvar_bias_init: float | None = None) -> ConvVAE:
-    """Fill the parameters from `generator` with Flax's default
-    distributions, as the JAX model's `init`: every conv and dense kernel
-    lecun_normal (a normal truncated at +-2 std, scaled to std
-    1/sqrt(fan_in)), every bias 0, BN scale 1 and bias 0, running mean 0
-    and variance 1, and fc_var's bias `logvar_bias_init` (default the
-    model's).  The draws are not JAX's: the distributions are."""
+# the standard deviation of a unit normal truncated to [-2, 2] (Flax's)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_std(shape) -> torch.Tensor:
+    """lecun_normal's scale for a Flax kernel of `shape`, in float32 as
+    JAX computes it: sqrt(1 / fan_in) / 0.8796..., fan_in the product of
+    every axis but the last (Conv (k, in, out): k * in)."""
+    variance = np.float32(1.0 / math.prod(shape[:-1]))
+    return torch.tensor(np.sqrt(variance) / np.float32(_TRUNC_STD))
+
+
+def _flax_leaf(root, path, shape, device, fc_var_bias) -> torch.Tensor:
+    """The initial value of the Flax parameter at `path` (module path,
+    then name): a kernel is lecun_normal from the key Flax derives for
+    the module's first parameter, a bias 0 (fc_var's `fc_var_bias`), a
+    BatchNorm scale 1."""
+    *module, name = path
+    if name == "kernel":
+        key = fold_in_static(root, *module, 1)
+        return truncated_normal(key, -2.0, 2.0, shape, device=device) \
+            * _lecun_std(shape).to(device)
+    if name == "scale":
+        return torch.ones(shape, device=device)
+    if name == "bias" and module[-1] == "fc_var":
+        return torch.full(shape, fc_var_bias, device=device)
+    return torch.zeros(shape, device=device)
+
+
+def init_flax_like(model: ConvVAE, seed: int,
+                   logvar_bias_init: float | None = None,
+                   scope: tuple = ()) -> ConvVAE:
+    """Flax's initialisation from `seed`: the port's counterpart of the
+    JAX model's `model.init(PRNGKey(seed), ...)`, leaf for leaf.  Each
+    leaf of the Flax tree (its paths and shapes those of
+    `params_to_flax` of the model) is drawn on the model's device from
+    the key Flax derives for it, `fold_in_static(PRNGKey(seed),
+    *scope, *module_path, counter)` (counter 1 for a module's first
+    `param`: Conv and Dense kernels are lecun_normal, a normal truncated
+    at +-2 and scaled to std 1/sqrt(fan_in)); biases are 0, fc_var's
+    bias `logvar_bias_init` (default the model's), BN scale 1 and bias
+    0, running mean 0 and variance 1.  The tree then crosses through
+    `params_from_flax`.  `scope` is the Flax module path of the model
+    inside a larger one: ("local",) and ("global",) for the joint
+    prior's branches.  Leaf by leaf, so a full-width leaf holds no more
+    than itself in draw temporaries."""
     if logvar_bias_init is None:
         logvar_bias_init = model.logvar_bias_init
-    # the standard deviation of a unit normal truncated to [-2, 2]
-    trunc_std = 0.87962566103423978
+    device = model.fc_mu.weight.device
+    root = prng_key(seed)
+    layout = params_to_flax({k: torch.empty(v.shape, dtype=torch.float32)
+                             for k, v in model.state_dict().items()
+                             if v.is_floating_point()})
+
+    def fill(tree, path, leaf):
+        return {k: fill(v, path + (k,), leaf) if isinstance(v, dict)
+                else leaf(path + (k,), tuple(v.shape))
+                for k, v in tree.items()}
+
+    params = fill(layout["params"], (), lambda path, shape: _flax_leaf(
+        root, scope + path, shape, device, logvar_bias_init))
+    stats = fill(layout["batch_stats"], (), lambda path, shape: (
+        torch.ones if path[-1] == "var" else torch.zeros)(shape,
+                                                          device=device))
+    state = params_from_flax({"params": params, "batch_stats": stats})
     with torch.no_grad():
-        for name, mod in model.named_modules():
-            if isinstance(mod, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)):
-                w = mod.weight
-                if isinstance(mod, nn.Linear):
-                    fan_in = w.shape[1]
-                elif isinstance(mod, nn.ConvTranspose1d):
-                    fan_in = w.shape[0] * w.shape[2]
-                else:
-                    fan_in = w.shape[1] * w.shape[2]
-                std = fan_in ** -0.5 / trunc_std
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                mod.bias.fill_(logvar_bias_init if name == "fc_var" else 0.0)
-            elif isinstance(mod, nn.BatchNorm1d):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+        for k, v in model.state_dict().items():
+            if k in state:
+                v.copy_(state[k])
     return model

@@ -16,8 +16,9 @@ The port's own jax-free code, following the layout rules of
      fusion_bn's plain feature vector, are not permuted.
 
 Variables are the Flax {'params', 'batch_stats'} tree with numpy (or
-array-like) leaves; BN-folded trees (empty 'batch_stats', no 'bn'
-entries) convert to state dicts for `ConvVAE(use_bn=False)`.
+array-like) leaves, or torch tensors, which cross on their device;
+BN-folded trees (empty 'batch_stats', no 'bn' entries) convert to state
+dicts for `ConvVAE(use_bn=False)`.
 `params_to_flax` is the inverse, for priors the port writes as msgpack.
 A joint local+global prior (`models/joint_vae.py`) crosses branch by
 branch (`joint_params_from_flax`, `joint_params_to_flax`): Flax's
@@ -46,7 +47,8 @@ def _perm_ct_to_tc(n_channels: int, seq_len: int) -> np.ndarray:
 
 def params_from_flax(variables) -> dict:
     """Flax ConvVAE variables -> the port's ConvVAE state dict (float32
-    tensors).  hidden_dims and seq_len are read from the kernel shapes."""
+    tensors, on the leaves' device where they are tensors, else the CPU).
+    hidden_dims and seq_len are read from the kernel shapes."""
     return _from_flax(variables["params"],
                       variables.get("batch_stats") or {})
 
@@ -75,23 +77,36 @@ def joint_params_to_flax(state: dict) -> dict:
     return {"params": params, "batch_stats": stats}
 
 
+def _leaf(x) -> torch.Tensor:
+    """A Flax leaf as a float32 tensor: a tensor stays on its device (the
+    Flax-like initialisation draws on the card), anything else is copied
+    from numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32)
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 def _from_flax(params, stats) -> dict:
     """A Flax params tree (and its batch_stats; None = the parameters
-    alone, as in an optimizer's moment trees) -> torch-named tensors."""
-    a = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
+    alone, as in an optimizer's moment trees) -> torch-named tensors, on
+    the leaves' device.  The layout changes are transposes, flips and
+    permutations, so every value crosses exactly."""
+    a = _leaf
     n_enc = sum(1 for k in params if k.startswith("enc_"))
     hidden = [a(params[f"enc_{i}"]["conv"]["kernel"]).shape[-1]
               for i in range(n_enc)]
     c_last = hidden[-1]
-    seq_len = a(params["fc_mu"]["kernel"]).shape[0] // c_last
-    inv_perm = np.argsort(_perm_ct_to_tc(c_last, seq_len))
+    fc_mu = a(params["fc_mu"]["kernel"])
+    seq_len = fc_mu.shape[0] // c_last
+    inv_perm = torch.from_numpy(
+        np.argsort(_perm_ct_to_tc(c_last, seq_len))).to(fc_mu.device)
     out: dict = {}
 
     def block(dst_conv, dst_bn, src, transposed):
         kernel = a(params[src]["conv"]["kernel"])          # (k, in, out)
         out[f"{dst_conv}.weight"] = (
-            np.transpose(kernel, (1, 2, 0))[:, :, ::-1] if transposed
-            else np.transpose(kernel, (2, 1, 0)))
+            kernel.permute(1, 2, 0).flip(2) if transposed
+            else kernel.permute(2, 1, 0))
         out[f"{dst_conv}.bias"] = a(params[src]["conv"]["bias"])
         if "bn" in params[src]:
             out[f"{dst_bn}.weight"] = a(params[src]["bn"]["scale"])
@@ -99,23 +114,22 @@ def _from_flax(params, stats) -> dict:
         if "bn" in params[src] and stats is not None:
             out[f"{dst_bn}.running_mean"] = a(stats[src]["bn"]["mean"])
             out[f"{dst_bn}.running_var"] = a(stats[src]["bn"]["var"])
-            out[f"{dst_bn}.num_batches_tracked"] = np.asarray(0)
+            out[f"{dst_bn}.num_batches_tracked"] = torch.tensor(0)
 
     for i in range(n_enc):
         block(f"encoder.{i}.0", f"encoder.{i}.1", f"enc_{i}", False)
     bone = "fusion_dense" in params
     for name in ("fc_mu", "fc_var"):
         w = a(params[name]["kernel"])                      # (in_tc, out)
-        out[f"{name}.weight"] = np.transpose(w if bone else w[inv_perm, :])
+        out[f"{name}.weight"] = (w if bone else w[inv_perm, :]).T
         out[f"{name}.bias"] = a(params[name]["bias"])
     if bone:
         ct = len(inv_perm)
         w = a(params["fusion_dense"]["kernel"])        # (in_tc + 512, out)
-        out["fusion_dense.weight"] = np.transpose(
-            np.concatenate([w[:ct][inv_perm], w[ct:]]))
+        out["fusion_dense.weight"] = torch.cat([w[:ct][inv_perm],
+                                                w[ct:]]).T
         out["fusion_dense.bias"] = a(params["fusion_dense"]["bias"])
-        out["bone_dense.weight"] = np.transpose(
-            a(params["bone_dense"]["kernel"]))
+        out["bone_dense.weight"] = a(params["bone_dense"]["kernel"]).T
         out["bone_dense.bias"] = a(params["bone_dense"]["bias"])
         for bn in ("bone_bn", "fusion_bn"):
             out[f"{bn}.weight"] = a(params[bn]["scale"])
@@ -123,17 +137,17 @@ def _from_flax(params, stats) -> dict:
             if stats is not None:
                 out[f"{bn}.running_mean"] = a(stats[bn]["mean"])
                 out[f"{bn}.running_var"] = a(stats[bn]["var"])
-                out[f"{bn}.num_batches_tracked"] = np.asarray(0)
+                out[f"{bn}.num_batches_tracked"] = torch.tensor(0)
     w = a(params["decoder_input"]["kernel"])               # (in, out_tc)
-    out["decoder_input.weight"] = np.transpose(w[:, inv_perm])
+    out["decoder_input.weight"] = w[:, inv_perm].T
     out["decoder_input.bias"] = a(params["decoder_input"]["bias"])[inv_perm]
     for i in range(n_enc - 1):
         block(f"decoder.{i}.0", f"decoder.{i}.1", f"dec_{i}", True)
     block("final_layer.0", "final_layer.1", "final_block", True)
-    out["final_layer.3.weight"] = np.transpose(
-        a(params["final_conv"]["kernel"]), (2, 1, 0))
+    out["final_layer.3.weight"] = a(params["final_conv"]["kernel"]).permute(
+        2, 1, 0)
     out["final_layer.3.bias"] = a(params["final_conv"]["bias"])
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def params_to_flax(state: dict) -> dict:
@@ -142,7 +156,7 @@ def params_to_flax(state: dict) -> dict:
     the port writes priors the JAX package reads
     (`models/checkpoint.py::save_msgpack`)."""
     # copies: a live model's or optimizer's tensors change at its next step
-    a = lambda k: np.array(state[k].detach().to(torch.float32).cpu())  # noqa
+    a = lambda k: state[k].detach().to(torch.float32).cpu().numpy().copy()  # noqa
     n_enc = len({k.split(".")[1] for k in state if k.startswith("encoder.")})
     c_last = state[f"encoder.{n_enc - 1}.0.weight"].shape[0]
     seq_len = state["fc_mu.weight"].shape[1] // c_last

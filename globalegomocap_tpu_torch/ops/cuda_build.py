@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # kernel launches per wrapper (chip_smoke.py resets and reads them)
 LAUNCHES = {"fused_stage_energy": 0, "fused_stage_energy_noreproj": 0,
             "heatmap_sample": 0, "heatmap_sample_bwd": 0,
-            "lbfgs_direction": 0, "fused_decode_stage_energy": 0}
+            "lbfgs_direction": 0, "fused_decode_stage_energy": 0,
+            "threefry_draw": 0}
 # nvcc/ptxas output of the builds this process ran, by source name
 BUILD_LOG: dict[str, str] = {}
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from globalegomocap_tpu_torch.ops.random import choice, prng_key, split
+
 
 def _proper_svd(C: torch.Tensor):
     """(V, S, W) of C = V diag(S) W, the last singular direction flipped
@@ -98,10 +100,17 @@ def umeyama_ransac(P: torch.Tensor, Q: torch.Tensor, epsilon: float = 0.2,
     """RANSAC-robust Umeyama of P onto Q, (n, d) each (the reference's
     rigid_transform_with_scale.py:72-93): `n_iters` fits on random
     minimal sets of `sample_size` distinct correspondences, the largest
-    inlier set refit.  The sets come from a torch.Generator seeded by
-    `seed` on P's device (not JAX's threefry draws, which the port cannot
-    reproduce).  Returns (c, R, t)."""
-    gen = torch.Generator(device=P.device).manual_seed(seed)
-    keys = torch.rand(n_iters, P.shape[-2], generator=gen, device=P.device)
-    idx = torch.argsort(keys, dim=-1)[:, :sample_size]
+    inlier set refit.  The sets are JAX's (`ransac_hypotheses`), drawn on
+    P's device.  Returns (c, R, t)."""
+    idx = ransac_hypotheses(P.shape[-2], n_iters, sample_size, seed,
+                            P.device)
     return _ransac_fit(P, Q, idx, epsilon)
+
+
+def ransac_hypotheses(n: int, n_iters: int, sample_size: int, seed: int,
+                      device=None) -> torch.Tensor:
+    """RANSAC's (n_iters, sample_size) index sets, JAX's
+    `umeyama_ransac`'s: `choice(k, n, (sample_size,), replace=False)` of
+    each key of `split(PRNGKey(seed), n_iters)` (`ops/random.py`)."""
+    return torch.stack([choice(k, n, sample_size, device=device)
+                        for k in split(prng_key(seed), n_iters)])

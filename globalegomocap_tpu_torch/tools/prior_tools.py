@@ -4,9 +4,11 @@ Counterpart of `globalegomocap_tpu/tools/prior_tools.py` (the reference's
 networks/sample.py, networks/interpolant.py:94-138 and
 networks/get_latent.py) on the port's `models/conv_vae.py::ConvVAE`,
 used in eval mode (BatchNorm on its running statistics) on the device of
-its weights.  Sampling draws its N(0, I) latents from a torch.Generator
-seeded by `seed` on that device, not from JAX's threefry stream;
-`conv_vae.sample_prior(model, n, z=...)` decodes given latents.
+its weights.  Sampling draws its N(0, I) latents as JAX's does,
+`normal(PRNGKey(seed), (n, latent_dim))` (`ops/random.py`), on that
+device: the same motions as JAX's `sample_motions` from the same seed
+and weights; `conv_vae.sample_prior(model, n, z=...)` decodes given
+latents.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ def _windows(model: ConvVAE, windows) -> torch.Tensor:
 @torch.no_grad()
 def sample_motions(model: ConvVAE, num_samples: int,
                    seed: int = 0) -> np.ndarray:
-    """Decode N(0, I) latents -> (num_samples, T, 15, 3) motion windows."""
-    gen = torch.Generator(device=_device(model)).manual_seed(seed)
-    return sample_prior(model, num_samples, generator=gen).cpu().numpy()
+    """Decode JAX's N(0, I) latents of `seed` -> (num_samples, T, 15, 3)
+    motion windows."""
+    return sample_prior(model, num_samples, seed).cpu().numpy()
 
 
 def export_sample_meshes(model: ConvVAE, out_dir: str, num_samples: int = 10,

@@ -14,25 +14,25 @@ and `branch_variables` hands the two branches' state dicts straight to
   the epoch's mean;
 - the model computes in float32 whatever `cfg.compute_dtype` says.
 
-The reparameterisation noise of step `step` comes from
-`noise_fn(step, shape, dtype) -> (local, global)`; by default a
-`torch.Generator` on the trainer's device reseeded from (seed + 1, step)
-draws the local branch's and then the global branch's (JAX splits
-`fold_in(PRNGKey(seed + 1), step)` into one key a branch: the same
-structure, not its threefry numbers).  The initial weights come from
-Flax's distributions, branch by branch (`init_flax_like`).
+The initial weights are Flax's `init` from cfg.seed, leaf for leaf,
+each branch under its Flax scope 'local' or 'global' (`init_flax_like`),
+and the reparameterisation noise of step `step` is JAX's own: the two
+keys of `split(fold_in(PRNGKey(seed + 1), step))`, one a branch
+(`joint_step_noise`, through the draw kernel on the card).  A run from a
+seed follows the JAX trainer's run from that seed.
 
 Data parallelism (`num_devices`, a mesh of several ranks) follows
 `train/train_vae.py`: every rank starts from rank 0's state, takes its
-rows of each global batch and of the global batch's noise pair, both
-branches' BatchNorms normalise with the global batch's statistics, each
-rank's loss is its share, and one all_reduce sums the gradients and the
-metrics before Adam.  Rank 0 logs and keeps the history.
+rows of each global batch and draws only those rows of the global
+batch's noise pair, both branches' BatchNorms normalise with the global
+batch's statistics, each rank's loss is its share, and one all_reduce
+sums the gradients and the metrics before Adam.  Rank 0 logs and keeps
+the history.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import math
 
 import numpy as np
 import torch
@@ -41,50 +41,50 @@ from globalegomocap_tpu_torch.config import TrainConfig
 from globalegomocap_tpu_torch.models.conv_vae import init_flax_like
 from globalegomocap_tpu_torch.models.joint_vae import (
     JointLocalGlobalVAE, joint_loss, split_branches)
-from globalegomocap_tpu_torch.parallel.mesh import (
-    Mesh, replicate, shard_batch)
+from globalegomocap_tpu_torch.ops.random import (
+    fold_in, normal, prng_key, split)
+from globalegomocap_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from globalegomocap_tpu_torch.train.train_vae import (
     OptimizerSpec, all_reduce_grads, make_optimizer, train_mesh)
 
-JointNoiseFn = Callable[[int, tuple, torch.dtype], tuple]
 
-
-def default_joint_noise_fn(seed: int, device: torch.device) -> JointNoiseFn:
-    """Standard normal (local, global) noise on `device`, a function of
-    (seed, step): the generator is reseeded each step and draws the local
-    branch's noise, then the global branch's."""
-    gen = torch.Generator(device=device)
-
-    def noise(step: int, shape, dtype: torch.dtype) -> tuple:
-        gen.manual_seed((seed << 32) + step)
-        return tuple(torch.randn(shape, generator=gen, device=device,
-                                 dtype=dtype) for _ in range(2))
-
-    return noise
+def joint_step_noise(key: tuple[int, int], step: int, shape,
+                     dtype: torch.dtype, device, row: int = 0) -> tuple:
+    """The (local, global) reparameterisation noise of update `step`
+    under the trainer's key (JAX's `PRNGKey(seed + 1)`): `normal(k,
+    shape, dtype)` of each key of `split(fold_in(key, step))` on
+    `device`, rows row.. of the draws of a larger batch (one rank's
+    rows of the global batch's noise pair)."""
+    start = row * math.prod(shape[1:])
+    return tuple(normal(k, tuple(shape), dtype, start=start, device=device)
+                 for k in split(fold_in(key, step)))
 
 
 def make_joint_train_step(model: JointLocalGlobalVAE,
                           optimizer: torch.optim.Optimizer,
-                          spec: OptimizerSpec, kld_weight: float,
-                          noise_fn: JointNoiseFn,
+                          spec: OptimizerSpec, kld_weight: float, seed: int,
                           consistency_weight: float = 1.0,
                           mesh: Mesh | None = None):
     """step(poses (B, T, 45), cameras (B, T, 4, 4) on the device, count)
     -> metrics: one update of both branches with the noise of update
-    `count`.  The metrics ('consistency', 'global_kld', 'global_recon',
-    'local_kld', 'local_recon', 'loss', in that order) are 0-d device
-    tensors; the step reads nothing back.  Over a `mesh` of several ranks
-    the inputs are this rank's rows of the global batch, and the metrics
-    are the global batch's."""
+    `count` under `PRNGKey(seed)` (`joint_step_noise`; the trainer passes
+    cfg.seed + 1, as the JAX trainer does).  The metrics ('consistency',
+    'global_kld', 'global_recon', 'local_kld', 'local_recon', 'loss', in
+    that order) are 0-d device tensors; the step reads nothing back.
+    Over a `mesh` of several ranks the inputs are this rank's rows of the
+    global batch, its noise those rows of the global batch's, and the
+    metrics are the global batch's."""
     latent = model.latent_dim
     size = 1 if mesh is None else mesh.size
+    key = prng_key(seed)
 
     def step(poses: torch.Tensor, cameras: torch.Tensor, count: int) -> dict:
         for group in optimizer.param_groups:
             group["lr"] = spec.lr_at(count)
-        noise = noise_fn(count, (size * poses.shape[0], latent), model.dtype)
-        if size > 1:    # the global batch's noise pair, this rank's rows
-            noise = tuple(shard_batch(mesh, n) for n in noise)
+        b = poses.shape[0]
+        noise = joint_step_noise(key, count, (b, latent), model.dtype,
+                                 poses.device,
+                                 row=0 if size == 1 else mesh.rank * b)
         out = model(poses, cameras, train=True, noise=noise, mesh=mesh)
         total, metrics = joint_loss(out, poses, cameras, kld_weight,
                                     consistency_weight)
@@ -110,8 +110,7 @@ class JointTrainer:
     poses: (W, T, 45) local windows; cameras: (W, T, 4, 4).  Beyond the
     JAX trainer's arguments: `device` (the card unless the caller asks for
     the CPU), `variables` (a joint state dict to start from, in place of
-    the Flax-like initialisation from cfg.seed), `noise_fn` (see
-    `default_joint_noise_fn`) and `mesh` (default `make_mesh(
+    Flax's initialisation from cfg.seed) and `mesh` (default `make_mesh(
     cfg.num_devices or None)` on `device`)."""
 
     def __init__(self, cfg: TrainConfig, poses: np.ndarray,
@@ -119,7 +118,6 @@ class JointTrainer:
                  model: JointLocalGlobalVAE | None = None,
                  consistency_weight: float = 1.0, device="cuda",
                  variables: dict | None = None,
-                 noise_fn: JointNoiseFn | None = None,
                  mesh: Mesh | None = None):
         if len(poses) != len(cameras):
             raise ValueError(f"{len(poses)} pose windows but "
@@ -131,23 +129,21 @@ class JointTrainer:
         self.cameras = cameras
         self.model = model or JointLocalGlobalVAE(
             latent_dim=cfg.latent_dim, seq_len=cfg.seq_length)
+        self.model.to(self.device)
         if variables is None:
-            gen = torch.Generator().manual_seed(cfg.seed)
-            init_flax_like(self.model.local_vae, gen)
-            init_flax_like(self.model.global_vae, gen)
+            init_flax_like(self.model.local_vae, cfg.seed, scope=("local",))
+            init_flax_like(self.model.global_vae, cfg.seed,
+                           scope=("global",))
         else:
             self.model.load_state_dict(variables)
-        self.model.to(self.device)
         replicate(self.mesh, self.model)
         self.opt_spec = make_optimizer(cfg)
         self.optimizer = self.opt_spec.build(self.model.parameters())
         self.step = 0
         kld_weight = cfg.kl_weight * cfg.batch_size / max(1, len(poses))
-        self.noise_fn = noise_fn or default_joint_noise_fn(cfg.seed + 1,
-                                                           self.device)
         self._step = make_joint_train_step(self.model, self.optimizer,
                                            self.opt_spec, kld_weight,
-                                           self.noise_fn, consistency_weight,
+                                           cfg.seed + 1, consistency_weight,
                                            self.mesh)
 
     def _device_batch(self, x: np.ndarray) -> torch.Tensor:

@@ -17,10 +17,13 @@ process group):
   (optax evaluates its schedule at the count before the update);
 - BatchNorm runs in train mode with Flax's semantics
   (`models/conv_vae.py::_batch_norm_train`);
-- the reparameterisation noise of step `step` comes from
-  `noise_fn(step, shape, dtype)`; by default a `torch.Generator` on the
-  trainer's device seeded from (cfg.seed + 1, step), the counterpart of
-  JAX's `fold_in(PRNGKey(seed + 1), step)` but not its threefry stream;
+- the initial weights are Flax's `init` from cfg.seed, leaf for leaf
+  (`models/conv_vae.py::init_flax_like`, drawn on the trainer's device),
+  and the reparameterisation noise of step `step` is JAX's own,
+  `normal(fold_in(PRNGKey(cfg.seed + 1), step), mu.shape, mu.dtype)`
+  (`step_noise`; JAX's threefry stream, `ops/random.py`, through the
+  draw kernel on the card), so a run from a seed follows the JAX
+  trainer's run from that seed;
 - the metrics stay on the device: nothing is read back inside an epoch
   except at `log_step` boundaries;
 - `epoch_scan` keeps JAX's block structure (blocks of `scan_block` steps,
@@ -35,7 +38,7 @@ Data parallelism (`num_devices`, the mesh of `make_mesh`) computes what
 one rank computes, as JAX's jit over a batch sharded on its 'dp' axis
 does: every rank starts from rank 0's state (`replicate`); the global
 batch (`cfg.batch_size`, which the mesh size must divide) is split by
-rows; each rank draws the global batch's noise and takes its rows; the
+rows; each rank draws only its rows of the global batch's noise; the
 train-mode BatchNorm normalises with the global batch's statistics; each
 rank's loss is its share (the shares sum to the one-rank loss), and the
 gradients and the metrics are summed over the ranks by one all_reduce
@@ -65,11 +68,10 @@ from globalegomocap_tpu_torch.models.conv_vae import (
 from globalegomocap_tpu_torch.models.convert import (
     opt_state_from_flax, opt_state_to_flax, params_from_flax,
     params_to_flax)
+from globalegomocap_tpu_torch.ops.random import fold_in, normal, prng_key
 from globalegomocap_tpu_torch.optimize.prior_bank import windows_accel_stat
 from globalegomocap_tpu_torch.parallel.mesh import (
     Mesh, all_reduce, make_mesh, pad_to_multiple, replicate, shard_batch)
-
-NoiseFn = Callable[[int, tuple, torch.dtype], torch.Tensor]
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -158,39 +160,37 @@ def all_reduce_grads(mesh: Mesh, params, extra: torch.Tensor
     return flat[at:]
 
 
-def default_noise_fn(seed: int, device: torch.device) -> NoiseFn:
-    """Standard normal noise on `device`, a function of (seed, step): the
-    generator is reseeded each step, so a resumed run draws what an
-    unbroken one would (JAX folds the step into its key)."""
-    gen = torch.Generator(device=device)
-
-    def noise(step: int, shape, dtype: torch.dtype) -> torch.Tensor:
-        gen.manual_seed((seed << 32) + step)
-        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
-
-    return noise
+def step_noise(key: tuple[int, int], step: int, shape, dtype: torch.dtype,
+               device, row: int = 0) -> torch.Tensor:
+    """The reparameterisation noise of update `step` under the trainer's
+    key (JAX's `PRNGKey(seed + 1)`): `normal(fold_in(key, step), shape,
+    dtype)` on `device`, rows row.. of the draw of a larger batch (one
+    rank's rows of the global batch's noise).  A resumed run draws what
+    an unbroken one would."""
+    return normal(fold_in(key, step), tuple(shape), dtype,
+                  start=row * math.prod(shape[1:]), device=device)
 
 
 def make_train_step(model: ConvVAE, optimizer: torch.optim.Optimizer,
-                    spec: OptimizerSpec, kld_weight: float,
-                    noise_fn: NoiseFn, mesh: Mesh | None = None):
+                    spec: OptimizerSpec, kld_weight: float, seed: int,
+                    mesh: Mesh | None = None):
     """step(batch (B, T, 45) on the device, count) -> metrics: one
-    update, with the noise and learning rate of update `count`.  The
-    metrics ('loss', 'recon_loss', 'kld_loss') are 0-d device tensors; the
-    step reads nothing back.  Over a `mesh` of several ranks `batch` is
-    this rank's rows of the global batch, and the metrics are the global
-    batch's."""
+    update, with the learning rate of update `count` and its noise under
+    `PRNGKey(seed)` (`step_noise`; the trainer passes cfg.seed + 1, as
+    the JAX trainer does).  The metrics ('loss', 'recon_loss',
+    'kld_loss') are 0-d device tensors; the step reads nothing back.
+    Over a `mesh` of several ranks `batch` is this rank's rows of the
+    global batch, its noise those rows of the global batch's, and the
+    metrics are the global batch's."""
     size = 1 if mesh is None else mesh.size
+    key = prng_key(seed)
 
     def step(batch: torch.Tensor, count: int) -> dict:
         for group in optimizer.param_groups:
             group["lr"] = spec.lr_at(count)
         mu, log_var = model.encode(batch, train=True, mesh=mesh)
-        if size == 1:
-            noise = noise_fn(count, mu.shape, mu.dtype)
-        else:       # the global batch's noise, this rank's rows
-            noise = shard_batch(mesh, noise_fn(
-                count, (size * mu.shape[0],) + mu.shape[1:], mu.dtype))
+        noise = step_noise(key, count, mu.shape, mu.dtype, mu.device,
+                           row=0 if size == 1 else mesh.rank * mu.shape[0])
         z = reparameterize(mu, log_var, noise)
         recon = model.decode(z, train=True, mesh=mesh)
         loss, recon_loss, kld = vae_loss(recon, batch, mu, log_var,
@@ -235,16 +235,14 @@ class Trainer:
 
     Beyond the JAX trainer's arguments: `device` (the card unless the
     caller asks for the CPU), `variables` (a port state dict to start
-    from, in place of the Flax-like initialisation from cfg.seed),
-    `noise_fn` (see `default_noise_fn`) and `mesh` (default
-    `make_mesh(cfg.num_devices or None)` on `device`; its device is the
-    trainer's).  Every rank reads the same batches and trains on its rows
+    from, in place of Flax's initialisation from cfg.seed) and `mesh`
+    (default `make_mesh(cfg.num_devices or None)` on `device`; its device
+    is the trainer's).  Every rank reads the same batches and trains on its rows
     (the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, train_ds, test_ds,
                  model: ConvVAE | None = None, device="cuda",
                  variables: dict | None = None,
-                 noise_fn: NoiseFn | None = None,
                  mesh: Mesh | None = None):
         self.cfg = cfg
         self.train_ds = train_ds
@@ -256,11 +254,11 @@ class Trainer:
         self.model = model or ConvVAE(latent_dim=cfg.latent_dim,
                                       seq_len=cfg.seq_length, dtype=dt,
                                       logvar_bias_init=cfg.logvar_init_bias)
+        self.model.to(self.device)
         if variables is None:
-            init_flax_like(self.model, torch.Generator().manual_seed(cfg.seed))
+            init_flax_like(self.model, cfg.seed)
         else:
             self.model.load_state_dict(variables)
-        self.model.to(self.device)
         replicate(self.mesh, self.model)
         steps_per_epoch = max(1, len(train_ds) // max(1, cfg.batch_size))
         self.opt_spec = make_optimizer(cfg, steps_per_epoch * cfg.epochs)
@@ -268,11 +266,9 @@ class Trainer:
         self.step = 0
         # M_N of the reference: kl_weight * batch / dataset_len
         kld_weight = cfg.kl_weight * cfg.batch_size / max(1, len(train_ds))
-        self.noise_fn = noise_fn or default_noise_fn(cfg.seed + 1,
-                                                     self.device)
         self._train_step = make_train_step(self.model, self.optimizer,
                                            self.opt_spec, kld_weight,
-                                           self.noise_fn, self.mesh)
+                                           cfg.seed + 1, self.mesh)
         self._eval_step = make_eval_step(self.model)
         self.history: list[dict] = []
         # the training windows' motion regime, written into each

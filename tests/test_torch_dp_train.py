@@ -6,7 +6,8 @@ the global batch's BatchNorm statistics and gradients.
 
 The ranks are two gloo processes on the CPU, spawned once for the module
 (`parallel.mesh.spawn`); they run `tests/torch_parallel_workers.py`,
-which imports no JAX, fed the test's weights and JAX's noise, and hand
+which imports no JAX, at the trainers' defaults (Flax's initial weights
+and JAX's noise from the seed, as the JAX trainer draws them), and hand
 numpy results back.  The same workers called here with a mesh of one rank
 give the port's one-rank reference, which tests/test_torch_train.py and
 tests/test_torch_joint_vae.py hold against JAX gradient by gradient.
@@ -37,7 +38,6 @@ import pickle
 import jax
 import numpy as np
 import pytest
-import torch
 
 from globalegomocap_tpu.cli import train as jcli
 from globalegomocap_tpu.config import TrainConfig as JCfg
@@ -60,19 +60,13 @@ assert tj.LR == LR
 
 @pytest.fixture(scope="module")
 def case():
-    """The JAX trainer and its initial weights, the two corpora, a batch
-    of each, and JAX's noise for every step of a 2-epoch run."""
+    """The JAX trainer, the two corpora and a batch of each."""
     data = JWindows.from_sequences(
         synthetic_amass(n_sequences=3, frames_per_seq=80, seed=1),
         frame_num=10, local_pose=True)
     jt = tt.jax_trainer(data)
     windows = np.array(data.windows)
-    steps = 2 * (len(windows) // 32)
-    draw = tt.jax_noise(jt.cfg.seed + 1)
-    noise = {s: draw(s, (32, 32), torch.float32).numpy()
-             for s in range(steps)}
-    vae = (params_from_flax(tt._np(jt.variables)), windows, windows[32:64],
-           noise)
+    vae = (windows, windows[32:64])
     seqs = synthetic_amass(n_sequences=2, frames_per_seq=70, seed=3)
     _, local, cams = zip(*[sequence_windows_with_cameras(
         s, frame_num=10, fps=25, slide_window=True) for s in seqs])
@@ -82,9 +76,9 @@ def case():
 
 
 def _vae_args(case, n):
-    _, _, (variables, windows, batch, noise), _ = case
+    _, _, (windows, batch), _ = case
     cfg = TCfg(**dict(tt.BASE, log_step=2, num_devices=n))
-    return (cfg, tt.HIDDEN, variables, windows, batch, noise, TEST_LEN)
+    return (cfg, tt.HIDDEN, windows, batch, TEST_LEN)
 
 
 def _joint_args(case, n):
@@ -147,7 +141,7 @@ def test_one_data_parallel_step_matches_jax(case, ranks):
     global batch's three losses, the parameters after the update, the
     running statistics and Adam's first moment (0.1 of the gradient);
     and against one rank's step."""
-    _, jt, (_, _, batch, _), _ = case
+    _, jt, (_, batch), _ = case
     (r0, _), (r1, _) = ranks[0]
     one = ranks[1][0]
     state, metrics = jt._train_step(jt.state, jt._device_batch(batch),

@@ -177,27 +177,30 @@ def outlier_data():
 
 @pytest.mark.parametrize("seed,eps", [(0, 0.2), (3, 0.5)])
 def test_ransac_fit_on_jax_indices(seed, eps):
-    """The fit from given hypotheses, on the index sets JAX draws
-    (`umeyama_ransac`'s threefry draw, repeated here) against JAX's
-    whole `umeyama_ransac`."""
+    """The port's hypotheses are the index sets JAX's `umeyama_ransac`
+    draws (its threefry draw, repeated here), exactly; the fit from them
+    and the port's whole `umeyama_ransac` from the same seed against
+    JAX's whole `umeyama_ransac`."""
     P, Q, *_ = outlier_data()
     n_iters, s = 40, 4
     idx = jax.vmap(lambda k: jax.random.choice(
         k, P.shape[0], (s,), replace=False))(
         jax.random.split(jax.random.PRNGKey(seed), n_iters))
+    mine = tum.ransac_hypotheses(P.shape[0], n_iters, s, seed)
+    np.testing.assert_array_equal(mine.numpy(), np.asarray(idx))
     want = jum.umeyama_ransac(jnp.asarray(P), jnp.asarray(Q), epsilon=eps,
                               n_iters=n_iters, sample_size=s, seed=seed)
-    got = tum._ransac_fit(t(P), t(Q), torch.from_numpy(np.asarray(idx)),
-                          eps)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
-                                   atol=1e-5)
+    for got in (tum._ransac_fit(t(P), t(Q), mine, eps),
+                tum.umeyama_ransac(t(P), t(Q), epsilon=eps, n_iters=n_iters,
+                                   sample_size=s, seed=seed)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-5)
 
 
 def test_umeyama_ransac_rejects_outliers_as_jax():
-    """The public function on its own draws: where every clean hypothesis
-    finds the same inlier set the answer does not depend on the draw, so
-    it meets JAX's and the truth (JAX's test's tolerances)."""
+    """The public function at its defaults (JAX's draws from seed 0)
+    meets JAX's fit and the truth (JAX's test's tolerances)."""
     P, Q, R_true, c_true, t_true = outlier_data()
     c, R, tt = tum.umeyama_ransac(t(P), t(Q), epsilon=0.2, n_iters=80)
     np.testing.assert_allclose(float(c), c_true, rtol=1e-2)

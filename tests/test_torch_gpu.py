@@ -13,7 +13,8 @@ and an Orbax prior feeding a solve through kernels 1 and 2; the parallel
 paths on the card: the collectives over two gloo ranks sharing cuda:0
 and chip_smoke's phase 3n (one NCCL rank, two gloo ranks) at a small
 size; the GMM prior, the camera and reprojection energies and the
-bone-length ConvVAE, card against CPU (chip_smoke's phase 3p (b)-(d)).
+bone-length ConvVAE, card against CPU (chip_smoke's phase 3p (b)-(d));
+the draw kernel against its plain version (chip_smoke's phase 3q).
 
 These need a CUDA card and skip without one.  The machine with the card
 has no JAX, so run them there without the suite's conftest (which imports
@@ -118,7 +119,8 @@ def test_launch_counter_and_backward(gen):
                            "fused_stage_energy_noreproj": 0,
                            "heatmap_sample": 0, "heatmap_sample_bwd": 0,
                            "lbfgs_direction": 0,
-                           "fused_decode_stage_energy": 0}
+                           "fused_decode_stage_energy": 0,
+                           "threefry_draw": 0}
     ct = torch.randn(e.shape, generator=gen, device="cuda")
     (g_pose,) = torch.autograd.grad(e, pose, grad_outputs=ct)
     _, g = fe.stage_energy_and_grad(*args)
@@ -529,7 +531,7 @@ def test_prefetcher_hands_batches_over_by_event(gen):
         x.numel() * x.element_size() for x in direct)
 
 
-def _tiny_trainer(device, windows, noise):
+def _tiny_trainer(device, windows):
     from globalegomocap_tpu_torch.config import TrainConfig
     from globalegomocap_tpu_torch.data.amass import AmassWindows
     from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
@@ -539,15 +541,15 @@ def _tiny_trainer(device, windows, noise):
     model = ConvVAE(latent_dim=32, seq_len=10, hidden_dims=(16, 16, 32, 32,
                                                             64))
     ds = AmassWindows(windows)
-    return Trainer(cfg, ds, ds, model, device=device,
-                   noise_fn=lambda step, shape, dtype: noise[step].to(
-                       device, dtype))
+    return Trainer(cfg, ds, ds, model, device=device)
 
 
 def test_train_step_on_the_card_matches_the_cpu(gen):
     """One train step of the tiny prior on the card against the same step
-    on the CPU, from the same state (the Flax-like init from the same
-    seed) and noise: the loss (1e-5 relative), the running statistics
+    on the CPU, from the same state (Flax's init from the same seed, drawn
+    on each device: the card's within 1e-6 of each leaf's largest
+    magnitude of the CPU's) and noise (JAX's stream, drawn on each
+    device): the loss (1e-5 relative), the running statistics
     (1e-5 absolute and relative: the card's and the CPU's float32
     reductions of the batch statistics differ in order), the parameters
     within 2.5 lr (Adam's normalised first update
@@ -557,8 +559,11 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
     from globalegomocap_tpu_torch.data.amass import window_sequences
     windows = window_sequences(synthetic_amass(3, 80, seed=1),
                                local_pose=True)
-    noise = torch.randn(1, 32, 32, generator=torch.Generator().manual_seed(1))
-    cpu, card = (_tiny_trainer(d, windows, noise) for d in ("cpu", "cuda"))
+    cpu, card = (_tiny_trainer(d, windows) for d in ("cpu", "cuda"))
+    for k, v in cpu.model.state_dict().items():
+        gap = float((card.model.state_dict()[k].cpu().float()
+                     - v.float()).abs().max())
+        assert gap <= 1e-6 * (float(v.float().abs().max()) or 1.0), k
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     batch = torch.from_numpy(windows[:32])
@@ -641,16 +646,13 @@ def test_joint_train_step_on_the_card_matches_the_cpu(gen):
              for s in synthetic_amass(2, 70, seed=3)]
     poses = np.concatenate([p[1] for p in parts]).reshape(-1, 10, 45)
     cams = np.concatenate([p[2] for p in parts])
-    noise = torch.randn(2, 32, 32, generator=torch.Generator().manual_seed(1))
     cfg = TrainConfig(latent_dim=32, batch_size=32, learning_rate=2e-3,
                       kl_weight=0.05)
 
     def trainer(device):
         model = JointLocalGlobalVAE(latent_dim=32, seq_len=10,
                                     hidden_dims=(8, 8, 16, 16, 32))
-        return JointTrainer(cfg, poses, cams, model, device=device,
-                            noise_fn=lambda step, shape, dtype: tuple(
-                                n.to(device, dtype) for n in noise))
+        return JointTrainer(cfg, poses, cams, model, device=device)
     cpu, card = trainer("cpu"), trainer("cuda")
     p, c = torch.from_numpy(poses[:32]), torch.from_numpy(cams[:32])
     m_cpu = cpu.train_step(p, c)
@@ -710,9 +712,9 @@ def test_heatmap_argmax_and_camera2world_on_the_card_match_the_cpu(gen):
 
 
 def test_ransac_and_recover_pose_on_the_card_match_the_cpu(gen):
-    """cuSOLVER's SVDs against the CPU's LAPACK: the RANSAC fit on the
-    same hypotheses, the public RANSAC on each device's own draws (one
-    inlier set, so the same answer), and the two-view pose."""
+    """cuSOLVER's SVDs against the CPU's LAPACK: RANSAC's hypotheses
+    (JAX's index sets) drawn on the card equal to the CPU's, the fit on
+    them and the public RANSAC on each device, and the two-view pose."""
     from scipy.spatial.transform import Rotation
     from globalegomocap_tpu_torch.ops import epipolar
     from globalegomocap_tpu_torch.ops import umeyama as um
@@ -722,8 +724,8 @@ def test_ransac_and_recover_pose_on_the_card_match_the_cpu(gen):
     bad = rng.choice(60, size=12, replace=False)
     Q[bad] += rng.normal(scale=5.0, size=(12, 3))
     P, Q = (torch.from_numpy(a.astype(np.float32)) for a in (P, Q))
-    idx = torch.argsort(torch.rand(80, 60, generator=torch.Generator()
-                                   .manual_seed(0)), dim=-1)[:, :4]
+    idx = um.ransac_hypotheses(60, 80, 4, 0)
+    assert torch.equal(um.ransac_hypotheses(60, 80, 4, 0, "cuda").cpu(), idx)
     for want, got in ((um._ransac_fit(P, Q, idx, 0.2),
                        um._ransac_fit(P.cuda(), Q.cuda(), idx.cuda(), 0.2)),
                       (um.umeyama_ransac(P, Q),
@@ -914,3 +916,25 @@ def test_bone_length_vae_on_the_card_matches_the_cpu(gen):
     chip_smoke.bone_vae_check(torch, 0, "cuda", fails, "test", latent=32,
                               n=64, batch=32)
     assert fails.items == []
+
+
+@pytest.mark.parametrize("shape", [(3, 7), (64, 2048), (192, 2048)])
+def test_threefry_draw_matches_plain_version(gen, shape):
+    """The draw kernel against its plain version on the card
+    (chip_smoke.draw_agreement: words equal, floats equal or within one
+    listed ulp, a draw from an offset the rows of the whole), its launch
+    counter, and its argument checks."""
+    from globalegomocap_tpu_torch.ops import random as R
+    fails = chip_smoke.Failures()
+    chip_smoke.draw_agreement(torch, fails, shapes=(shape,))
+    assert not fails.items, fails.items
+    cb.reset_launches()
+    z = R.normal(R.prng_key(1), shape, device="cuda")
+    assert cb.LAUNCHES["threefry_draw"] == 1
+    torch.testing.assert_close(z.cpu(), R.normal(R.prng_key(1), shape),
+                               rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        R.normal(R.prng_key(1), shape, torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="bit_width"):
+        R.random_bits(R.prng_key(1), 12, shape, device="cuda")
+    assert cb.LAUNCHES["threefry_draw"] == 1

@@ -1,6 +1,6 @@
 """The port's prior introspection against the JAX package on the CPU:
-`tools/prior_tools.py` (sampling on latents the test hands both
-packages, interpolation, latent statistics) on the tiny prior of
+`tools/prior_tools.py` (sampling from a seed, and on latents the test
+hands both packages, interpolation, latent statistics) on the tiny prior of
 tests/test_golden.py with BatchNorm statistics of its own, and
 `cli/introspect.py`'s three subcommands against JAX's CLI on one
 msgpack prior (the CLIs build the reference's hidden widths, 64-512;
@@ -48,12 +48,14 @@ def windows(n, seed):
 
 
 def test_sample_motions_on_jax_latents(tiny):
-    """JAX's sample_motions against the port's decoder on JAX's own
-    N(0, I) draw (threefry, `PRNGKey(seed)`); the port's sample_motions
-    draws from its own seeded generator."""
+    """JAX's sample_motions against the port's from the same seed: the
+    port draws JAX's own N(0, I) latents (threefry, `PRNGKey(seed)`);
+    the decoder alone on JAX's latents, handed in, as well."""
     model, v, port = tiny
     for n, seed in ((4, 0), (7, 3)):
         want = jpt.sample_motions(model, v, n, seed)
+        np.testing.assert_allclose(tpt.sample_motions(port, n, seed), want,
+                                   **TOL)
         z = jax.random.normal(jax.random.PRNGKey(seed),
                               (n, model.latent_dim))
         with torch.no_grad():
@@ -135,17 +137,21 @@ def run_both(capsys, argv_jax, argv_port):
 
 
 def test_cli_sample(cli_inputs, capsys):
-    """The printed line and the PLY tree (10 windows of 10 frames); the
-    motions differ, the draws being each package's own."""
+    """The printed line and the PLY tree (10 windows of 10 frames) at
+    --seed 4: the same motions, the port drawing JAX's latents of the
+    same seed."""
     root, common, _ = cli_inputs
+    seed = ["--seed", "4"]
     jl, tl, got = run_both(
-        capsys, ["sample"] + common + ["--out", str(root / "sj")],
-        ["sample"] + common + ["--out", str(root / "st")])
+        capsys, ["sample"] + common + seed + ["--out", str(root / "sj")],
+        ["sample"] + common + seed + ["--out", str(root / "st")])
     assert jl == [f"wrote 10 sampled motions to {root / 'sj'}"]
     assert tl == [f"wrote 10 sampled motions to {root / 'st'}"]
     jt, tt = ply_tree(root / "sj"), ply_tree(root / "st")
     assert sorted(jt) == sorted(tt) and len(tt) == 100
-    assert all(jt[k][0] == tt[k][0] for k in jt)
+    for k in jt:
+        assert jt[k][0] == tt[k][0]
+        np.testing.assert_allclose(tt[k][1], jt[k][1], **TOL, err_msg=k)
     assert got.shape == (10, 10, 15, 3)
 
 

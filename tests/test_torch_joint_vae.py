@@ -4,10 +4,11 @@ against the JAX package's, on the tiny prior (latent 32, hidden (8, 8,
 16, 16, 32)) and the windows of JAX's tests/test_joint_vae.py
 (`synthetic_amass(2, 70, seed=3)`, local windows with their cameras).
 
-Weights cross from JAX's variables through `joint_params_from_flax`, and
-the port's `noise_fn` hands out JAX's own noise (the two halves of
+The port's trainer runs at its defaults: Flax's initial weights from
+cfg.seed (held against the JAX trainer's within 1e-6 of each leaf's
+largest magnitude) and JAX's own noise (the two halves of
 `split(fold_in(PRNGKey(seed + 1), step))`), so the port follows the JAX
-trainer.  Tolerances, from tests/test_torch_train.py: an eval-mode
+trainer from the same seed.  Tolerances, from tests/test_torch_train.py: an eval-mode
 forward 1e-5 relative (1e-6 absolute), its losses 1e-5; one train
 step's losses 1e-5, every gradient 1e-4 against JAX's float32 and
 float64 gradients of joint_loss (torch_port_helpers.py::hold), Adam's
@@ -30,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_helpers import hold, port_chunk, slice_config, tcfg
+from tests.torch_port_helpers import (
+    hold, hold_init, port_chunk, slice_config, tcfg)
 from globalegomocap_tpu.config import TrainConfig as JCfg
 from globalegomocap_tpu.data.hdf5 import sequence_windows_with_cameras
 from globalegomocap_tpu.data.synthetic import synthetic_amass, synthetic_chunk
@@ -41,6 +43,7 @@ from globalegomocap_tpu_torch.config import TrainConfig as TCfg
 from globalegomocap_tpu_torch.models import joint_vae as tjoint
 from globalegomocap_tpu_torch.models.convert import (
     joint_params_from_flax, joint_params_to_flax, params_from_flax)
+from globalegomocap_tpu_torch.ops import random as R
 from globalegomocap_tpu_torch.optimize import driver as tdriver
 from globalegomocap_tpu_torch.parallel.mesh import Mesh
 from globalegomocap_tpu_torch.train import train_joint as ttrain
@@ -66,7 +69,7 @@ def windows():
 
 
 def jax_noise(seed: int):
-    """The JAX joint step's noise of step `step`, as the port's noise_fn:
+    """The JAX joint step's noise of step `step`, fn(step, shape, dtype):
     split(fold_in(PRNGKey(seed), step)) gives the local and the global
     branch's key."""
     key = jax.random.PRNGKey(seed)
@@ -151,18 +154,15 @@ def test_eval_forward_and_joint_loss_match_jax(joint_weights, windows):
 
 
 def _trainers(windows, **kw):
-    """JAX's JointTrainer and the port's from its initial weights, fed
-    JAX's noise."""
+    """JAX's JointTrainer and the port's at its defaults from the same
+    seed, their initial weights held leaf for leaf (`hold_init`)."""
     poses, cams = windows
     jm, tm = _models()
     jt = jtrain.JointTrainer(JCfg(**dict(BASE, **kw)), poses, cams, jm)
-    cfg = TCfg(**dict(BASE, **kw))
-    tt = ttrain.JointTrainer(
-        cfg, poses, cams, tm, device="cpu",
-        variables=joint_params_from_flax(_np(
-            {"params": jt.state.params,
-             "batch_stats": jt.state.batch_stats})),
-        noise_fn=jax_noise(cfg.seed + 1))
+    tt = ttrain.JointTrainer(TCfg(**dict(BASE, **kw)), poses, cams, tm,
+                             device="cpu")
+    hold_init(tt.model.state_dict(), joint_params_from_flax(_np(
+        {"params": jt.state.params, "batch_stats": jt.state.batch_stats})))
     return jt, tt
 
 
@@ -309,14 +309,25 @@ def test_branch_variables_drive_the_optimizer(windows):
 
 
 def test_default_noise_is_a_function_of_the_step():
-    """The default noise: two standard normal draws a step, the same for
-    the same (seed, step), different across steps and branches."""
-    fn = ttrain.default_joint_noise_fn(7, torch.device("cpu"))
-    a, b = fn(3, (4, 32), torch.float32)
-    a2, _ = fn(3, (4, 32), torch.float32)
-    c, _ = ttrain.default_joint_noise_fn(7, torch.device("cpu"))(
-        4, (4, 32), torch.float32)
-    torch.testing.assert_close(a, a2, rtol=0, atol=0)
+    """The trainer's noise of a step is JAX's joint step's: the two halves
+    of split(fold_in(PRNGKey(seed), step)), float32 within 1e-6 (the
+    normal's erf_inv, as tests/test_torch_random.py holds it); rows r..
+    of a draw are the rows of the whole (one rank's share); steps and
+    branches differ."""
+    key = R.prng_key(7)
+    for step in (0, 3, 4):
+        got = ttrain.joint_step_noise(key, step, (4, 32), torch.float32,
+                                      "cpu")
+        want = jax_noise(7)(step, (4, 32), torch.float32)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-6)
+        rows = ttrain.joint_step_noise(key, step, (2, 32), torch.float32,
+                                       "cpu", row=2)
+        for g, r in zip(got, rows):
+            torch.testing.assert_close(r, g[2:], rtol=0, atol=0)
+    a, b = ttrain.joint_step_noise(key, 3, (4, 32), torch.float32, "cpu")
+    c, _ = ttrain.joint_step_noise(key, 4, (4, 32), torch.float32, "cpu")
     assert not torch.equal(a, b) and not torch.equal(a, c)
 
 

@@ -1,13 +1,17 @@
-"""The port's threefry stream (`ops/random.py`) against `jax.random` on
-the CPU: the keys, the hash, the bits, the uniforms and the normals at
-the shapes the sample init draws, up to serve's (192, 2048).
+"""The port's threefry streams (`ops/random.py`) against `jax.random`
+and Flax on the CPU: the keys (`PRNGKey`, `split`, `fold_in`, Flax's
+static fold), the hash, the bits, the uniforms, the normals and the
+truncated normals at the shapes the port draws, up to serve's (192,
+2048), and `permutation` / `choice` without replacement.
 
-Tolerances: keys, bits and uniforms exact; bfloat16 normals exact;
-float32 normals within 1e-6 absolute (measured 4.77e-7 at (192, 2048),
-3,632 of 393,216 values off by one or two float32 steps: XLA's log1p
-and its fused Horner steps round differently from torch's in the
-tails).  `torch.erfinv` would stray by 2.2e-5 there, which the last
-test shows."""
+Tolerances: keys, bits, uniforms, permutations and index sets exact;
+bfloat16 normals and truncated normals exact; float32 normals within
+1e-6 absolute (measured 4.77e-7 at (192, 2048), 3,632 of 393,216 values
+off by one or two float32 steps: XLA's log1p and its fused Horner steps
+round differently from torch's in the tails), float32 truncated normals
+within 4.8e-7 (measured 2.4e-7 at (-2, 2), 4.8e-7 at (-1, 3)).
+`torch.erfinv` would stray by 2.2e-5 there, which the last test
+shows."""
 
 import math
 
@@ -16,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.core.scope import _fold_in_static
 
 from globalegomocap_tpu_torch.ops import random as R
 
@@ -129,3 +134,96 @@ def test_erf_inv_is_closer_to_jax_than_torch_erfinv():
         torch.finfo(torch.float32).max, -torch.finfo(torch.float32).max]
     assert math.isclose(float(R.erf_inv(torch.tensor(0.5))),
                         0.4769362762044699, rel_tol=1e-6)
+
+
+def _words(key) -> tuple:
+    return tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_and_fold_in_match_jax(seed):
+    """split into 1, 2 and 5 keys and fold_in of steps, large words and
+    2**32 - 1: JAX's keys exactly; a fold of a split key too."""
+    key = jax.random.PRNGKey(seed)
+    for num in (1, 2, 5):
+        want = [tuple(int(w) for w in k) for k in
+                np.asarray(jax.random.key_data(jax.random.split(key, num)))]
+        assert R.split(R.prng_key(seed), num) == want
+    for data in (0, 1, 3, 2**31 + 7, 2**32 - 1):
+        assert R.fold_in(R.prng_key(seed), data) == _words(
+            jax.random.fold_in(key, np.uint32(data)))
+    sub = jax.random.split(jax.random.fold_in(key, 4))[1]
+    assert R.fold_in(R.split(R.fold_in(R.prng_key(seed), 4))[1], 9) == \
+        _words(jax.random.fold_in(sub, 9))
+
+
+@pytest.mark.parametrize("data", [
+    ("enc_0", "conv", 1), ("fc_mu", 2), ("local", "dec_1", "bn", 1),
+    ("global", "final_conv", 1), ("a", 300), (0,), ("params",)])
+def test_fold_in_static_matches_flax(data):
+    """Flax's `_fold_in_static` (SHA-1 of the path and the counter, no
+    separator): the same key, for strings, ints of one and two bytes and
+    0 (no bytes)."""
+    for seed in (0, 7):
+        assert R.fold_in_static(R.prng_key(seed), *data) == _words(
+            _fold_in_static(jax.random.PRNGKey(seed), data))
+    assert R.fold_in_static(R.prng_key(3)) == R.prng_key(3)
+
+
+@pytest.mark.parametrize("n", [1, 4, 60, 1625, 1700, 100000])
+def test_permutation_and_choice_match_jax(n):
+    """permutation(key, n) exactly, with one sort round up to n = 1625 and
+    two from 1626 on; choice without replacement its first entries, and
+    vmapped over split keys as `umeyama_ransac` draws it."""
+    for seed in (0, -3):
+        key = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            R.permutation(R.prng_key(seed), n).numpy(),
+            np.asarray(jax.random.permutation(key, n)))
+        k = min(n, 4)
+        np.testing.assert_array_equal(
+            R.choice(R.prng_key(seed), n, k).numpy(),
+            np.asarray(jax.random.choice(key, n, (k,), replace=False)))
+    if n == 60:
+        keys = jax.random.split(jax.random.PRNGKey(2), 80)
+        want = jax.vmap(lambda kk: jax.random.choice(
+            kk, 60, (4,), replace=False))(keys)
+        got = torch.stack([R.choice(kk, 60, 4)
+                           for kk in R.split(R.prng_key(2), 80)])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="larger sample"):
+        R.choice(R.prng_key(0), 3, 4)
+
+
+@pytest.mark.parametrize("lower,upper", [(-2.0, 2.0), (-1.0, 3.0)])
+@pytest.mark.parametrize("seed", [0, 7, -3])
+def test_truncated_normal_matches_jax(seed, lower, upper):
+    """truncated_normal at (192, 2048): float32 within 4.8e-7, bfloat16
+    exactly, inside the open interval; a draw from `start` the rows of
+    the whole."""
+    key = jax.random.PRNGKey(seed)
+    want = _np(jax.random.truncated_normal(key, lower, upper, (192, 2048),
+                                           jnp.float32))
+    got = R.truncated_normal(R.prng_key(seed), lower, upper, (192, 2048))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=4.8e-7)
+    assert float(got.min()) > lower and float(got.max()) < upper
+    want = _np(jax.random.truncated_normal(key, lower, upper, (192, 2048),
+                                           jnp.bfloat16))
+    got = R.truncated_normal(R.prng_key(seed), lower, upper, (192, 2048),
+                             torch.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    part = R.truncated_normal(R.prng_key(seed), lower, upper, (2, 2048),
+                              start=5 * 2048)
+    torch.testing.assert_close(part, R.truncated_normal(
+        R.prng_key(seed), lower, upper, (7, 2048))[5:], rtol=0, atol=0)
+
+
+def test_large_draws_run_in_blocks():
+    """A draw of more than one plain-version block equals the draw of
+    its pieces, each from its own start."""
+    n = 3 * R._BLOCK + 11
+    whole = R.normal(R.prng_key(5), (n,))
+    assert torch.equal(whole[R._BLOCK - 3:R._BLOCK + 5],
+                       R.normal(R.prng_key(5), (8,), start=R._BLOCK - 3))
+    assert torch.equal(R.random_bits(R.prng_key(5), 8, (n,))[-4:],
+                       R.random_bits(R.prng_key(5), 8, (4,), start=n - 4))

@@ -30,6 +30,7 @@ from globalegomocap_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_amass)
 from globalegomocap_tpu_torch.models import (  # noqa: E402
     conv_vae, joint_vae)
+from globalegomocap_tpu_torch.train import train_joint  # noqa: E402
 from globalegomocap_tpu_torch.train.train_joint import (  # noqa: E402
     JointTrainer)
 
@@ -63,23 +64,26 @@ def step(device: str, f64: bool = False):
              for s in synthetic_amass(2, 70, seed=3)]
     poses = np.concatenate([p[1] for p in parts]).reshape(-1, 10, 45)
     cams = np.concatenate([p[2] for p in parts])
-    noise = torch.randn(2, 32, 32,
-                        generator=torch.Generator().manual_seed(1))
     cfg = TrainConfig(latent_dim=32, batch_size=32, learning_rate=2e-3,
                       kl_weight=0.05)
     model = joint_vae.JointLocalGlobalVAE(latent_dim=32, seq_len=10,
                                           hidden_dims=(8, 8, 16, 16, 32))
     dt = torch.float64 if f64 else torch.float32
-    t = JointTrainer(cfg, poses, cams, model, device=device,
-                     noise_fn=lambda s, shape, d: tuple(
-                         n.to(device, dt) for n in noise))
+    t = JointTrainer(cfg, poses, cams, model, device=device)
     p, c = (torch.from_numpy(x[:32]).to(device, dt) for x in (poses, cams))
+    draw = train_joint.joint_step_noise
     if f64:
         t.model.double()
         for m in (t.model, t.model.local_vae, t.model.global_vae):
             m.dtype = torch.float64
+        # the float32 draws, read as float64
+        train_joint.joint_step_noise = lambda *a, **k: tuple(
+            n.double() for n in draw(*a[:3], torch.float32, *a[4:], **k))
     PRE.clear()
-    t.train_step(p, c)
+    try:
+        t.train_step(p, c)
+    finally:
+        train_joint.joint_step_noise = draw
     grads = {k: v.grad.detach().double().cpu()
              for k, v in t.model.named_parameters()}
     return grads, list(PRE)

@@ -34,18 +34,6 @@ def fields(res) -> dict:
     return {k: getattr(res, k).float().cpu().numpy() for k in res._fields}
 
 
-def table_noise(noise: dict):
-    """A noise_fn that hands out the given arrays by step (the test's
-    JAX draws), whatever the shape asked for matches."""
-    def fn(step, shape, dtype):
-        z = noise[step]
-        if isinstance(z, tuple):
-            return tuple(torch.from_numpy(x).to(dtype) for x in z)
-        assert z.shape == tuple(shape), (z.shape, shape)
-        return torch.from_numpy(z).to(dtype)
-    return fn
-
-
 # ---------------------------------------------------------------------------
 # the collectives
 # ---------------------------------------------------------------------------
@@ -155,10 +143,10 @@ def _moments(opt, model) -> dict:
             for name, p in model.named_parameters()}
 
 
-def dp_train(mesh, cfg: TrainConfig, hidden, variables, windows, batch,
-             noise, test_len: int) -> dict:
-    """`Trainer(num_devices=mesh.size)` from `variables` with the noise of
-    `noise` ({step: array}): one step on `batch` (the gradients, the
+def dp_train(mesh, cfg: TrainConfig, hidden, windows, batch,
+             test_len: int) -> dict:
+    """`Trainer(num_devices=mesh.size)` at its own initialisation and noise
+    (both from cfg.seed): one step on `batch` (the gradients, the
     metrics, the state and Adam's moments after it); then a fresh trainer
     through `cfg.epochs` epochs on `windows` (history, steps, state), and
     the eval on the first `test_len` windows before and after it (an odd
@@ -168,8 +156,7 @@ def dp_train(mesh, cfg: TrainConfig, hidden, variables, windows, batch,
                         hidden_dims=hidden)
         return Trainer(cfg, AmassWindows(windows),
                        AmassWindows(windows[:test_len]), model,
-                       device="cpu", variables=variables,
-                       noise_fn=table_noise(noise))
+                       device="cpu")
 
     tt = trainer()
     assert tt.mesh.size == mesh.size == max(1, cfg.num_devices)

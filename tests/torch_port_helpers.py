@@ -97,5 +97,17 @@ def hold(got, w32, w64, rtol, atol, name=""):
                                err_msg=name)
 
 
+def hold_init(got: dict, want: dict) -> None:
+    """Two state dicts equal leaf for leaf within 1e-6 of each leaf's
+    largest magnitude (Flax's init against the port's: the truncated
+    normal's erf_inv rounds an ulp apart from XLA's in a few draws)."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = w.to(torch.float32)
+        scale = float(w.abs().max()) or 1.0
+        gap = float((got[k].to(torch.float32) - w).abs().max())
+        assert gap <= 1e-6 * scale, (k, gap, scale)
+
+
 __all__ = ["jcfg", "tcfg", "slice_config", "jax_variables", "port_state",
-           "port_chunk", "chunks", "TINY_PRIOR", "hold"]
+           "port_chunk", "chunks", "TINY_PRIOR", "hold", "hold_init"]
