@@ -156,8 +156,14 @@ Phases (any failure exits non-zero and prints no result line):
               of 'smooth' alone solves the jerky request to other poses;
               windows/s with the bank and without it, in turns; the same
               through device staging (the statistic measured on the card,
-              within 1e-4 of the host's); the train CLI at --hdf5_stream
-              where h5py is installed, else one line saying it is not.
+              within 1e-4 of the host's).  Then 3j's corpus through the
+              port's own HDF5 code (data/h5file.py, no h5py): packed (ms),
+              read back whole and streamed bit for bit against the
+              windows, the train CLI at --hdf5_stream true for 2 epochs
+              (falling evals), a float32 train step fed by the stream
+              against in memory in turns, and on the windows tiled to
+              100,000 a 4096-row slab read against np.fromfile in turns
+              (ms, MB/s, page cache warm).
 3l. preprocessing ETL and prior introspection - raw inputs written
               from --seed (1,100 frames of 64x64x15 heatmap and depth .mat
               pairs, an OpenVSLAM trajectory of 1,200 frames whose
@@ -249,7 +255,9 @@ Phases (any failure exits non-zero and prints no result line):
               full and diag) on 192 windows against float64 numpy (1e-4
               relative) and as gmm_score_fn in total_energy_from_pose
               against the CPU (relative L2 1e-4), ms a call, and
-              load_sklearn_pickle where sklearn imports; (c) the 2D
+              load_sklearn_pickle of sklearn's pickles (K=4, D=45, full
+              and diag; tests/torch_fixtures/gmm_sklearn, read without
+              sklearn) scored against float64 numpy (1e-4); (c) the 2D
               reprojection and camera energies on 192 windows, values and
               gradients against the CPU (1e-5); (d) ConvVAE(with_bone_length
               =True): eval encode against the CPU (1e-4), one train-mode
@@ -3432,12 +3440,10 @@ def joint_bank_phase(torch, seed, dev, fails, card, work,
     jerky request get their own pair, kernels 1 and 2 launched (returned),
     a bank of 'smooth' alone solves the jerky request otherwise, windows/s
     with and without the bank in turns, device staging's statistic
-    against host staging's; the HDF5 step where h5py is installed.
+    against host staging's; then `hdf5_step` on phase 3j's corpus.
     Needs phase 3j's checkpoints under work[0]; `corpus`, `latent`,
     `batch` and `shape` are cut only in a rehearsal on the CPU.  With
     `profile`, 20 joint steps under torch.profiler as well."""
-    import importlib.util
-
     import numpy as np
     from globalegomocap_tpu_torch.cli import serve
     from globalegomocap_tpu_torch.cli.optimize_sequence import load_variables
@@ -3622,29 +3628,174 @@ def joint_bank_phase(torch, seed, dev, fails, card, work,
                 + ", ".join(f"{s:.6e}" for s in dstats)
                 + f" against host staging's within {rel:.2e} (1e-4)")
 
-    # 3. HDF5, where h5py is installed (decided before the phase runs)
-    if importlib.util.find_spec("h5py") is None:
-        print("  HDF5: h5py is not installed on this machine; --hdf5 and "
-              "--hdf5_stream were checked on the CPU only "
-              "(tests/test_torch_hdf5.py)", flush=True)
-    else:
-        from globalegomocap_tpu_torch.cli import train as train_cli_mod
-        from globalegomocap_tpu_torch.data.hdf5 import pack_amass_dir
-        base = os.path.join(work[0], "train")
-        h5 = os.path.join(base, "corpus.h5")
-        t0 = time.perf_counter()
-        pack_amass_dir(os.path.join(base, "amass"), h5)
-        tr, out, wall = train_cli(train_cli_mod.main, [
-            "--train_data_path", h5, "--hdf5_stream", "true",
-            "--local_pose", "true", "--device", dev, "--latent_dim",
-            str(latent), "--batch_size", str(batch), "--epoch", "2",
-            "--log_dir", "hdf5"], base)
-        ev = [h["eval_mpjpe"] for h in tr.history if "eval_mpjpe" in h]
-        fails.check(len(ev) == 2 and all(np.isfinite(ev)) and ev[1] < ev[0],
-                    f"--hdf5_stream true: packed and trained 2 epochs in "
-                    f"{time.perf_counter() - t0:.1f} s, evals {ev} falling "
-                    f"({out.splitlines()[0]})")
+    # 3. HDF5 through the port's own reader and writer
+    hdf5_step(torch, seed, dev, fails, card, work, latent=latent,
+              batch=batch)
     return launches
+
+
+# the slab read's corpus: phase 3j's windows tiled to AMASS's ~10^5
+# (about 424 MB over the three datasets)
+HDF5_WINDOWS_3K = 100_000
+HDF5_SLAB = 4096                 # HDF5WindowStream's default slab
+HDF5_ROUNDS_3K = 4
+
+
+def hdf5_step(torch, seed, dev, fails, card, work, latent=LATENT,
+              batch=TRAIN_BATCH, tiled=HDF5_WINDOWS_3K,
+              rounds=HDF5_ROUNDS_3K):
+    """Phase 3k (3): phase 3j's corpus through the port's own HDF5 code
+    (`data/h5file.py`; no h5py): `pack_amass_dir` (ms), the file read
+    back whole (`load_hdf5_windows`, both poses) and streamed in order
+    (`HDF5WindowStream`), bit for bit against the windows
+    `sequence_windows_with_cameras` gives; the train CLI at --hdf5_stream
+    true for 2 epochs with falling evals; ms a float32 train step fed by
+    the stream against the in-memory AmassWindows, in turns; then the
+    windows tiled to `tiled` rows, packed, and a slab of one pose dataset
+    read through the stream against `np.fromfile` of as many bytes, in
+    turns, the page cache warm for both.  `latent`, `batch` and `tiled`
+    are cut only in a rehearsal on the CPU."""
+    import pickle
+
+    import numpy as np
+    from globalegomocap_tpu_torch.cli import train as train_cli_mod
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data import h5file
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.data.hdf5 import (
+        HDF5Store, HDF5WindowStream, load_hdf5_windows, pack_amass_dir,
+        sequence_windows_with_cameras)
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    base = os.path.join(work[0], "train")
+    data = os.path.join(base, "amass")
+    h5 = os.path.join(base, "corpus.h5")
+    names = ("relative_global_pose", "local_pose", "camera_matrix")
+
+    # (a) pack, then read back through both readers
+    t0 = time.perf_counter()
+    pack_amass_dir(data, h5)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    parts = []
+    for name in sorted(os.listdir(data)):
+        with open(os.path.join(data, name), "rb") as f:
+            parts.append(sequence_windows_with_cameras(pickle.load(f), 10,
+                                                       25, True))
+    want = {k: np.concatenate([p[i] for p in parts])
+            for i, k in enumerate(names)}
+    n = len(want["local_pose"])
+    whole = {local: load_hdf5_windows(h5, local_pose=local).windows
+             for local in (False, True)}
+    stream = HDF5WindowStream(h5, local_pose=True)
+    streamed = np.concatenate(list(stream.epoch_batches(
+        np.random.default_rng(0), batch, drop_last=False, shuffle=False)))
+    stream.close()
+    with h5file.open(h5) as f:
+        stored = all(np.array_equal(f[k].read(), want[k]) for k in names)
+    fails.check(
+        stored and np.array_equal(whole[True], want["local_pose"].reshape(
+            n, 10, 45))
+        and np.array_equal(whole[False], want["relative_global_pose"]
+                           .reshape(n, 10, 45))
+        and np.array_equal(streamed, whole[True]),
+        f"HDF5 (the port's own writer and reader): {n} windows of 3j's "
+        f"corpus packed in {pack_ms:.1f} ms "
+        f"({os.path.getsize(h5) / 2 ** 20:.1f} MiB); the three datasets, "
+        f"load_hdf5_windows (both poses) and HDF5WindowStream in order "
+        f"equal the windows bit for bit [{card}]")
+
+    # (b) the train CLI, 2 epochs streamed from the file
+    t0 = time.perf_counter()
+    tr, out, _ = train_cli(train_cli_mod.main, [
+        "--train_data_path", h5, "--hdf5_stream", "true",
+        "--local_pose", "true", "--device", dev, "--latent_dim",
+        str(latent), "--batch_size", str(batch), "--epoch", "2",
+        "--log_dir", "hdf5"], base)
+    ev = [h["eval_mpjpe"] for h in tr.history if "eval_mpjpe" in h]
+    fails.check(len(ev) == 2 and all(np.isfinite(ev)) and ev[1] < ev[0],
+                f"--hdf5_stream true: trained 2 epochs in "
+                f"{time.perf_counter() - t0:.1f} s, evals {ev} falling "
+                f"({out.splitlines()[0]})")
+
+    # (c) a float32 train step fed by the stream and from memory, in turns
+    n_train = n - max(1, n // 20)
+    feeds = {"stream": HDF5WindowStream(h5, local_pose=True, stop=n_train),
+             "memory": AmassWindows(whole[True][:n_train])}
+    test_ds = AmassWindows(whole[True][:batch])
+    cfg = TrainConfig(latent_dim=latent, batch_size=batch, local_pose=True,
+                      seed=seed)
+    trainers = {k: Trainer(cfg, ds, test_ds, device=dev)
+                for k, ds in feeds.items()}
+    for t in trainers.values():
+        epoch_steps(torch, t, 0, sync, max_steps=10)          # warm
+    step_ms = {k: [] for k in trainers}
+    for r, k in enumerate(["stream", "memory", "memory", "stream"]):
+        steps, secs, running = epoch_steps(torch, trainers[k], r + 1, sync)
+        step_ms[k].append(secs * 1e3 / steps)
+        fails.check(bool(torch.isfinite(running["loss"])),
+                    f"train epoch fed by {k} finite")
+    feeds["stream"].close()
+    ratio = np.median(step_ms["stream"]) / np.median(step_ms["memory"])
+    print(f"  float32 train step ({n_train // batch} steps an epoch), in "
+          f"turns: --hdf5_stream "
+          + " / ".join(f"{m:.3f}" for m in step_ms["stream"])
+          + " ms, in memory "
+          + " / ".join(f"{m:.3f}" for m in step_ms["memory"])
+          + f" ms; ratio of the medians {ratio:.4f} [{card}]", flush=True)
+
+    # (d) the windows tiled to `tiled` rows; a slab read against fromfile
+    big = os.path.join(base, "tiled.h5")
+    store = HDF5Store(big, {k: v.shape[1:] for k, v in want.items()})
+    t0 = time.perf_counter()
+    for lo in range(0, tiled, n):
+        store.append({k: v[:min(n, tiled - lo)] for k, v in want.items()})
+    tiled_ms = (time.perf_counter() - t0) * 1e3
+    stream = HDF5WindowStream(big, local_pose=True)
+    dset = stream._dset
+    slab = min(HDF5_SLAB, tiled)
+    nbytes = slab * dset._row_bytes
+    offsets = np.random.default_rng(seed).permutation(
+        np.arange(0, tiled - slab + 1, slab))[:rounds]
+    rows = np.arange(slab)
+
+    def first_chunk(off):
+        return dset._index[(off // dset.chunks[0],) + (0,) * 3][0]
+
+    def port(off):
+        return stream._read_slab(int(off))
+
+    def fromfile(off):
+        return np.fromfile(big, np.float32, count=nbytes // 4,
+                           offset=first_chunk(off))
+    ok = True
+    for off in offsets:                     # warm the page cache for both
+        ok = ok and np.array_equal(
+            port(off), want["local_pose"][(off + rows) % n].reshape(
+                slab, 10, 45))
+        fromfile(off)
+    times = {"port": [], "fromfile": []}
+    for off in offsets:
+        for way in ("port", "fromfile", "fromfile", "port"):
+            t0 = time.perf_counter()
+            (port if way == "port" else fromfile)(off)
+            times[way].append((time.perf_counter() - t0) * 1e3)
+    stream.close()
+    size = os.path.getsize(big)
+    os.remove(big)
+    mb = nbytes / 1e6
+    fails.check(ok, f"HDF5: {tiled} windows tiled from 3j's in "
+                f"{tiled_ms:.1f} ms ({size / 1e6:.1f} MB, "
+                f"{dset.chunks[0]}-row chunks of local_pose); its slabs "
+                f"equal the windows bit for bit")
+    print(f"  HDF5 slab read ({slab} rows of local_pose, {mb:.3f} MB, "
+          f"page cache warm), in turns: the stream "
+          + " / ".join(f"{m:.3f}" for m in times["port"])
+          + f" ms (median {median(times['port']):.3f}, "
+          f"{mb / median(times['port']) * 1e3:.1f} MB/s); np.fromfile "
+          + " / ".join(f"{m:.3f}" for m in times["fromfile"])
+          + f" ms (median {median(times['fromfile']):.3f}, "
+          f"{mb / median(times['fromfile']) * 1e3:.1f} MB/s) [{card}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5041,6 +5192,8 @@ def sample_ranks_phase(torch, seed, dev, fails, card, work,
 # ---------------------------------------------------------------------------
 
 ROBUST_3P = (4, FRAMES)        # chunks of a corpus's sequence, frames
+GMM_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_fixtures", "gmm_sklearn")
 WINDOWS_3P = 192               # windows of the GMM, energy and encode checks
 GMM_K_3P = 8
 BONE_BATCH_3P = 64
@@ -5279,7 +5432,7 @@ def pose_windows(seed, n, t=T):
         n, t, J, 3).astype(np.float32)
 
 
-def gmm_check(torch, seed, dev, fails, card, work, n=WINDOWS_3P,
+def gmm_check(torch, seed, dev, fails, card, n=WINDOWS_3P,
               k=GMM_K_3P):
     """3p (b): the GMM prior on `dev` against float64 numpy and the CPU."""
     import numpy as np
@@ -5328,30 +5481,24 @@ def gmm_check(torch, seed, dev, fails, card, work, n=WINDOWS_3P,
             ms = event_ms(torch, lambda: gmm.score_samples(on, xd))
             print(f"  GMM '{kind}' K={k} D={x.shape[1]}: score_samples of "
                   f"{n} windows {ms:.4f} ms a call [{card}]", flush=True)
-    try:
-        from sklearn.mixture import GaussianMixture
-    except ImportError:
-        print("  sklearn is not installed on this machine: "
-              "load_sklearn_pickle not run", flush=True)
-        return
-    import pickle
-    import warnings
-    gm = GaussianMixture(n_components=k, covariance_type="diag",
-                         max_iter=5, reg_covar=0.1, random_state=seed)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        gm.fit(x.astype(np.float64))
-    path = os.path.join(work[0], "gmm.pkl")
-    with open(path, "wb") as f:
-        pickle.dump(gm, f)
-    params = gmm.load_sklearn_pickle(path, device=dev)
-    got = gmm.score_samples(params, torch.as_tensor(x, device=dev))
-    ref = gm.score_samples(x.astype(np.float64))
-    err = float(np.max(np.abs(got.cpu().double().numpy() - ref)
-                       / np.abs(ref)))
-    fails.check(err <= 1e-4, f"load_sklearn_pickle of a fitted "
-                f"GaussianMixture on {dev}: score_samples {err:.3e} "
-                f"relative from sklearn's (1e-4)")
+    # the pickles sklearn 1.9.0 wrote (tests/torch_fixtures/gmm_sklearn),
+    # read without sklearn, scored on `dev` against float64 numpy
+    for kind in ("full", "diag"):
+        path = os.path.join(GMM_FIXTURE, f"{kind}.pkl")
+        with open(path, "rb") as f:
+            p = gmm._MixtureUnpickler(f).load()
+        params = gmm.load_sklearn_pickle(path, device=dev)
+        xs = pose_windows(seed + 43, n, t=1).reshape(n, -1)
+        got = gmm.score_samples(params, torch.as_tensor(xs, device=dev))
+        ref = gmm_score_np(p, xs)
+        err = float(np.max(np.abs(got.cpu().double().numpy() - ref)
+                           / np.abs(ref)))
+        fails.check(params.means.device.type == torch.device(dev).type
+                    and tuple(params.means.shape) == (4, 45)
+                    and err <= 1e-4,
+                    f"load_sklearn_pickle of sklearn's '{kind}' fixture "
+                    f"(K=4, D=45) on {dev}: score_samples of {n} poses "
+                    f"{err:.3e} relative from float64 numpy (1e-4)")
 
 
 def camera_energies(torch, seed, dev, fails, card, n=WINDOWS_3P):
@@ -5580,7 +5727,7 @@ def robust_library_phase(torch, seed, dev, fails, card, work,
     out of the JSON line."""
     v2_chunks, serve_cfg, states = degraded_traffic(
         torch, seed, dev, fails, card, work, shape, latent)
-    gmm_check(torch, seed, dev, fails, card, work, n=n)
+    gmm_check(torch, seed, dev, fails, card, n=n)
     camera_energies(torch, seed, dev, fails, card, n=n)
     bone_vae_check(torch, seed, dev, fails, card, latent=latent, n=n,
                    batch=batch)

@@ -9,8 +9,9 @@ file in either package.  `load_hdf5_windows` reads a split into
 `AmassWindows`; `HDF5WindowStream` serves AMASS-scale corpora batch by
 batch without holding the windows in memory.
 
-h5py is imported where a file is opened, never when this module is
-imported; without it those calls raise ImportError naming the package.
+The files are read and written by `data/h5file.py`, the port's own HDF5
+code, not h5py (which the port never imports); h5py and the JAX package
+read the files it writes, and it reads theirs.
 """
 
 from __future__ import annotations
@@ -21,43 +22,20 @@ import pickle
 import numpy as np
 import torch
 
+from globalegomocap_tpu_torch.data import h5file
 from globalegomocap_tpu_torch.data.amass import AmassWindows, _cams_to_matrices
 from globalegomocap_tpu_torch.ops.transforms import relative_global_pose
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "HDF5 window files need the h5py package, which this Python "
-            "does not have (pip install h5py); the AMASS pkl directory "
-            "itself trains without it") from e
-    return h5py
 
 
 class HDF5Store:
     """Append-only HDF5 datasets with a shared batch axis."""
 
     def __init__(self, path: str, dataset_shapes: dict, dtype=np.float32):
-        h5py = _h5py()
         self.path = path
-        with h5py.File(path, "w") as f:
-            for name, shape in dataset_shapes.items():
-                f.create_dataset(name, shape=(0,) + tuple(shape),
-                                 maxshape=(None,) + tuple(shape),
-                                 dtype=dtype)
+        h5file.create(path, dataset_shapes, dtype)
 
     def append(self, batches: dict):
-        h5py = _h5py()
-        with h5py.File(self.path, "a") as f:
-            for name, values in batches.items():
-                values = np.asarray(values)
-                d = f[name]
-                n0 = d.shape[0]
-                d.resize((n0 + len(values),) + d.shape[1:])
-                d[n0:] = values
-            f.flush()
+        h5file.append(self.path, batches)
 
 
 def sequence_windows_with_cameras(seq: dict, frame_num: int, fps: int,
@@ -111,10 +89,9 @@ def pack_amass_dir(source_dir: str, output_path: str, frame_num: int = 10,
 def load_hdf5_windows(path: str, local_pose: bool = False) -> AmassWindows:
     """HDF5 file -> AmassWindows of (W, T, 45) windows (the local poses or
     the relative-global ones)."""
-    h5py = _h5py()
     key = "local_pose" if local_pose else "relative_global_pose"
-    with h5py.File(path, "r") as f:
-        w = np.asarray(f[key])
+    with h5file.open(path) as f:
+        w = f[key].read()
     return AmassWindows(w.reshape(w.shape[0], w.shape[1], 45))
 
 
@@ -134,12 +111,11 @@ class HDF5WindowStream:
     def __init__(self, path: str, local_pose: bool = False,
                  slab_size: int = 4096, start: int = 0,
                  stop: int | None = None):
-        h5py = _h5py()
         self.path = path
         self.key = "local_pose" if local_pose else "relative_global_pose"
         self.slab_size = int(slab_size)
         try:
-            self._file = h5py.File(path, "r")
+            self._file = h5file.open(path)
         except OSError as e:
             raise OSError(
                 f"{path} is not a readable HDF5 window file (expected the "
@@ -168,7 +144,7 @@ class HDF5WindowStream:
     def _read_slab(self, offset: int) -> np.ndarray:
         lo = self.start + offset
         hi = min(lo + self.slab_size, self.stop)
-        block = np.asarray(self._dset[lo:hi], dtype=np.float32)
+        block = self._dset.read(lo, hi).astype(np.float32, copy=False)
         return block.reshape(block.shape[0], block.shape[1], -1)
 
     def epoch_batches(self, rng: np.random.Generator, batch_size: int,

@@ -15,7 +15,9 @@ The JAX package lowers these through XLA, so they are plain torch here.
 
 from __future__ import annotations
 
+import importlib
 import math
+import pickle
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,11 +54,45 @@ def from_sklearn(gmm, device=None) -> GMMParams:
                      covariance_type=gmm.covariance_type)
 
 
+class _GaussianMixtureState:
+    """An unpickled sklearn GaussianMixture: its attributes, no sklearn."""
+
+
+_GAUSSIAN_MIXTURE = {("sklearn.mixture._gaussian_mixture", "GaussianMixture"),
+                     ("sklearn.mixture.gaussian_mixture", "GaussianMixture")}
+
+
+class _MixtureUnpickler(pickle.Unpickler):
+    """Reads a pickled GaussianMixture without importing sklearn: its class
+    becomes an attribute holder; numpy's array reconstructors load from
+    `numpy._core` or `numpy.core`, whichever this numpy has (numpy 2
+    pickles name the first, numpy 1 the second); any other name raises,
+    naming it."""
+
+    def find_class(self, module, name):
+        if (module, name) in _GAUSSIAN_MIXTURE:
+            return _GaussianMixtureState
+        if module == "numpy" and name in ("ndarray", "dtype"):
+            return getattr(np, name)
+        parts = module.split(".")
+        if parts[:2] in (["numpy", "_core"], ["numpy", "core"]):
+            for base in ("numpy._core", "numpy.core"):
+                try:
+                    mod = importlib.import_module(".".join([base] + parts[2:]))
+                except ImportError:
+                    continue
+                return getattr(mod, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name}: a GMM pickle holds only an sklearn "
+            "GaussianMixture and numpy arrays")
+
+
 def load_sklearn_pickle(path: str, device=None) -> GMMParams:
-    """A pickled sklearn GaussianMixture (unpickling needs sklearn)."""
-    import pickle
+    """A pickled sklearn GaussianMixture ('full' or 'diag'), read without
+    sklearn.  Unpickle only files this program or its users wrote: the
+    reader admits no class but the mixture and numpy's arrays."""
     with open(path, "rb") as f:
-        return from_sklearn(pickle.load(f), device)
+        return from_sklearn(_MixtureUnpickler(f).load(), device)
 
 
 def _log_det_cholesky(params: GMMParams) -> torch.Tensor:

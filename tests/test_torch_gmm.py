@@ -18,7 +18,9 @@ hundred.  Both packages keep that expansion, so float32 rounding of the
 terms, not of the result, sets what they can agree to."""
 
 import functools
+import os
 import pickle
+import sys
 import types
 import warnings
 
@@ -59,7 +61,8 @@ def _term_scale(gm, x):
         prec = chol ** 2
         maha = ((gm.means_ ** 2 * prec).sum(1)[None]
                 + 2 * np.abs(x @ (gm.means_ * prec).T) + x ** 2 @ prec.T)
-    return np.abs(log_det)[None] + 0.5 * D * np.log(2 * np.pi) + 0.5 * maha
+    return (np.abs(log_det)[None] + 0.5 * x.shape[1] * np.log(2 * np.pi)
+            + 0.5 * maha)
 
 
 def _close(got, want, scale, rtol, what):
@@ -165,3 +168,51 @@ def test_as_the_energy_prior_term(fitted):
                1e-5, "energy")
         np.testing.assert_allclose(x.grad[i].numpy(), g_j[i], rtol=0,
                                    atol=1e-4 * np.abs(g_j[i]).max())
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_fixtures", "gmm_sklearn")
+
+
+@pytest.mark.parametrize("blocked", [False, True],
+                         ids=["sklearn", "no_sklearn"])
+@pytest.mark.parametrize("kind", ["full", "diag"])
+def test_fixture_pickle_loads_without_sklearn(kind, blocked, monkeypatch):
+    """The pickles sklearn 1.9.0 wrote under numpy 2 (K=4, D=45,
+    `numpy._core` arrays): the port's parameters equal JAX's
+    `load_sklearn_pickle`'s exactly, with sklearn importable and with it
+    blocked; the scores held as test_scores_match_jax_and_sklearn holds
+    them."""
+    path = os.path.join(FIXTURE, f"{kind}.pkl")
+    with open(path, "rb") as f:
+        gm = pickle.load(f)
+    jp = jgmm.load_sklearn_pickle(path)
+    if blocked:
+        for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
+            monkeypatch.delitem(sys.modules, name)
+        monkeypatch.setitem(sys.modules, "sklearn", None)
+    tp = tgmm.load_sklearn_pickle(path)
+    assert tp.covariance_type == jp.covariance_type == kind
+    for name in ("means", "precisions_cholesky", "log_weights"):
+        a, b = getattr(tp, name).numpy(), np.asarray(getattr(jp, name))
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        assert np.array_equal(a, b), name
+    motion = synthetic_motion(500, 3, motion_scale=0.08)
+    x = motion.reshape(50, 10, 45).mean(1).astype(np.float32)
+    scale = _term_scale(gm, x)
+    got = tgmm.score_samples(tp, torch.from_numpy(x)).numpy()
+    _close(got, np.asarray(jgmm.score_samples(jp, jnp.asarray(x))),
+           scale.max(1), 1e-5, "score")
+    _close(got, gm.score_samples(x.astype(np.float64)), scale.max(1), 1e-4,
+           "sklearn")
+
+
+@pytest.mark.parametrize("obj,name", [
+    (lambda: sklearn_mixture.BayesianGaussianMixture(),
+     "sklearn.mixture._bayesian_mixture.BayesianGaussianMixture"),
+    (lambda: os.getcwd, "posix.getcwd")], ids=["sklearn", "other"])
+def test_pickle_of_another_class_raises_naming_it(tmp_path, obj, name):
+    path = tmp_path / "other.pkl"
+    path.write_bytes(pickle.dumps(obj()))
+    with pytest.raises(pickle.UnpicklingError, match=name):
+        tgmm.load_sklearn_pickle(str(path))

@@ -891,11 +891,46 @@ def test_gmm_prior_on_the_card_matches_numpy_and_the_cpu(gen, tmp_path):
     """chip_smoke's phase 3p (b) on 64 windows: the GMM score (full and
     diag, K=8, D=450) on the card against float64 numpy (1e-4 relative),
     as gmm_score_fn in total_energy_from_pose against the CPU (relative
-    L2 1e-4), and a pickled sklearn fit where sklearn imports."""
+    L2 1e-4), and sklearn's fixture pickles, read without sklearn,
+    against float64 numpy (1e-4)."""
     fails = chip_smoke.Failures()
-    chip_smoke.gmm_check(torch, 0, "cuda", fails, "test", (str(tmp_path),),
-                         n=64)
+    chip_smoke.gmm_check(torch, 0, "cuda", fails, "test", n=64)
     assert fails.items == []
+
+
+def test_train_epoch_from_an_hdf5_stream_on_the_card(gen, tmp_path):
+    """One epoch of a small prior on the card fed by HDF5WindowStream over
+    a file of the port's own writer (no h5py): len // batch steps, a
+    finite eval within 5 % of the same epoch's on the CPU from the same
+    seed and stream (the short-run tolerance of
+    tests/test_torch_train.py), no motion statistic, the parameters on
+    the card."""
+    from globalegomocap_tpu_torch.config import TrainConfig
+    from globalegomocap_tpu_torch.data.amass import AmassWindows
+    from globalegomocap_tpu_torch.data.hdf5 import (
+        HDF5WindowStream, load_hdf5_windows, pack_amass_dir)
+    from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
+    from globalegomocap_tpu_torch.train.train_vae import Trainer
+    chip_smoke.write_corpus(str(tmp_path / "amass"), 4, 80, 1)
+    h5 = pack_amass_dir(str(tmp_path / "amass"), str(tmp_path / "c.h5"))
+    windows = load_hdf5_windows(h5, local_pose=True).windows
+    cfg = TrainConfig(latent_dim=32, batch_size=32, learning_rate=2e-3,
+                      kl_weight=0.5, log_step=0, epochs=1, local_pose=True)
+    evals = {}
+    for device in ("cuda", "cpu"):
+        stream = HDF5WindowStream(h5, local_pose=True, slab_size=64)
+        model = ConvVAE(latent_dim=32, seq_len=10,
+                        hidden_dims=(16, 16, 32, 32, 64))
+        tr = Trainer(cfg, stream, AmassWindows(windows[:64]), model,
+                     device=device)
+        assert tr.train(log_fn=lambda *a: None) == len(windows) // 32
+        stream.close()
+        evals[device] = [h["eval_mpjpe"] for h in tr.history
+                         if "eval_mpjpe" in h]
+        assert tr.motion_stats is None
+        assert all(p.device.type == device for p in tr.model.parameters())
+    assert len(evals["cuda"]) == 1 and np.isfinite(evals["cuda"][0])
+    assert abs(evals["cuda"][0] - evals["cpu"][0]) <= 0.05 * evals["cpu"][0]
 
 
 def test_camera_energies_on_the_card_match_the_cpu(gen):

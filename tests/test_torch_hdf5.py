@@ -201,15 +201,49 @@ def test_stream_refuses_what_jax_refuses(packed, tmp_path):
             pkg.HDF5WindowStream(store.path)
 
 
-def test_without_h5py_the_error_names_the_package(packed, monkeypatch):
-    """h5py is imported only where a file is opened; where it is missing
-    the call raises ImportError naming it."""
+def test_without_h5py_the_port_packs_reads_and_streams(
+        amass_dir, packed, tmp_path, monkeypatch, capsys):
+    """With h5py blocked (`sys.modules['h5py'] = None`) the port packs the
+    corpus, reads it whole, streams it and trains one epoch from it at
+    --hdf5_stream true: its datasets are JAX's file's (local windows
+    exactly, the SE(3) products within 1e-6), its reads JAX's reads of
+    JAX's file, its stream JAX's batches from one seed, and the CLI run on
+    its file the port's run on JAX's file, step for step."""
+    import h5py
+    with h5py.File(packed["jax"], "r") as f:
+        datasets = {name: f[name][()] for name in f}
+    want = {local: jh5.load_hdf5_windows(packed["jax"], local).windows
+            for local in (False, True)}
+    j = jh5.HDF5WindowStream(packed["jax"], local_pose=True, slab_size=7)
+    batches = list(j.epoch_batches(np.random.default_rng(3), 16))
+    j.close()
+    monkeypatch.chdir(tmp_path)
+    flags = ["--hdf5_stream", "true", "--local_pose", "true", "--device",
+             "cpu"] + ARGS
+    ref = tcli.main(["--train_data_path", packed["jax"], "--log_dir", "j"]
+                    + flags)
     monkeypatch.setitem(sys.modules, "h5py", None)
-    for call in (lambda: th5.load_hdf5_windows(packed["port"]),
-                 lambda: th5.HDF5WindowStream(packed["port"]),
-                 lambda: th5.HDF5Store(packed["port"] + ".x", {"x": (1,)})):
-        with pytest.raises(ImportError, match="h5py"):
-            call()
+    path = th5.pack_amass_dir(amass_dir, str(tmp_path / "port.h5"))
+    with th5.h5file.open(path) as f:
+        assert list(f) == sorted(DATASETS)
+        for name, b in datasets.items():
+            a = f[name].read()
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_allclose(a, b, rtol=0, atol=0 if name ==
+                                       "local_pose" else 1e-6)
+    for local, b in want.items():
+        a = th5.load_hdf5_windows(path, local_pose=local).windows
+        np.testing.assert_allclose(a, b, rtol=0, atol=0 if local else 1e-6)
+    t = th5.HDF5WindowStream(path, local_pose=True, slab_size=7)
+    got = list(t.epoch_batches(np.random.default_rng(3), 16))
+    t.close()
+    assert len(got) == len(batches) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got, batches))
+    run = tcli.main(["--train_data_path", path, "--log_dir", "t"] + flags)
+    assert "train windows: 342, test windows: 18" in capsys.readouterr().out
+    assert run.step == ref.step == 342 // 16
+    assert run.history == ref.history
+    assert sys.modules["h5py"] is None
 
 
 @pytest.mark.parametrize("factor", [1, 2, 5])

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of
 `globalegomocap_tpu_torch` loads neither `jax`, `flax`, `optax`, `msgpack`,
-`orbax`, `tensorstore`, `zstandard`, `h5py` (imported only where an HDF5
-file is opened) nor anything of the JAX package, and its entry points run
-on the card unless told otherwise."""
+`orbax`, `tensorstore`, `zstandard`, `h5py`, `sklearn` nor anything of the
+JAX package; with h5py and sklearn blocked it packs, reads and streams an
+HDF5 corpus and loads a pickled sklearn GaussianMixture; and its entry
+points run on the card unless told otherwise."""
 
 import json
 import os
@@ -18,7 +19,8 @@ from tests.torch_port_helpers import tcfg, slice_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, json, os, pickle, pkgutil, sys, tempfile
+sys.modules["h5py"] = sys.modules["sklearn"] = None
 import globalegomocap_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
@@ -28,11 +30,29 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (  # noqa: F401
     adam_minimize, lbfgs_minimize)
 from globalegomocap_tpu_torch.native.hostcrop import (  # noqa: F401
     crop_peak_native)
-bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "h5py",
-                              "orbax", "tensorstore", "zstandard",
-                              "globalegomocap_tpu")]
-print(json.dumps({"modules": names, "bad": bad}))
+from globalegomocap_tpu_torch.data import hdf5
+from globalegomocap_tpu_torch.data.synthetic import synthetic_amass
+from globalegomocap_tpu_torch.ops.gmm import load_sklearn_pickle
+with tempfile.TemporaryDirectory() as tmp:
+    os.mkdir(os.path.join(tmp, "amass"))
+    for i, seq in enumerate(synthetic_amass(2, 40, seed=1)):
+        with open(os.path.join(tmp, "amass", f"{i}.pkl"), "wb") as f:
+            pickle.dump(seq, f)
+    h5 = hdf5.pack_amass_dir(os.path.join(tmp, "amass"),
+                             os.path.join(tmp, "c.h5"))
+    n = len(hdf5.load_hdf5_windows(h5).windows)
+    stream = hdf5.HDF5WindowStream(h5, slab_size=16)
+    rows = sum(len(b) for b in stream.epoch_batches(
+        __import__("numpy").random.default_rng(0), 4, drop_last=False))
+    stream.close()
+gmm = load_sklearn_pickle(os.path.join(
+    "tests", "torch_fixtures", "gmm_sklearn", "full.pkl"))
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "h5py",
+                               "sklearn", "orbax", "tensorstore",
+                               "zstandard", "globalegomocap_tpu")]
+print(json.dumps({"modules": names, "bad": bad, "windows": [n, rows],
+                  "gmm": list(gmm.means.shape)}))
 """
 
 
@@ -43,6 +63,7 @@ def test_port_imports_no_jax():
                          check=True)
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["bad"] == []
+    assert rec["windows"] == [60, 60] and rec["gmm"] == [4, 45]
     for mod in ("cli.serve", "cli.optimize_sequence", "ops.cuda_build",
                 "ops.fused_energy", "ops.fused_decode_energy",
                 "ops.heatmap_sample",
@@ -53,7 +74,8 @@ def test_port_imports_no_jax():
                 "cli.evaluate_all", "models.checkpoint", "tools.ply",
                 "cli.train", "train.train_vae", "data.amass",
                 "optimize.prior_bank", "models.joint_vae",
-                "train.train_joint", "data.hdf5", "data.mo2cap2",
+                "train.train_joint", "data.hdf5", "data.h5file",
+                "data.mo2cap2",
                 "cli.preprocess", "cli.introspect", "tools.process_test_data",
                 "tools.slam_reader", "tools.bvh", "tools.captury_camera",
                 "tools.prior_tools", "ops.epipolar", "native.zstd",
