@@ -202,7 +202,12 @@ Phases (any failure exits non-zero and prints no result line):
               within 1 %; kernels 1 and 2 launched as phase 3h counts a
               request).
 3n. parallel - the parallel paths (`parallel/mesh.py`) on the one card,
-              at full width, under cuDNN's deterministic algorithms: (a)
+              at full width, under cuDNN's deterministic algorithms: first
+              a teardown loop of 5 spawns of two gloo ranks on cuda:0 with
+              uneven exits (either rank sleeping 0.25-1 s after the
+              collectives on both groups), each with both results, no
+              abort, no process group alive at either rank's exit and the
+              fast rank leaving after the slow one returned; (a)
               one NCCL rank (`spawn(world=1)`): optimize_chunk_sharded on
               one 100-frame chunk and optimize_chunks_batched at serve's
               defaults on one 192-window request, flat and vmap, bit for
@@ -255,9 +260,10 @@ Phases (any failure exits non-zero and prints no result line):
               full and diag) on 192 windows against float64 numpy (1e-4
               relative) and as gmm_score_fn in total_energy_from_pose
               against the CPU (relative L2 1e-4), ms a call, and
-              load_sklearn_pickle of sklearn's pickles (K=4, D=45, full
-              and diag; tests/torch_fixtures/gmm_sklearn, read without
-              sklearn) scored against float64 numpy (1e-4); (c) the 2D
+              load_sklearn_pickle of sklearn's pickles (K=4, D=45, full,
+              diag and full fitted with an np.random.RandomState;
+              tests/torch_fixtures/gmm_sklearn, read with sklearn
+              blocked) scored against float64 numpy (1e-4); (c) the 2D
               reprojection and camera energies on 192 windows, values and
               gradients against the CPU (1e-5); (d) ConvVAE(with_bone_length
               =True): eval encode against the CPU (1e-4), one train-mode
@@ -4642,6 +4648,91 @@ def par_rank(mesh, work, solve_cases, n_chunks, base, corpus, log_dir,
             "seconds": (t1 - t0, time.perf_counter() - t1)}
 
 
+UNEVEN_EXITS = [(0, 0.5), (1, 0.5), (0, 1.0), (1, 1.0), (1, 0.25)]
+
+
+def _record_exit(path: str) -> None:
+    """At interpreter exit: the time, whether a process group is still
+    initialised and whether the mesh still holds a staging group."""
+    import torch.distributed as dist
+
+    from globalegomocap_tpu_torch.parallel import mesh as pm
+    with open(path, "w") as f:
+        json.dump({"t": time.time(), "initialized": dist.is_initialized(),
+                   "stage_group": pm._STAGE_GROUP != [None, None]}, f)
+
+
+def uneven_exit_rank(mesh, slow_rank, sleep_s, out_dir) -> dict:
+    """A rank of 3n's teardown loop: all_reduce with its backward on the
+    default group, all_reduce on the staging group and all_gather, on
+    this rank's device; then `slow_rank` sleeps `sleep_s` before it
+    returns.  An exit hook (holding the rank number, not the mesh)
+    writes `exit<rank>.json` into `out_dir`."""
+    import atexit
+
+    import torch
+
+    from globalegomocap_tpu_torch.parallel import mesh as pm
+    atexit.register(_record_exit,
+                    os.path.join(out_dir, f"exit{mesh.rank}.json"))
+    dev = mesh.device
+    x = torch.arange(3, dtype=torch.float32, device=dev).mul(mesh.rank + 1)
+    x.requires_grad_(True)
+    s = pm.all_reduce(mesh, x)
+    s.sum().backward()
+    cover = pm.all_reduce(mesh.staging(), torch.ones(2))
+    g = pm.all_gather(mesh, torch.full((1,), float(mesh.rank), device=dev))
+    if mesh.rank == slow_rank:
+        time.sleep(sleep_s)
+    return {"rank": mesh.rank, "sum": s.detach().cpu().tolist(),
+            "grad": x.grad.cpu().tolist(), "cover": cover.tolist(),
+            "gather": g.cpu().tolist(), "on": str(s.device),
+            "t_return": time.time()}
+
+
+def teardown_loop(torch, dev, fails, card, runs=UNEVEN_EXITS) -> None:
+    """3n's teardown loop: one spawn of two gloo ranks on `dev` for each
+    (slow rank, its sleep) of `runs`, the other rank returning at once.
+    Each must hand back both results (an abort is a rank that died by a
+    signal); each rank's exit hook must see no process group left and
+    the fast rank leave after the slow rank's function returned (the
+    closing barrier).  Prints the aborts and each spawn's seconds."""
+    from globalegomocap_tpu_torch.parallel.mesh import spawn
+    aborts, seconds = 0, []
+    for slow, sleep_s in runs:
+        with tempfile.TemporaryDirectory(prefix="teardown_") as out:
+            t0 = time.perf_counter()
+            try:
+                got = spawn(uneven_exit_rank, 2, [dev, dev], "gloo",
+                            timeout_s=120, threads=1,
+                            args=(slow, sleep_s, out))
+            except torch.multiprocessing.ProcessExitedException as e:
+                aborts += 1
+                fails.check(False, f"teardown loop, slow rank {slow} "
+                            f"({sleep_s} s): {type(e).__name__}: {e}")
+                continue
+            seconds.append(time.perf_counter() - t0)
+            exits = []
+            for r in range(2):
+                with open(os.path.join(out, f"exit{r}.json")) as f:
+                    exits.append(json.load(f))
+        right = all(g["sum"] == [0.0, 3.0, 6.0] and g["grad"] == [2.0] * 3
+                    and g["cover"] == [2.0, 2.0]
+                    and g["gather"] == [0.0, 1.0] for g in got)
+        clean = not any(e["initialized"] or e["stage_group"] for e in exits)
+        lag = exits[1 - slow]["t"] - got[slow]["t_return"]
+        fails.check(right and clean and lag >= 0,
+                    f"teardown loop, slow rank {slow} ({sleep_s} s), two "
+                    f"gloo ranks on {got[0]['on']}: collectives right "
+                    f"{right}; no group alive at exit {clean}; the fast "
+                    f"rank left {lag:.3f} s after the slow rank returned; "
+                    f"{seconds[-1]:.1f} s")
+    fails.check(aborts == 0,
+                f"teardown loop: {aborts} aborts in {len(runs)} spawns of "
+                f"two gloo ranks on {dev} with uneven exits; "
+                + ", ".join(f"{t:.1f}" for t in seconds) + f" s [{card}]")
+
+
 def parallel_phase(torch, seed, dev, fails, card, work, chunks=CHUNKS,
                    corpus=PARALLEL_CORPUS, train_flags=()) -> dict:
     """Phase 3n: the parallel paths on one card, at the prior's full
@@ -4683,6 +4774,9 @@ def parallel_phase(torch, seed, dev, fails, card, work, chunks=CHUNKS,
     batch = int(par_train_args(data, "-", train_flags).batch_size)
     steps = (corpus[0] - 10) * (corpus[1] - 10) // batch
     cfgs = par_configs(work)
+    t0 = time.perf_counter()
+    teardown_loop(torch, "cuda:0" if cuda else dev, fails, card)
+    print(f"  teardown loop: {time.perf_counter() - t0:.1f} s", flush=True)
     it = {k: (1 + c.solver.max_iter, 1 + c.solver.global_max_iter)
           for k, c in cfgs.items()}
     names = ("fused_stage_energy", "fused_stage_energy_noreproj")
@@ -5432,6 +5526,20 @@ def pose_windows(seed, n, t=T):
         n, t, J, 3).astype(np.float32)
 
 
+@contextlib.contextmanager
+def no_sklearn():
+    """Inside the block `import sklearn` fails, as on a machine without
+    it."""
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m.split(".")[0] == "sklearn"}
+    sys.modules["sklearn"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["sklearn"]
+        sys.modules.update(saved)
+
+
 def gmm_check(torch, seed, dev, fails, card, n=WINDOWS_3P,
               k=GMM_K_3P):
     """3p (b): the GMM prior on `dev` against float64 numpy and the CPU."""
@@ -5481,13 +5589,16 @@ def gmm_check(torch, seed, dev, fails, card, n=WINDOWS_3P,
             ms = event_ms(torch, lambda: gmm.score_samples(on, xd))
             print(f"  GMM '{kind}' K={k} D={x.shape[1]}: score_samples of "
                   f"{n} windows {ms:.4f} ms a call [{card}]", flush=True)
-    # the pickles sklearn 1.9.0 wrote (tests/torch_fixtures/gmm_sklearn),
-    # read without sklearn, scored on `dev` against float64 numpy
-    for kind in ("full", "diag"):
+    # the pickles sklearn 1.9.0 wrote (tests/torch_fixtures/gmm_sklearn;
+    # 'full_randomstate' holds the np.random.RandomState it was fitted
+    # with), read with sklearn blocked, scored on `dev` against float64
+    # numpy
+    for kind in ("full", "diag", "full_randomstate"):
         path = os.path.join(GMM_FIXTURE, f"{kind}.pkl")
-        with open(path, "rb") as f:
-            p = gmm._MixtureUnpickler(f).load()
-        params = gmm.load_sklearn_pickle(path, device=dev)
+        with no_sklearn():
+            with open(path, "rb") as f:
+                p = gmm._MixtureUnpickler(f).load()
+            params = gmm.load_sklearn_pickle(path, device=dev)
         xs = pose_windows(seed + 43, n, t=1).reshape(n, -1)
         got = gmm.score_samples(params, torch.as_tensor(xs, device=dev))
         ref = gmm_score_np(p, xs)
@@ -5495,6 +5606,7 @@ def gmm_check(torch, seed, dev, fails, card, n=WINDOWS_3P,
                            / np.abs(ref)))
         fails.check(params.means.device.type == torch.device(dev).type
                     and tuple(params.means.shape) == (4, 45)
+                    and params.covariance_type == kind.split("_")[0]
                     and err <= 1e-4,
                     f"load_sklearn_pickle of sklearn's '{kind}' fixture "
                     f"(K=4, D=45) on {dev}: score_samples of {n} poses "

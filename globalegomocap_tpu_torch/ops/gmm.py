@@ -62,16 +62,49 @@ _GAUSSIAN_MIXTURE = {("sklearn.mixture._gaussian_mixture", "GaussianMixture"),
                      ("sklearn.mixture.gaussian_mixture", "GaussianMixture")}
 
 
+class _RandomStateRecord:
+    """numpy's random state in a GMM pickle (a mixture fitted with
+    `random_state=np.random.RandomState(...)` keeps it), and the bit
+    generator and seed sequence inside it: the constructor's arguments
+    and the state, as read.  numpy's own constructors never run; scoring
+    never draws."""
+
+    def __init__(self, *args):
+        self.args = args
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+# the names numpy's random states pickle under: numpy >= 1.17's
+# constructors, bit generators and seed sequence, numpy < 1.17's one
+_NUMPY_RANDOM = {
+    ("numpy.random._pickle", "__randomstate_ctor"),
+    ("numpy.random._pickle", "__generator_ctor"),
+    ("numpy.random._pickle", "__bit_generator_ctor"),
+    ("numpy.random._mt19937", "MT19937"),
+    ("numpy.random._pcg64", "PCG64"),
+    ("numpy.random._pcg64", "PCG64DXSM"),
+    ("numpy.random._philox", "Philox"),
+    ("numpy.random._sfc64", "SFC64"),
+    ("numpy.random.bit_generator", "SeedSequence"),
+    ("numpy.random.bit_generator", "__pyx_unpickle_SeedSequence"),
+    ("numpy.random", "__RandomState_ctor"),
+}
+
+
 class _MixtureUnpickler(pickle.Unpickler):
     """Reads a pickled GaussianMixture without importing sklearn: its class
-    becomes an attribute holder; numpy's array reconstructors load from
-    `numpy._core` or `numpy.core`, whichever this numpy has (numpy 2
-    pickles name the first, numpy 1 the second); any other name raises,
-    naming it."""
+    becomes an attribute holder, numpy's random state a record; numpy's
+    array reconstructors load from `numpy._core` or `numpy.core`,
+    whichever this numpy has (numpy 2 pickles name the first, numpy 1 the
+    second); any other name raises, naming it."""
 
     def find_class(self, module, name):
         if (module, name) in _GAUSSIAN_MIXTURE:
             return _GaussianMixtureState
+        if (module, name) in _NUMPY_RANDOM:
+            return _RandomStateRecord
         if module == "numpy" and name in ("ndarray", "dtype"):
             return getattr(np, name)
         parts = module.split(".")
@@ -84,13 +117,14 @@ class _MixtureUnpickler(pickle.Unpickler):
                 return getattr(mod, name)
         raise pickle.UnpicklingError(
             f"{module}.{name}: a GMM pickle holds only an sklearn "
-            "GaussianMixture and numpy arrays")
+            "GaussianMixture, numpy arrays and numpy's random state")
 
 
 def load_sklearn_pickle(path: str, device=None) -> GMMParams:
     """A pickled sklearn GaussianMixture ('full' or 'diag'), read without
     sklearn.  Unpickle only files this program or its users wrote: the
-    reader admits no class but the mixture and numpy's arrays."""
+    reader admits no class but the mixture, numpy's arrays and numpy's
+    random state (kept as a record, never rebuilt)."""
     with open(path, "rb") as f:
         return from_sklearn(_MixtureUnpickler(f).load(), device)
 

@@ -48,6 +48,7 @@ import pickle
 import tempfile
 import time
 import traceback
+import weakref
 from dataclasses import dataclass, replace
 from typing import Any, Callable
 
@@ -78,19 +79,30 @@ class Mesh:
         return replace(self, group=self.stage_group, backend="gloo")
 
 
-# (default group, its staging group): one staging group a default group,
-# however often make_mesh is called
+# weak references to (default group, its staging group): one staging
+# group a default group, however often make_mesh is called.  Weak, so
+# that once the caller destroys the groups (under torchrun) and drops its
+# meshes, nothing here keeps a process group alive into the
+# interpreter's shutdown, where a gloo group freed while a peer still
+# runs can abort the process.
 _STAGE_GROUP: list = [None, None]
+
+
+def _held(i: int):
+    ref = _STAGE_GROUP[i]
+    return None if ref is None else ref()
 
 
 def _stage_group():
     """The gloo staging group of the default group, made at the first
     call on every rank (making a group is a collective step)."""
     world = dist.group.WORLD
-    if _STAGE_GROUP[0] is not world:
-        _STAGE_GROUP[:] = [world, dist.new_group(
-            list(range(dist.get_world_size())), backend="gloo")]
-    return _STAGE_GROUP[1]
+    stage = _held(1)
+    if _held(0) is not world or stage is None:
+        stage = dist.new_group(list(range(dist.get_world_size())),
+                               backend="gloo")
+        _STAGE_GROUP[:] = [weakref.ref(world), weakref.ref(stage)]
+    return stage
 
 
 def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
@@ -271,9 +283,12 @@ def spawn(fn: Callable, world: int, devices=None, backend: str | None = None,
     `fn` is pickled by its import path, and so are `args` and the
     results.  If a rank
     raises, rank 0's exception (else the lowest failing rank's) is raised
-    here.  `timeout_s` bounds each collective and the whole run (the
-    ranks still running then are terminated and TimeoutError raised);
-    None leaves torch's collective timeout and no bound on the run."""
+    here.  A rank that dies by a signal makes this raise too, and after
+    its result was written the error names the teardown
+    (`RankDiedInTeardown`).  `timeout_s` bounds each collective, the
+    ranks' closing barrier and the whole run (the ranks still running
+    then are terminated and TimeoutError raised); None leaves torch's
+    collective timeout and no bound on the run."""
     if devices is None:
         devices = [f"cuda:{i}" for i in range(world)]
     # a card without an index is card 0
@@ -303,6 +318,12 @@ def spawn(fn: Callable, world: int, devices=None, backend: str | None = None,
                 path = os.path.join(tmp, f"error{r}.pkl")
                 if os.path.exists(path):
                     raise _load(path) from e
+            if (isinstance(e, torch.multiprocessing.ProcessExitedException)
+                    and e.signal_name and os.path.exists(
+                        os.path.join(tmp, f"done{e.error_index}"))):
+                raise RankDiedInTeardown(
+                    f"rank {e.error_index} died ({e.signal_name}) after "
+                    "writing its result, in teardown") from e
             raise
         finally:
             for p in ctx.processes:
@@ -311,6 +332,10 @@ def spawn(fn: Callable, world: int, devices=None, backend: str | None = None,
                 p.join()
         return [_load(os.path.join(tmp, f"result{r}.pkl"))
                 for r in range(world)]
+
+
+class RankDiedInTeardown(RuntimeError):
+    """A rank of `spawn` died by a signal after writing its result."""
 
 
 def _load(path: str):
@@ -326,7 +351,14 @@ def _dump(obj, path: str) -> None:
 def _rank_main(rank: int, fn, world: int, devices: list, backend: str,
                args: tuple, tmp: str, timeout_s: float,
                threads: int) -> None:
-    """One rank of `spawn`: the group, `fn`, its result or exception."""
+    """One rank of `spawn`: the group, `fn`, its result or exception, and
+    the teardown.  After a result the ranks leave in step: the result
+    written, a `done` marker, a barrier on the default group (bounded by
+    the group's timeout, `timeout_s`), then the staging group destroyed,
+    the default group destroyed and `_STAGE_GROUP` cleared, so that no
+    process group is alive when the interpreter shuts down.  After an
+    exception no barrier is taken: the peer may wait in a collective that
+    never ends, and `spawn` terminates it."""
     torch.set_num_threads(threads)
     device = torch.device(devices[rank])
     if device.type == "cuda":
@@ -346,6 +378,18 @@ def _rank_main(rank: int, fn, world: int, devices: list, backend: str,
                 f"rank {rank}: " + traceback.format_exc()))
         with open(os.path.join(tmp, f"error{rank}.pkl"), "wb") as f:
             f.write(blob)
+        _teardown()
         raise
-    finally:
-        dist.destroy_process_group()
+    open(os.path.join(tmp, f"done{rank}"), "w").close()
+    dist.barrier(device_ids=[device.index] if backend == "nccl" else None)
+    _teardown()
+
+
+def _teardown() -> None:
+    """Destroy the staging group this process made, then the default
+    group, then forget the staging group."""
+    stage = _held(1)
+    if stage is not None and _held(0) is dist.group.WORLD:
+        dist.destroy_process_group(stage)
+    dist.destroy_process_group()
+    _STAGE_GROUP[:] = [None, None]

@@ -174,25 +174,30 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "torch_fixtures", "gmm_sklearn")
 
 
+def _block_sklearn(monkeypatch):
+    for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+
+
 @pytest.mark.parametrize("blocked", [False, True],
                          ids=["sklearn", "no_sklearn"])
-@pytest.mark.parametrize("kind", ["full", "diag"])
+@pytest.mark.parametrize("kind", ["full", "diag", "full_randomstate"])
 def test_fixture_pickle_loads_without_sklearn(kind, blocked, monkeypatch):
     """The pickles sklearn 1.9.0 wrote under numpy 2 (K=4, D=45,
-    `numpy._core` arrays): the port's parameters equal JAX's
-    `load_sklearn_pickle`'s exactly, with sklearn importable and with it
-    blocked; the scores held as test_scores_match_jax_and_sklearn holds
-    them."""
+    `numpy._core` arrays; 'full_randomstate' also holds the
+    `np.random.RandomState(0)` it was fitted with): the port's parameters
+    equal JAX's `load_sklearn_pickle`'s exactly, with sklearn importable
+    and with it blocked; the scores held as
+    test_scores_match_jax_and_sklearn holds them."""
     path = os.path.join(FIXTURE, f"{kind}.pkl")
     with open(path, "rb") as f:
         gm = pickle.load(f)
     jp = jgmm.load_sklearn_pickle(path)
     if blocked:
-        for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
-            monkeypatch.delitem(sys.modules, name)
-        monkeypatch.setitem(sys.modules, "sklearn", None)
+        _block_sklearn(monkeypatch)
     tp = tgmm.load_sklearn_pickle(path)
-    assert tp.covariance_type == jp.covariance_type == kind
+    assert tp.covariance_type == jp.covariance_type == kind.split("_")[0]
     for name in ("means", "precisions_cholesky", "log_weights"):
         a, b = getattr(tp, name).numpy(), np.asarray(getattr(jp, name))
         assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
@@ -205,6 +210,40 @@ def test_fixture_pickle_loads_without_sklearn(kind, blocked, monkeypatch):
            scale.max(1), 1e-5, "score")
     _close(got, gm.score_samples(x.astype(np.float64)), scale.max(1), 1e-4,
            "sklearn")
+
+
+@pytest.mark.parametrize("blocked", [False, True],
+                         ids=["sklearn", "no_sklearn"])
+@pytest.mark.parametrize("kind", ["full", "diag"])
+def test_randomstate_fit_loads_without_sklearn(kind, blocked, tmp_path,
+                                               monkeypatch):
+    """A mixture fitted with `random_state=np.random.RandomState(1)`
+    pickles numpy's random state beside its arrays: the port reads it
+    (keeping the state as a record, never rebuilding it), its parameters
+    equal JAX's loader's exactly (JAX's copy loaded first, while sklearn
+    is importable), and its scores are within 1e-4 of sklearn's."""
+    data = _windows(200, 4).reshape(200, D).astype(np.float64)
+    gm = sklearn_mixture.GaussianMixture(
+        n_components=3, covariance_type=kind, max_iter=10, reg_covar=1e-4,
+        random_state=np.random.RandomState(1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gm.fit(data)
+    path = str(tmp_path / f"{kind}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(gm, f)
+    jp = jgmm.load_sklearn_pickle(path)
+    if blocked:
+        _block_sklearn(monkeypatch)
+    tp = tgmm.load_sklearn_pickle(path)
+    assert tp.covariance_type == jp.covariance_type == kind
+    for name in ("means", "precisions_cholesky", "log_weights"):
+        assert np.array_equal(getattr(tp, name).numpy(),
+                              np.asarray(getattr(jp, name))), name
+    x = _windows(40, 8).reshape(40, D)
+    _close(tgmm.score_samples(tp, torch.from_numpy(x)).numpy(),
+           gm.score_samples(x.astype(np.float64)),
+           _term_scale(gm, x).max(1), 1e-4, "sklearn")
 
 
 @pytest.mark.parametrize("obj,name", [

@@ -8,7 +8,10 @@ numpy 2.0.2, so its arrays name `numpy._core`):
   coordinate set (D = 45: 15 joints x 3 of the frame mean) of
   `data/synthetic.py::synthetic_motion(4000, 0)` plus N(0, 0.01) noise
   (numpy seed 0), in float32, so that sklearn keeps float32
-  parameters and both pickles stay near 100 KB.
+  parameters and both pickles stay near 100 KB;
+- `full_randomstate.pkl`: the 'full' fit with `random_state=
+  np.random.RandomState(0)` in place of the integer seed, so the pickle
+  also holds numpy's random state (its MT19937 state after the fit).
 
     python tests/torch_fixtures/gmm_sklearn/make_fixture.py
 
@@ -39,13 +42,16 @@ def windows():
 def main():
     from sklearn.mixture import GaussianMixture
     x = windows()
-    for kind in ("full", "diag"):
+    import numpy as np
+    for name, kind, seed in (("full", "full", 0), ("diag", "diag", 0),
+                             ("full_randomstate", "full",
+                              np.random.RandomState(0))):
         gm = GaussianMixture(n_components=K, covariance_type=kind,
-                             max_iter=20, reg_covar=1e-4, random_state=0)
+                             max_iter=20, reg_covar=1e-4, random_state=seed)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             gm.fit(x)
-        with open(os.path.join(HERE, f"{kind}.pkl"), "wb") as f:
+        with open(os.path.join(HERE, f"{name}.pkl"), "wb") as f:
             pickle.dump(gm, f)
 
 
