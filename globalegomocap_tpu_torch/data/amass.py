@@ -25,6 +25,7 @@ import torch
 
 from globalegomocap_tpu_torch.ops.transforms import (
     quat_trans_to_matrix, relative_global_pose)
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 
 def load_amass_pkls(path: str, is_train: bool = True,
@@ -133,9 +134,12 @@ class AmassWindows:
 
     def epoch_batches(self, rng: np.random.Generator, batch_size: int,
                       drop_last: bool = True, shuffle: bool = True):
-        """(B, T, 45) numpy batches in the order `rng` draws."""
+        """(B, T, 45) numpy batches in the order `rng` draws; each
+        batch's gather is the span `data.batch`."""
         n = len(self.windows)
         order = rng.permutation(n) if shuffle else np.arange(n)
         end = n - n % batch_size if drop_last else n
         for i in range(0, end, batch_size):
-            yield self.windows[order[i:i + batch_size]]
+            with RECORDER.span("data.batch"):
+                batch = self.windows[order[i:i + batch_size]]
+            yield batch

@@ -37,6 +37,7 @@ waits on.
 from __future__ import annotations
 
 import copy
+import itertools
 import time
 import warnings
 from dataclasses import dataclass, replace
@@ -68,6 +69,7 @@ from globalegomocap_tpu_torch.parallel.mesh import (
     pad_to_multiple, shard_batch)
 from globalegomocap_tpu_torch.parallel.window_shard import (
     optimize_chunk_window_sharded)
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 
 def resolve_camera(cfg: OptimizeConfig) -> fisheye.FisheyeParams:
@@ -99,7 +101,9 @@ class StagedBatch:
     optimizer has a prior bank or a recorded prior statistic.  `ready`:
     None when the tensors were written on the stream that solves them,
     else a CUDA event recorded on the staging stream after the last
-    write."""
+    write.  `request`: the request id its `stage` span opened (the
+    port's spans, `utils/profiling.py`), None for a batch built
+    elsewhere."""
     est: Any              # (C, F, 15, 3)
     cams: Any             # (C, F, 4, 4)
     heat: Any             # crops or maps (float32 or bfloat16)
@@ -110,6 +114,7 @@ class StagedBatch:
     full_hw: tuple | None = None
     accel_mean: float | None = None
     ready: Any = None     # torch.cuda.Event | None
+    request: int | None = None
 
     def tensors(self) -> tuple:
         return tuple(t for t in (self.est, self.cams, self.heat, self.gt,
@@ -154,6 +159,7 @@ class SequenceOptimizer:
         self.mismatch_warn_ratio = mismatch_warn_ratio
         self.last_prior_name: str | None = None
         self._warned_mismatch = False
+        self._requests = itertools.count()
         self.local_model, self.global_model, self._stages = \
             self._stage_pair(model, local_state, global_state)
         # the bank as it is now, each entry staged: its names, statistics
@@ -313,13 +319,16 @@ class SequenceOptimizer:
             local = [chunks[i] for i in idx]
             # the padding repeats the last chunk at the end of the axis
             n_real = min(max(n - self.mesh.rank * len(idx), 0), len(idx))
-        staged = (self._stage_host if on_host else self._stage_device)(
-            local, coverage, n_real)
-        if self.mesh.size == 1:
-            return staged
-        est = pad_to_multiple(_stack(chunks, "estimated_local"),
-                              self.mesh.size)[0]
-        return replace(staged, n_chunks=n, accel_mean=self._accel_stat(est))
+        request = next(self._requests)
+        with RECORDER.span("stage", request=request, cpu=True):
+            staged = (self._stage_host if on_host else self._stage_device)(
+                local, coverage, n_real)
+            if self.mesh.size == 1:
+                return replace(staged, request=request)
+            est = pad_to_multiple(_stack(chunks, "estimated_local"),
+                                  self.mesh.size)[0]
+            return replace(staged, n_chunks=n, request=request,
+                           accel_mean=self._accel_stat(est))
 
     def _mean_over_ranks(self, total, count: int) -> float:
         """A mean over every rank's real chunks from this rank's `total`
@@ -381,14 +390,16 @@ class SequenceOptimizer:
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
         est = _stack(chunks, "estimated_local")
+        with RECORDER.span("stage.copy"):
+            est_d, cams, heat, gt = (self._put(x) for x in (
+                est, _stack(chunks, "camera_poses"), heat,
+                _stack(chunks, "gt_global")))
+            origins = None if origins is None else self._put(origins)
         return StagedBatch(
-            est=self._put(est),
-            cams=self._put(_stack(chunks, "camera_poses")),
-            heat=self._put(heat), gt=self._put(_stack(chunks, "gt_global")),
-            n_chunks=len(chunks), crop_coverage=cov,
-            origins=None if origins is None else self._put(origins),
-            full_hw=full_hw, accel_mean=(self._accel_stat(est)
-                                         if self.mesh.size == 1 else None))
+            est=est_d, cams=cams, heat=heat, gt=gt, n_chunks=len(chunks),
+            crop_coverage=cov, origins=origins, full_hw=full_hw,
+            accel_mean=(self._accel_stat(est) if self.mesh.size == 1
+                        else None))
 
     def _stage_device(self, chunks: list[TestChunk],
                       coverage: float | None, n_real: int) -> StagedBatch:
@@ -405,8 +416,9 @@ class SequenceOptimizer:
         cfg = self.cfg
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
-        maps = [self._put(np.asarray(c.heatmaps, dtype=np.float32))
-                for c in chunks]
+        with RECORDER.span("stage.copy"):
+            maps = [self._put(np.asarray(c.heatmaps, dtype=np.float32))
+                    for c in chunks]
         seg = cfg.stage_segment_chunks
         n = len(chunks)
         parts = ([list(range(i, min(i + seg, n))) for i in range(0, n, seg)]
@@ -445,10 +457,11 @@ class SequenceOptimizer:
         heat = torch.cat(crops_l)
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
-        est = self._put(_stack(chunks, "estimated_local"))
+        with RECORDER.span("stage.copy"):
+            est, cams, gt = (self._put(_stack(chunks, name)) for name in (
+                "estimated_local", "camera_poses", "gt_global"))
         return StagedBatch(
-            est=est, cams=self._put(_stack(chunks, "camera_poses")),
-            heat=heat, gt=self._put(_stack(chunks, "gt_global")),
+            est=est, cams=cams, heat=heat, gt=gt,
             n_chunks=n, crop_coverage=cov,
             origins=torch.cat(orgs_l) if orgs_l else None, full_hw=full_hw,
             accel_mean=(self._accel_stat(est) if self.mesh.size == 1
@@ -466,11 +479,13 @@ class SequenceOptimizer:
         """A host array or tensor on the solve device: on the card through
         pinned memory, without blocking, on the current stream (the
         caching host allocator keeps the pinned block until the copy is
-        done)."""
+        done); counted under `stage.h2d_bytes`."""
         t = torch.from_numpy(np.ascontiguousarray(x)) \
             if isinstance(x, np.ndarray) else x
         if self.device.type != "cuda":
+            RECORDER.count("stage.h2d_bytes", 0)
             return t
+        RECORDER.count("stage.h2d_bytes", t.numel() * t.element_size())
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _consume(self, staged: StagedBatch) -> None:
@@ -504,7 +519,10 @@ class SequenceOptimizer:
         runs one program sharded by jit (several ranks and neither flag)
         the flat mode draws once over every rank's windows and each rank
         takes its rows of that draw.  The vmap mode draws the same rows
-        for every chunk either way."""
+        for every chunk either way.
+
+        The solve's enqueue is the span `dispatch` under the batch's
+        request id."""
         if mode not in ("flat", "vmap"):
             raise ValueError(f"mode={mode!r}: 'flat' or 'vmap'")
         staged = chunks if isinstance(chunks, StagedBatch) \
@@ -515,25 +533,29 @@ class SequenceOptimizer:
                 f"a batch of {staged.n_chunks} chunks staged as "
                 f"{staged.est.shape[0]} a rank: it was staged for another "
                 f"mesh than this optimizer's {size} rank(s)")
-        self._consume(staged)
-        cfg = self._cfg_for_coverage(staged.crop_coverage)
-        solve = (pipeline.optimize_chunks_flat if mode == "flat"
-                 else pipeline.optimize_chunks_batched)
-        stages = self._select_priors(staged.accel_mean)
-        kw = {}
-        if mode == "flat" and size > 1 and not (
-                cfg.solver.fused_energy or cfg.solver.batched_solver):
-            per_chunk = num_windows(staged.est.shape[1], cfg.window.seq_len,
-                                    cfg.window.stride)
-            kw["draw_row"] = self.mesh.rank * staged.est.shape[0] * per_chunk
-        with torch.no_grad():
-            res = solve(*stages, staged.est, staged.cams, staged.heat,
-                        staged.gt, self._camera_dev, cfg,
-                        origins=staged.origins, full_hw=staged.full_hw, **kw)
-            if size == 1:
-                return res
-            return ChunkResult(*(f[:staged.n_chunks] for f in
-                                 all_gather_fields(self.mesh, res)))
+        with RECORDER.span("dispatch", request=staged.request,
+                           cpu=True):
+            self._consume(staged)
+            cfg = self._cfg_for_coverage(staged.crop_coverage)
+            solve = (pipeline.optimize_chunks_flat if mode == "flat"
+                     else pipeline.optimize_chunks_batched)
+            stages = self._select_priors(staged.accel_mean)
+            kw = {}
+            if mode == "flat" and size > 1 and not (
+                    cfg.solver.fused_energy or cfg.solver.batched_solver):
+                per_chunk = num_windows(staged.est.shape[1],
+                                        cfg.window.seq_len, cfg.window.stride)
+                kw["draw_row"] = (self.mesh.rank * staged.est.shape[0]
+                                  * per_chunk)
+            with torch.no_grad():
+                res = solve(*stages, staged.est, staged.cams, staged.heat,
+                            staged.gt, self._camera_dev, cfg,
+                            origins=staged.origins, full_hw=staged.full_hw,
+                            **kw)
+                if size == 1:
+                    return res
+                return ChunkResult(*(f[:staged.n_chunks] for f in
+                                     all_gather_fields(self.mesh, res)))
 
     def optimize_chunk(self, chunk: TestChunk,
                        cfg: OptimizeConfig | None = None) -> ChunkResult:

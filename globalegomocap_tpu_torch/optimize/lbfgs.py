@@ -38,6 +38,8 @@ history and the step lengths in bf16 and the energies in float32; JAX's
 
 `LBFGSResult.n_calls` is the number of batched objective calls a solve
 made (each evaluates every lane), where `n_evals` counts one lane's.
+Both L-BFGS solvers add each call's lanes x points to the port's counter
+`solve.evals` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import torch
 from globalegomocap_tpu_torch.ops import lbfgs_direction as direction_ops
 from globalegomocap_tpu_torch.ops.lbfgs_direction import (
     _dot, two_loop_direction as _two_loop_direction)
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 
 class LBFGSResult(NamedTuple):
@@ -77,6 +80,15 @@ def _value_and_grad(loss_fn: Callable) -> Callable:
             (g,) = torch.autograd.grad(vals.sum(), x)
         return vals.detach(), g
     return value_and_grad
+
+
+def _counted(fn: Callable) -> Callable:
+    """fn, adding the points of each call (every axis of x but its last)
+    to the counter `solve.evals`."""
+    def call(x):
+        RECORDER.count("solve.evals", x.numel() // x.shape[-1])
+        return fn(x)
+    return call
 
 
 @functools.lru_cache(maxsize=64)
@@ -167,6 +179,8 @@ def _fixed_loop(value_and_grad, value, x0, max_iter, history_size, lr,
     b, dim = x0.shape
     dtype, dev = x0.dtype, x0.device
     cands = _step_lengths(tuple(step_candidates), lr, dtype, dev)
+    value_and_grad = _counted(value_and_grad)
+    value = None if value is None else _counted(value)
 
     f0, g0 = value_and_grad(x0[None])
     x, f, g = x0, f0[0], g0[0]
@@ -448,7 +462,7 @@ def lbfgs_minimize(loss_fn: Callable, x0: torch.Tensor, max_iter: int = 25,
     lane stops on max|g| <= tolerance_grad, max|t d| <= tolerance_change
     or |df| < tolerance_change, or after max_iter iterations.  n_iter and
     n_evals are per lane (B,) int64 tensors."""
-    value_and_grad = _value_and_grad(loss_fn)
+    value_and_grad = _counted(_value_and_grad(loss_fn))
     b, dim = x0.shape
     dtype, dev = x0.dtype, x0.device
     f, g = value_and_grad(x0)

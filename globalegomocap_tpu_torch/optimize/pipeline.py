@@ -77,6 +77,7 @@ from globalegomocap_tpu_torch.optimize.lbfgs import (
     lbfgs_minimize_fixed_batched)
 from globalegomocap_tpu_torch.optimize.window import (
     merge_windows, merge_windows_matmul, slice_windows)
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 J = 15
 COMPUTE_DTYPES = ("float32", "bfloat16", "bfloat16_f32enc",
@@ -522,26 +523,31 @@ def solve_windows(local_model: ConvVAE | StageModels,
                   win_org=None, full_hw=None,
                   draw_row: int = 0) -> WindowFields:
     """Both stages and the coordinate lifts over a batch of windows (no
-    cross-window coupling); `draw_row` as `optimize_stage` takes it."""
+    cross-window coupling); `draw_row` as `optimize_stage` takes it.
+    Spans: `solve.stage1`, `solve.lift`, `solve.stage2`, `solve.lift`."""
     local_w, global_w = stage_weights(cfg)
     use_reproj = cfg.energy.reproj != 0.0
-    mid_local = optimize_stage(local_model, win_local, win_heat, win_bl,
-                               camera, local_w, use_reproj, cfg,
-                               origins=win_org, full_hw=full_hw,
-                               residual=cfg.energy.local_residual,
-                               draw_row=draw_row)
-    # world lifts go straight through the per-frame cameras
-    # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs the
-    # relative hop
-    mid_rel = relative_global_pose(mid_local, win_cam)
-    cam0 = win_cam[:, 0]
-    est_world = transform_pose(win_local, win_cam)
-    mid_world = transform_pose(mid_local, win_cam)
-    opt_rel = optimize_stage(global_model, mid_rel, None, win_bl, camera,
-                             global_w, False, _stage2_cfg(cfg),
-                             residual=cfg.energy.global_residual,
-                             draw_row=draw_row)
-    opt_world = relative_to_global_pose(opt_rel, cam0)
+    with RECORDER.span("solve.stage1"):
+        mid_local = optimize_stage(local_model, win_local, win_heat, win_bl,
+                                   camera, local_w, use_reproj, cfg,
+                                   origins=win_org, full_hw=full_hw,
+                                   residual=cfg.energy.local_residual,
+                                   draw_row=draw_row)
+    with RECORDER.span("solve.lift"):
+        # world lifts go straight through the per-frame cameras
+        # (cam0 . (inv(cam0) . C_i) == C_i); only stage 2's anchor needs
+        # the relative hop
+        mid_rel = relative_global_pose(mid_local, win_cam)
+        cam0 = win_cam[:, 0]
+        est_world = transform_pose(win_local, win_cam)
+        mid_world = transform_pose(mid_local, win_cam)
+    with RECORDER.span("solve.stage2"):
+        opt_rel = optimize_stage(global_model, mid_rel, None, win_bl, camera,
+                                 global_w, False, _stage2_cfg(cfg),
+                                 residual=cfg.energy.global_residual,
+                                 draw_row=draw_row)
+    with RECORDER.span("solve.lift"):
+        opt_world = relative_to_global_pose(opt_rel, cam0)
     return WindowFields(est_world, mid_world, mid_local, opt_world, win_gt)
 
 
@@ -601,7 +607,8 @@ def optimize_chunk(local_model: ConvVAE | StageModels,
     fields = solve_windows(local_model, global_model, win_local, win_cam,
                            win_heat, win_gt, win_bl, camera, cfg,
                            win_org=win_org, full_hw=full_hw)
-    return merge_window_fields(fields, cfg)
+    with RECORDER.span("solve.merge"):
+        return merge_window_fields(fields, cfg)
 
 
 def make_chunk_optimizer(model: ConvVAE, cfg: OptimizeConfig,
@@ -682,9 +689,10 @@ def optimize_chunks_flat(local_model: ConvVAE | StageModels,
                            camera, cfg, win_org=f_org, full_hw=full_hw,
                            draw_row=draw_row)
 
-    return merge_window_fields(
-        WindowFields(*(x.reshape((c, w_per) + x.shape[1:]) for x in fields)),
-        cfg, batch_dims=1)
+    with RECORDER.span("solve.merge"):
+        return merge_window_fields(
+            WindowFields(*(x.reshape((c, w_per) + x.shape[1:])
+                           for x in fields)), cfg, batch_dims=1)
 
 
 def optimize_chunks_batched(local_model: ConvVAE | StageModels,

@@ -24,6 +24,12 @@ waits on (`SequenceOptimizer._consume`), so staging copies do not queue
 behind a solve.  The native host crop releases the GIL; the solve's
 dispatch, a Python loop of launches, holds it between launches, so
 staging and dispatch overlap only in part.
+
+The runtime records the port's spans (`utils/profiling.py`): the
+consumer's wait for a staged batch (`prefetch.wait`), the wait for a
+free slot (`runtime.slot_wait`), and on the card each submission's time
+on the solve's stream (`runtime.device`, from two timing events, filed
+when the submission retires), each under the batch's request id.
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ import dataclasses
 import heapq
 import queue
 import threading
-import time
 
 import torch
 
@@ -42,7 +47,7 @@ from globalegomocap_tpu_torch.data.test_data import TestChunk
 from globalegomocap_tpu_torch.optimize.driver import (
     SequenceOptimizer, StagedBatch)
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
-from globalegomocap_tpu_torch.utils.profiling import ThroughputMeter
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 GUARD_POLICIES = ("first", "every", "off")
 
@@ -52,12 +57,13 @@ def _check_guard(guard: str) -> None:
         raise ValueError(f"unknown guard policy {guard!r}")
 
 
-def _done_event(device: torch.device):
+def _done_event(device: torch.device, timing: bool = False):
     """An event recorded after the work queued so far on the current
-    stream of `device` (None on the CPU, where that work is done)."""
+    stream of `device` (None on the CPU, where that work is done);
+    `timing` makes it one that `elapsed_time` can read."""
     if device.type != "cuda":
         return None
-    event = torch.cuda.Event()
+    event = torch.cuda.Event(enable_timing=timing)
     event.record(torch.cuda.current_stream(device))
     return event
 
@@ -65,11 +71,6 @@ def _done_event(device: torch.device):
 def _wait(event) -> None:
     if event is not None:
         event.synchronize()
-
-
-def _units(result: ChunkResult) -> int:
-    """Chunks in a result: a batch submission has a leading chunk axis."""
-    return 1 if result.estimated.dim() == 3 else result.estimated.shape[0]
 
 
 class StreamingOptimizer:
@@ -98,8 +99,6 @@ class StreamingOptimizer:
         self._batch_coverage: float | None = None
         self._in_flight: collections.deque = collections.deque()
         self._completed: list[ChunkResult] = []
-        self.meter = ThroughputMeter(unit="chunks")
-        self._t_first: float | None = None
 
     def _chunk_cfg(self, chunk: TestChunk):
         if self.guard == "every":
@@ -108,15 +107,18 @@ class StreamingOptimizer:
             self._guard_cfg = self.optimizer._effective_cfg(chunk.heatmaps)
         return self._guard_cfg
 
-    def _dispatch(self, solve) -> None:
+    def _dispatch(self, solve, request: int | None = None) -> None:
         """Wait for the oldest submissions until a slot is free, then
-        queue `solve()` with its completion event."""
-        if self._t_first is None:
-            self._t_first = time.perf_counter()
-        while len(self._in_flight) >= self.max_in_flight:
-            self._finish_oldest()
+        queue `solve()` between two timing events (the span
+        `runtime.device` of `request`)."""
+        with RECORDER.span("runtime.slot_wait", request=request):
+            while len(self._in_flight) >= self.max_in_flight:
+                self._finish_oldest()
+        device = self.optimizer.device
+        start = _done_event(device, timing=True)
         result = solve()
-        self._in_flight.append((result, _done_event(self.optimizer.device)))
+        self._in_flight.append(
+            (result, start, _done_event(device, timing=True), request))
 
     def submit(self, chunk: TestChunk) -> None:
         """Enqueue a chunk (per-window solves, `optimize_chunk`).  Returns
@@ -143,25 +145,29 @@ class StreamingOptimizer:
             if self._batch_coverage is None:
                 self._batch_coverage = chunks_or_staged.crop_coverage
         staged = chunks_or_staged
+        if staged.ready is not None:
+            # the solve's stream waits for staging here, ahead of the
+            # span `runtime.device`, which then times the solve alone
+            self.optimizer._consume(staged)
+            staged = dataclasses.replace(staged, ready=None)
         self._dispatch(lambda: self.optimizer.optimize_chunks_batched(
-            staged, mode=mode))
+            staged, mode=mode), staged.request)
 
     def _finish_oldest(self) -> None:
-        result, done = self._in_flight.popleft()
+        result, start, done, request = self._in_flight.popleft()
         _wait(done)
+        if start is not None:
+            RECORDER.device_span("runtime.device",
+                                 1e-3 * start.elapsed_time(done), request)
         self._completed.append(result)
-        self.meter.total_units += _units(result)
 
     def drain(self) -> list[ChunkResult]:
         """Wait for all in-flight work; return every completed result in
         submission order and reset the pipeline."""
         while self._in_flight:
             self._finish_oldest()
-        if self._t_first is not None:
-            self.meter.total_seconds += time.perf_counter() - self._t_first
         out = self._completed
         self._completed = []
-        self._t_first = None
         return out
 
     def process_all(self, chunks) -> list[ChunkResult]:
@@ -238,7 +244,9 @@ class StagePrefetcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with RECORDER.span("prefetch.wait") as span:
+                item = self._q.get()
+                span.request = getattr(item, "request", None)
             if item is self._DONE:
                 if self._err is not None:
                     raise self._err
@@ -269,8 +277,6 @@ class MultiStreamOptimizer:
         self._in_flight: collections.deque = collections.deque()
         self._completed: dict[str, list[ChunkResult]] = {}
         self.dispatch_order: list[str] = []
-        self.meter = ThroughputMeter(unit="chunks")
-        self._t_first: float | None = None
 
     def open_stream(self, name: str, priority: int = 0) -> None:
         if name in self._priorities:
@@ -284,8 +290,6 @@ class MultiStreamOptimizer:
         slots free up."""
         if name not in self._priorities:
             raise KeyError(f"unknown stream {name!r}; open_stream first")
-        if self._t_first is None:
-            self._t_first = time.perf_counter()
         heapq.heappush(self._pending,
                        (-self._priorities[name], self._seq, name, chunk))
         self._seq += 1
@@ -312,7 +316,6 @@ class MultiStreamOptimizer:
         name, result, done = self._in_flight.popleft()
         _wait(done)
         self._completed[name].append(result)
-        self.meter.total_units += 1
 
     def drain(self) -> dict[str, list[ChunkResult]]:
         """Wait for everything; return {stream: results in submission
@@ -320,9 +323,6 @@ class MultiStreamOptimizer:
         while self._in_flight or self._pending:
             self._finish_oldest()
             self._pump()
-        if self._t_first is not None:
-            self.meter.total_seconds += time.perf_counter() - self._t_first
         out = self._completed
         self._completed = {k: [] for k in self._priorities}
-        self._t_first = None
         return out

@@ -72,6 +72,7 @@ from globalegomocap_tpu_torch.ops.random import fold_in, normal, prng_key
 from globalegomocap_tpu_torch.optimize.prior_bank import windows_accel_stat
 from globalegomocap_tpu_torch.parallel.mesh import (
     Mesh, all_reduce, make_mesh, pad_to_multiple, replicate, shard_batch)
+from globalegomocap_tpu_torch.utils.profiling import RECORDER
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -181,31 +182,42 @@ def make_train_step(model: ConvVAE, optimizer: torch.optim.Optimizer,
     'kld_loss') are 0-d device tensors; the step reads nothing back.
     Over a `mesh` of several ranks `batch` is this rank's rows of the
     global batch, its noise those rows of the global batch's, and the
-    metrics are the global batch's."""
+    metrics are the global batch's.  Spans: `train.step` (request id
+    `count`) around `train.forward`, `train.backward` (the all-reduce
+    included) and `train.optimizer`."""
     size = 1 if mesh is None else mesh.size
     key = prng_key(seed)
 
     def step(batch: torch.Tensor, count: int) -> dict:
-        for group in optimizer.param_groups:
-            group["lr"] = spec.lr_at(count)
-        mu, log_var = model.encode(batch, train=True, mesh=mesh)
-        noise = step_noise(key, count, mu.shape, mu.dtype, mu.device,
-                           row=0 if size == 1 else mesh.rank * mu.shape[0])
-        z = reparameterize(mu, log_var, noise)
-        recon = model.decode(z, train=True, mesh=mesh)
-        loss, recon_loss, kld = vae_loss(recon, batch, mu, log_var,
-                                         kld_weight)
-        optimizer.zero_grad(set_to_none=True)
-        if size == 1:
-            loss.backward()
-            optimizer.step()
-            return {"loss": loss.detach(), "recon_loss": recon_loss.detach(),
-                    "kld_loss": kld.detach()}
-        (loss / size).backward()
-        total = all_reduce_grads(mesh, model.parameters(), torch.stack(
-            [loss, recon_loss, kld]).detach() / size)
-        optimizer.step()
-        return dict(zip(("loss", "recon_loss", "kld_loss"), total.unbind()))
+        with RECORDER.span("train.step", request=count, cpu=True):
+            with RECORDER.span("train.forward"):
+                for group in optimizer.param_groups:
+                    group["lr"] = spec.lr_at(count)
+                mu, log_var = model.encode(batch, train=True, mesh=mesh)
+                noise = step_noise(
+                    key, count, mu.shape, mu.dtype, mu.device,
+                    row=0 if size == 1 else mesh.rank * mu.shape[0])
+                z = reparameterize(mu, log_var, noise)
+                recon = model.decode(z, train=True, mesh=mesh)
+                loss, recon_loss, kld = vae_loss(recon, batch, mu, log_var,
+                                                 kld_weight)
+            with RECORDER.span("train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                if size == 1:
+                    loss.backward()
+                    metrics = {"loss": loss.detach(),
+                               "recon_loss": recon_loss.detach(),
+                               "kld_loss": kld.detach()}
+                else:
+                    (loss / size).backward()
+                    total = all_reduce_grads(
+                        mesh, model.parameters(),
+                        torch.stack([loss, recon_loss, kld]).detach() / size)
+                    metrics = dict(zip(("loss", "recon_loss", "kld_loss"),
+                                       total.unbind()))
+            with RECORDER.span("train.optimizer"):
+                optimizer.step()
+            return metrics
 
     return step
 
@@ -288,13 +300,15 @@ class Trainer:
     def _device_batch(self, batch: np.ndarray, axis: int = 0
                       ) -> torch.Tensor:
         """This rank's rows (along `axis`) of a host batch, on the
-        device."""
-        batch = shard_batch(self.mesh, batch, axis)
-        t = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
-        if self.device.type == "cuda":
-            # from pinned memory the copy is asynchronous
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        device: the span `train.batch`, under the id of the next step."""
+        with RECORDER.span("train.batch", request=self.step):
+            batch = shard_batch(self.mesh, batch, axis)
+            t = torch.from_numpy(np.ascontiguousarray(batch,
+                                                      dtype=np.float32))
+            if self.device.type == "cuda":
+                # from pinned memory the copy is asynchronous
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
 
     def _run(self, batches, running: dict) -> int:
         """Train on each batch of a (S, B, T, 45) device tensor (or a list

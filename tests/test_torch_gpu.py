@@ -531,6 +531,46 @@ def test_prefetcher_hands_batches_over_by_event(gen):
         x.numel() * x.element_size() for x in direct)
 
 
+
+def test_runtime_counts_staged_bytes_and_times_the_card(gen):
+    """The port's recorder on the card: a request's `stage.h2d_bytes`
+    equal the bytes that cross to it (host staging: every staged tensor;
+    device staging: the full float32 maps and the fields), and its
+    `runtime.device`, two CUDA events on the solve's stream, is positive
+    and no longer than the host's time from its submission to its
+    retirement."""
+    import time
+    from globalegomocap_tpu_torch.optimize.streaming import (
+        StreamingOptimizer)
+    from globalegomocap_tpu_torch.utils.profiling import RECORDER
+    opt, cs = _small_optimizer()
+    t0 = time.perf_counter()
+
+    def sent(staged):
+        return sum(r.value for r in RECORDER.records()
+                   if r.name == "stage.h2d_bytes" and r.start >= t0
+                   and r.request == staged.request)
+
+    host = opt.stage(cs, on_host=True)
+    assert sent(host) == sum(t.numel() * t.element_size()
+                             for t in host.tensors())
+    dev = opt.stage(cs, on_host=False)
+    fields = (dev.est, dev.cams, dev.gt)
+    assert sent(dev) == sum(np.asarray(c.heatmaps).size * 4 for c in cs) \
+        + sum(t.numel() * t.element_size() for t in fields)
+    service = StreamingOptimizer(opt, max_in_flight=1)
+    service.submit_batch(dev)                 # warm
+    service.drain()
+    torch.cuda.synchronize()
+    t_submit = time.perf_counter()
+    service.submit_batch(dev)
+    assert len(service.drain()) == 1
+    t_retired = time.perf_counter()
+    card = [r for r in RECORDER.records() if r.name == "runtime.device"
+            and r.request == dev.request and r.start >= t_submit]
+    assert len(card) == 1
+    assert 0.0 < card[0].value <= t_retired - t_submit
+
 def _tiny_trainer(device, windows):
     from globalegomocap_tpu_torch.config import TrainConfig
     from globalegomocap_tpu_torch.data.amass import AmassWindows

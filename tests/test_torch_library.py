@@ -52,6 +52,7 @@ DEPARTURES = {
     ("models/conv_vae.py", "ConvBNAct"),
     ("optimize/prior_bank.py", "motion_accel_stat_jax"),
     ("evaluation/metrics.py", "calculate_errors_jit"),
+    ("utils/profiling.py", "ThroughputMeter"),
 }
 DEPARTED_MODULES = {"models/torch_convert.py"}
 
