@@ -29,7 +29,10 @@ the solve's constants (the camera, the weight rows, the window and merge
 tables, the step lengths) are built on the device once, so the call only
 queues work and request t+1 can be dispatched while request t solves.
 Staging copies through pinned host buffers without blocking, on the
-caller's current stream; a batch staged on another stream (the
+caller's current stream: the full maps of device staging each cross
+once, in the memory order they arrive in, through a ring of pinned slots
+the optimizer reuses across requests (`optimize/transfer.py`), and the
+card reorders them; a batch staged on another stream (the
 `streaming.StagePrefetcher`'s) carries an event that the solve's stream
 waits on.
 """
@@ -59,7 +62,7 @@ from globalegomocap_tpu_torch.models.conv_vae import ConvVAE
 from globalegomocap_tpu_torch.models.fold_bn import fold_batchnorm
 from globalegomocap_tpu_torch.native.hostcrop import crop_peak_native
 from globalegomocap_tpu_torch.ops import fisheye
-from globalegomocap_tpu_torch.optimize import pipeline
+from globalegomocap_tpu_torch.optimize import pipeline, transfer
 from globalegomocap_tpu_torch.optimize.pipeline import ChunkResult
 from globalegomocap_tpu_torch.optimize.prior_bank import (
     PriorBank, motion_accel_stat, motion_accel_stat_torch, nearest_index)
@@ -160,6 +163,9 @@ class SequenceOptimizer:
         self.last_prior_name: str | None = None
         self._warned_mismatch = False
         self._requests = itertools.count()
+        # the pinned host slots device staging copies the maps through
+        self._ring = transfer.PinnedRing() \
+            if self.device.type == "cuda" else None
         self.local_model, self.global_model, self._stages = \
             self._stage_pair(model, local_state, global_state)
         # the bank as it is now, each entry staged: its names, statistics
@@ -404,11 +410,12 @@ class SequenceOptimizer:
     def _stage_device(self, chunks: list[TestChunk],
                       coverage: float | None, n_real: int) -> StagedBatch:
         """stage(on_host=False) of this rank's chunks (the first `n_real`
-        of them real): each chunk's full maps go to the device once; the
-        crops are cut there (`crop_heatmaps_channels_last`, a gather: the
-        JAX package's `stage_crop_impl="onehot"` is a TPU matmul trick for
-        the same selection) over segments of cfg.stage_segment_chunks
-        chunks, as the JAX driver segments its staging program; the
+        of them real): each chunk's full maps go to the device once
+        (`_put_maps`); the crops are cut there
+        (`crop_heatmaps_channels_last`, a gather: the JAX package's
+        `stage_crop_impl="onehot"` is a TPU matmul trick for the same
+        selection) over segments of cfg.stage_segment_chunks chunks, as
+        the JAX driver segments its staging program; the
         guard's coverage is computed on the device (`crop_coverage_mean`)
         and read back once for the batch.  The estimate centres of a
         tripped guard come from the host estimates, as in host staging,
@@ -417,8 +424,7 @@ class SequenceOptimizer:
         kk = cfg.heatmap_crop
         use_reproj = cfg.energy.reproj != 0.0
         with RECORDER.span("stage.copy"):
-            maps = [self._put(np.asarray(c.heatmaps, dtype=np.float32))
-                    for c in chunks]
+            maps = self._put_maps(chunks)
         seg = cfg.stage_segment_chunks
         n = len(chunks)
         parts = ([list(range(i, min(i + seg, n))) for i in range(0, n, seg)]
@@ -429,32 +435,29 @@ class SequenceOptimizer:
             # weighted by their sizes, is the mean over every map
             real = [q for q in ([i for i in p if i < n_real] for p in parts)
                     if q]
-            total = sum(crop_coverage_mean(torch.stack([maps[i] for i in p])
+            total = sum(crop_coverage_mean(maps[p[0]:p[-1] + 1]
                                            .movedim(-1, -3), kk) * len(p)
                         for p in real)
             cov = (float(total / n) if self.mesh.size == 1
                    else self._mean_over_ranks(total, n_real))
         eff = self._cfg_for_coverage(cov)
         k = eff.heatmap_crop if use_reproj else 0
-        full_hw = tuple(maps[0].shape[-3:-1]) if k > 0 else None
+        full_hw = tuple(maps.shape[-3:-1]) if k > 0 else None
         crops_l, orgs_l = [], []
-        for p in parts:
-            if k <= 0:
-                crops_l.append(torch.stack([maps[i] for i in p]))
-                continue
+        for p in parts if k > 0 else ():
+            seg_maps = maps[p[0]:p[-1] + 1]
             if eff.crop_center == "peak":
-                cr, org, _ = crop_heatmaps_channels_last(
-                    torch.stack([maps[i] for i in p]), k)
+                cr, org, _ = crop_heatmaps_channels_last(seg_maps, k)
             else:
                 hh, ww = full_hw
                 cen = torch.from_numpy(np.stack([
                     self._estimate_centers(chunks[i], hh, ww) for i in p]))
                 cr, org, _ = crop_heatmaps_at_centers_channels_last(
-                    torch.stack([maps[i] for i in p]), k,
-                    self._put(cen))
+                    seg_maps, k, self._put(cen))
             crops_l.append(cr.reshape(cr.shape[:2] + (-1,)))
             orgs_l.append(org)
-        heat = torch.cat(crops_l)
+        # no crops, or a tripped guard with guard_crop = 0: the full maps
+        heat = torch.cat(crops_l) if k > 0 else maps
         if cfg.heatmap_dtype == "bfloat16":
             heat = heat.to(torch.bfloat16)     # after the f32 argmax
         with RECORDER.span("stage.copy"):
@@ -474,6 +477,48 @@ class SequenceOptimizer:
             torch.from_numpy(np.asarray(chunk.estimated_local,
                                         dtype=np.float32)),
             self._camera, h, w).numpy()
+
+    def _put_maps(self, chunks: list[TestChunk]) -> torch.Tensor:
+        """The chunks' full maps as one float32 (C, F, H, W, J) tensor on
+        the solve device, contiguous: what `torch.stack` of each chunk's
+        channels-last maps gives.  Each chunk's maps cross once, in their
+        own memory order (`transfer.memory_order`): on the card through a
+        slot of the optimizer's pinned ring, filled by one host copy and
+        copied without blocking on the current stream, then reordered on
+        the card where that order is not channels-last; an array that is
+        no permutation of a contiguous float32 buffer is copied in its
+        logical order, with the cast.  Counted under `stage.h2d_bytes`
+        and, for the maps reordered on the card, `stage.relayout_bytes`
+        (both 0 on the CPU, where the copy reorders in place)."""
+        first = np.asarray(chunks[0].heatmaps)
+        out = torch.empty((len(chunks),) + first.shape, dtype=torch.float32,
+                          device=self.device)
+        cuda = self.device.type == "cuda"
+        for dst, c in zip(out, chunks):
+            x = np.asarray(c.heatmaps)
+            if x.shape != first.shape:
+                raise ValueError(f"maps of shape {x.shape} beside "
+                                 f"{first.shape}")
+            view, perm = transfer.memory_order(x)
+            src = x if view is None else view
+            nbytes = dst.numel() * dst.element_size()
+            relayout = perm != tuple(range(len(perm)))
+            RECORDER.count("stage.h2d_bytes", nbytes if cuda else 0)
+            RECORDER.count("stage.relayout_bytes",
+                           nbytes if cuda and relayout else 0)
+            if not cuda:        # dst's axes in src's order
+                transfer.fill(dst.permute([perm.index(a) for a in
+                                           range(len(perm))]), src)
+                continue
+            with self._ring.slot(nbytes, self.device) as buf:
+                host = buf[:nbytes].view(torch.float32).view(src.shape)
+                transfer.fill(host, src)
+                dev = torch.empty(src.shape, dtype=torch.float32,
+                                  device=self.device) if relayout else dst
+                dev.copy_(host, non_blocking=True)
+            if relayout:
+                dst.copy_(dev.permute(perm))
+        return out
 
     def _put(self, x) -> torch.Tensor:
         """A host array or tensor on the solve device: on the card through

@@ -33,8 +33,10 @@ The port's spans and counters, from the request down:
 | Name | Kind | Where | Meaning |
 | --- | --- | --- | --- |
 | `stage` | span, CPU time | `optimize/driver.py::SequenceOptimizer.stage` | staging one batch of chunks; opens the request id (a per-optimizer sequence number, carried on as `StagedBatch.request`) |
-| `stage.copy` | span | `_stage_device`, `_stage_host` | the host-to-device copies of the maps and of the fields (pinning included), one span each |
-| `stage.h2d_bytes` | counter | `SequenceOptimizer._put` | bytes that cross to the card (0 on the CPU) |
+| `stage.copy` | span | `_stage_device`, `_stage_host` | the host-to-device copies of the maps and of the fields (the fill of the pinned memory included), one span each |
+| `stage.ring_wait` | span | `optimize/transfer.py::PinnedRing.slot`, inside `stage.copy` | waiting until a pinned slot of the ring is free and its last copy to the card has finished |
+| `stage.h2d_bytes` | counter | `SequenceOptimizer._put`, `_put_maps` | bytes that cross to the card (0 on the CPU) |
+| `stage.relayout_bytes` | counter | `SequenceOptimizer._put_maps` (`_stage_device`) | map bytes that crossed in an order other than channels-last and were reordered on the card (0 on the CPU) |
 | `prefetch.wait` | span | `optimize/streaming.py::StagePrefetcher.__iter__` | the consumer waiting for a staged batch; the id of the batch it got |
 | `runtime.slot_wait` | span | `StreamingOptimizer` (`submit`, `submit_batch`) | waiting for an in-flight submission to finish until a slot is free |
 | `dispatch` | span, CPU time | `SequenceOptimizer.optimize_chunks_batched` | the enqueue of one batched solve |

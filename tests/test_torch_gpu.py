@@ -571,6 +571,58 @@ def test_runtime_counts_staged_bytes_and_times_the_card(gen):
     assert len(card) == 1
     assert 0.0 < card[0].value <= t_retired - t_submit
 
+
+def test_prefetcher_stages_maps_through_the_pinned_ring(gen):
+    """Device staging copies each chunk's maps once, in their memory
+    order, through the optimizer's ring of pinned slots and reorders them
+    on the card.  Requests of four chunks in three orders, from the
+    generator's channels-first views and from contiguous copies, staged
+    by a prefetcher of depth 2 while the main thread stages the same
+    chunks through the same ring: each equals host staging bit for bit (a
+    slot refilled before its copy to the card finished shows up as a
+    wrong crop); the ring keeps its slots and their bytes after the first
+    request; `stage.relayout_bytes` counts the maps' bytes for the views
+    and 0 for the contiguous maps."""
+    from globalegomocap_tpu_torch.data.synthetic import synthetic_chunk
+    from globalegomocap_tpu_torch.optimize.streaming import StagePrefetcher
+    from globalegomocap_tpu_torch.utils.profiling import RECORDER
+    opt, _ = _small_optimizer()
+    views = [synthetic_chunk(26, seed=s) for s in (1, 2, 3, 4)]
+    assert not views[0].heatmaps.flags.c_contiguous
+    flat = [c._replace(heatmaps=np.ascontiguousarray(c.heatmaps))
+            for c in views]
+    orders = [(0, 1, 2, 3), (3, 1, 0, 2), (2, 3, 1, 0)]
+    batches = [[pool[i] for i in o] for pool in (views, flat)
+               for o in orders]
+    maps_bytes = sum(c.heatmaps.nbytes for c in views)
+    opt.stage(batches[0], on_host=False)
+    torch.cuda.synchronize()
+    sizes = opt._ring.sizes()
+    assert sizes == [views[0].heatmaps.nbytes] * 2
+
+    def same_as_host(staged, batch):
+        host = opt.stage(batch, coverage=staged.crop_coverage, on_host=True)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(staged.tensors(), host.tensors()))
+
+    def relayout(staged):
+        return sum(r.value for r in RECORDER.records()
+                   if r.name == "stage.relayout_bytes"
+                   and r.request == staged.request)
+
+    coverage = opt.stage(batches[0], on_host=True).crop_coverage
+    for k, staged in enumerate(StagePrefetcher(opt, batches, depth=2)):
+        inline = opt.stage(batches[k], coverage=staged.crop_coverage,
+                           on_host=False)      # the ring, from this thread
+        staged.ready.synchronize()
+        torch.cuda.synchronize()
+        assert abs(staged.crop_coverage - coverage) <= 1e-6 * coverage
+        same_as_host(staged, batches[k])
+        same_as_host(inline, batches[k])
+        want = maps_bytes if k < len(orders) else 0
+        assert relayout(staged) == want and relayout(inline) == want
+    assert opt._ring.sizes() == sizes
+
 def _tiny_trainer(device, windows):
     from globalegomocap_tpu_torch.config import TrainConfig
     from globalegomocap_tpu_torch.data.amass import AmassWindows

@@ -190,3 +190,87 @@ def test_staging_defaults_to_the_device(optimizers):
     _, topt = optimizers["bfloat16"]
     assert inspect.signature(topt.stage).parameters["on_host"].default \
         is False
+
+
+def _layout(maps, layout):
+    """The same (F, H, W, J) float32 maps in another memory layout."""
+    maps = np.asarray(maps, dtype=np.float32)
+    if layout == "channels_last":
+        return np.ascontiguousarray(maps)
+    if layout == "channels_first_view":      # how the generators hand over
+        return np.ascontiguousarray(maps.transpose(0, 3, 1, 2)) \
+            .transpose(0, 2, 3, 1)
+    if layout == "strided_slice":            # no permutation of a buffer
+        return np.repeat(maps, 2, axis=0)[::2]
+    return maps.astype(np.float64)
+
+
+LAYOUTS = ("channels_last", "channels_first_view", "strided_slice",
+           "float64")
+
+
+@pytest.mark.parametrize("coverage", [None, 0.1])
+@pytest.mark.parametrize("layout", LAYOUTS + ("mixed",))
+def test_device_staging_equals_host_staging_over_map_layouts(
+        optimizers, layout, coverage):
+    """Device staging moves each chunk's maps in their own memory order
+    and reorders them on the device: whatever the source's layout, the
+    crops, origins, fields and coverage are those of contiguous maps bit
+    for bit, the same as host staging's (the coverage within host
+    staging's float32 rounding), with the same guard decision, at the
+    peak crops and at a tripped guard's estimate-centred crops."""
+    _, topt = optimizers["bfloat16"]
+    base = [port_chunk(c) for c in chunks(26, (1, 2, 3))]
+
+    def laid_out(name):
+        return [c._replace(heatmaps=_layout(
+            c.heatmaps, LAYOUTS[i % len(LAYOUTS)] if name == "mixed"
+            else name)) for i, c in enumerate(base)]
+
+    cs = laid_out(layout)
+    before = [c.heatmaps.copy() for c in cs]
+    dev = topt.stage(cs, coverage=coverage, on_host=False)
+    ref = topt.stage(laid_out("channels_last"), coverage=coverage,
+                     on_host=False)
+    host = topt.stage(cs, coverage=coverage, on_host=True)
+    for a, b, h in zip(dev.tensors(), ref.tensors(), host.tensors()):
+        assert a.dtype == b.dtype == h.dtype
+        assert torch.equal(a, b) and torch.equal(a, h)
+    assert dev.crop_coverage == ref.crop_coverage
+    np.testing.assert_allclose(dev.crop_coverage, host.crop_coverage,
+                               rtol=1e-6)
+    assert topt._cfg_for_coverage(dev.crop_coverage) == \
+        topt._cfg_for_coverage(host.crop_coverage)
+    for c, m in zip(cs, before):             # the sources are only read
+        np.testing.assert_array_equal(c.heatmaps, m)
+
+
+def test_memory_order_views_without_a_copy():
+    """`memory_order` gives a C-contiguous view of the array's own memory
+    and the permutation back to its axes; an array that is no permutation
+    of a contiguous float32 buffer falls back to the identity and no
+    view, and `fill` copies it in its logical order with the cast."""
+    from globalegomocap_tpu_torch.optimize.transfer import (
+        fill, memory_order)
+    rng = np.random.default_rng(0)
+    maps = rng.random((5, 6, 7, 3), dtype=np.float32)
+    view, perm = memory_order(maps)
+    assert perm == (0, 1, 2, 3) and view.flags.c_contiguous
+    assert view.ctypes.data == maps.ctypes.data
+    cf = _layout(maps, "channels_first_view")
+    view, perm = memory_order(cf)
+    assert perm == (0, 2, 3, 1) and view.shape == (5, 3, 6, 7)
+    assert view.flags.c_contiguous and view.ctypes.data == cf.ctypes.data
+    assert view.transpose(perm).strides == cf.strides
+    np.testing.assert_array_equal(view.transpose(perm), maps)
+    for layout in ("strided_slice", "float64"):
+        x = _layout(maps, layout)
+        assert memory_order(x) == (None, (0, 1, 2, 3))
+        dst = torch.empty(x.shape, dtype=torch.float32)
+        fill(dst, x)
+        np.testing.assert_array_equal(dst.numpy(), maps)
+    for x in (maps[::-1], maps.astype(">f4")):   # numpy's copy
+        assert memory_order(x)[0] is None
+        dst = torch.empty(x.shape, dtype=torch.float32)
+        fill(dst, x)
+        np.testing.assert_array_equal(dst.numpy(), x)
